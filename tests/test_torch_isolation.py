@@ -1,0 +1,54 @@
+"""yanerf_tpu_torch imports neither JAX nor yanerf_tpu.
+
+The port must install and run without the JAX package. Note the prefix:
+``yanerf_tpu_torch`` starts with ``yanerf_tpu``, so the checks match
+``yanerf_tpu`` only when it is not followed by ``_torch``.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "yanerf_tpu_torch"
+FORBIDDEN_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|yanerf_tpu(?!_torch))\b", re.MULTILINE)
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_importing_every_port_module_leaves_jax_and_yanerf_tpu_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import yanerf_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(yanerf_tpu_torch.__path__, 'yanerf_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'yanerf_tpu'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 20 else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_port_source_imports_jax_or_yanerf_tpu():
+    offenders = [
+        f"{path.relative_to(REPO)}: {m.group(0).strip()}"
+        for path in _port_sources()
+        for m in FORBIDDEN_IMPORT.finditer(path.read_text())
+    ]
+    assert not offenders, offenders
+
+
+def test_the_scan_tells_the_packages_apart():
+    assert FORBIDDEN_IMPORT.search("from yanerf_tpu.ops import rays")
+    assert FORBIDDEN_IMPORT.search("import jax.numpy as jnp")
+    assert FORBIDDEN_IMPORT.search("    from yanerf_tpu import utils")
+    assert not FORBIDDEN_IMPORT.search("from yanerf_tpu_torch.ops import rays")
+    assert not FORBIDDEN_IMPORT.search("import yanerf_tpu_torch")

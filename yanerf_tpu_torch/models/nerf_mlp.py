@@ -1,0 +1,175 @@
+"""The NeRF implicit function.
+
+Counterpart of ``yanerf_tpu/models/nerf_mlp.py::NeRFMLP``: a harmonic
+embedding of the points (10 frequencies) and normalized directions (4), an
+``n_layers`` MLP with input skips, a density head and a color head
+(intermediate linear -> linear-with-repeat over the direction embedding ->
+ReLU -> [extra layers] -> linear -> sigmoid).
+
+Two paths, chosen by ``use_pallas`` (the config key is the JAX package's, so
+both packages read the same configs):
+  * the eager path, the model's own, with the JAX package's bf16 policy;
+  * the fused kernel (``ops/kernels/nerf_mlp_fwd.py``): the CUDA kernel on
+    the card, its plain version on the CPU.
+
+Latent conditioning and contracted coordinates are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.harmonics import harmonic_embedding, harmonic_embedding_dim
+from ..ops.kernels import nerf_mlp_fwd as fused
+from ..ops.rays import ray_bundle_to_ray_points
+from .builder import MODELS
+from .layers import Linear, init_linear_default, init_linear_xavier, linear, linear_with_repeat
+from .mlp import MLPWithInputSkips
+
+
+def as_torch_dtype(name) -> torch.dtype:
+    """``"bfloat16"`` / ``"float32"`` (the configs' spelling) -> torch dtype."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, str(name))
+
+
+@MODELS.register_module()
+class NeRFMLP(nn.Module):
+    def __init__(
+        self,
+        n_layers: int = 8,
+        input_skips: Sequence[int] = (5,),
+        n_harmonic_functions_xyz: int = 10,
+        harmonic_functions_xyz_append_intput: bool = True,
+        n_hidden_neurons_xyz: int = 256,
+        n_harmonic_functions_dir: int = 4,
+        harmonic_functions_dir_append_intput: bool = True,
+        n_hidden_neurons_dir: int = 128,
+        latent_dim: int = 0,
+        input_xyz: bool = True,
+        input_dir: bool = True,
+        color_dim: int = 3,
+        nerf_paper_v1: bool = False,
+        compute_dtype: str = "float32",
+        use_pallas: bool = False,
+        use_pallas_train: bool = False,
+        contract_coords: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        if latent_dim != 0 or not input_xyz or contract_coords:
+            raise NotImplementedError(
+                "latent conditioning, input_xyz=False and contract_coords are not ported yet (ROADMAP.md Queue 1)"
+            )
+        self.n_layers = n_layers
+        self.input_skips = tuple(input_skips)
+        self.n_harmonic_functions_xyz = n_harmonic_functions_xyz
+        self.harmonic_functions_xyz_append_intput = harmonic_functions_xyz_append_intput
+        self.n_hidden_neurons_xyz = n_hidden_neurons_xyz
+        self.n_harmonic_functions_dir = n_harmonic_functions_dir
+        self.harmonic_functions_dir_append_intput = harmonic_functions_dir_append_intput
+        self.n_hidden_neurons_dir = n_hidden_neurons_dir
+        self.latent_dim = latent_dim
+        self.input_xyz = input_xyz
+        self.input_dir = input_dir
+        self.color_dim = color_dim
+        self.compute_dtype = as_torch_dtype(compute_dtype)
+        self.use_pallas = use_pallas
+        self.use_pallas_train = use_pallas_train
+
+        self.embedding_dim_xyz = harmonic_embedding_dim(3, n_harmonic_functions_xyz, harmonic_functions_xyz_append_intput)
+        self.embedding_dim_dir = harmonic_embedding_dim(3, n_harmonic_functions_dir, harmonic_functions_dir_append_intput)
+        self.input_dim = self.embedding_dim_xyz
+        self.n_extra_color_layers = (n_layers // 4) if nerf_paper_v1 else 0
+
+        # parameters are created in the JAX package's init order
+        self.xyz_encoder = MLPWithInputSkips(
+            n_layers=n_layers,
+            input_dim=self.input_dim,
+            output_dim=n_hidden_neurons_xyz,
+            skip_dim=self.input_dim,
+            hidden_dim=n_hidden_neurons_xyz,
+            input_skips=self.input_skips,
+            compute_dtype=self.compute_dtype,
+            generator=generator,
+        )
+        h = n_hidden_neurons_xyz
+        self.intermediate_linear = init_linear_xavier(Linear(h, h), generator)
+        self.density_layer = init_linear_xavier(Linear(h, 1), generator, zero_bias=True)
+        color_in = h + (self.embedding_dim_dir if input_dir else 0)
+        color_layers = [init_linear_default(Linear(color_in, n_hidden_neurons_dir), generator)]
+        for _ in range(self.n_extra_color_layers):
+            color_layers.append(init_linear_default(Linear(n_hidden_neurons_dir, n_hidden_neurons_dir), generator))
+        color_layers.append(init_linear_default(Linear(n_hidden_neurons_dir, color_dim), generator))
+        self.color_layer = nn.ModuleList(color_layers)
+        self._packed = None  # (key, PackedNerfMlp) of the kernel's weights
+
+    # -- the fused kernel's weights -------------------------------------------
+    def packed_weights(self) -> fused.PackedNerfMlp:
+        """The kernel-order, padded weights, packed once per set of parameters.
+
+        Repacked only when a parameter was replaced or written to in place
+        (``_version``), or the module moved device.
+        """
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, fused.pack_weights(self))
+        return self._packed[1]
+
+    # -- forward ----------------------------------------------------------------
+    def _get_colors(self, features: torch.Tensor, rays_directions: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        inter = linear(self.intermediate_linear, features, cd)
+        if self.input_dir:
+            dir_norm = rays_directions / torch.clamp(
+                torch.linalg.vector_norm(rays_directions, dim=-1, keepdim=True), min=1e-12
+            )
+            rays_embedding = harmonic_embedding(
+                dir_norm, self.n_harmonic_functions_dir, append_input=self.harmonic_functions_dir_append_intput
+            )
+            color = linear_with_repeat(self.color_layer[0], inter, rays_embedding, cd)
+        else:
+            color = linear(self.color_layer[0], inter, cd)
+        color = F.relu(color)
+        for layer in self.color_layer[1:-1]:
+            color = F.relu(linear(layer, color, cd))
+        return torch.sigmoid(linear(self.color_layer[-1], color, cd).to(torch.float32))
+
+    def forward(
+        self,
+        origins: torch.Tensor,
+        directions: torch.Tensor,
+        lengths: torch.Tensor,
+        global_codes: Optional[torch.Tensor] = None,
+        use_pallas: Optional[bool] = None,
+        **kwargs,
+    ) -> Dict[str, Any]:
+        """Densities ``(B, *spatial, P, 1)`` and colors ``(B, *spatial, P, C)`` at all ray points."""
+        if global_codes is not None:
+            raise ValueError(f"global_codes given but latent_dim is {self.latent_dim}")
+        points = ray_bundle_to_ray_points(origins, directions, lengths)
+        use_pallas = self.use_pallas if use_pallas is None else use_pallas
+        if use_pallas:
+            *lead, n_pts, _ = points.shape
+            out = fused.nerf_mlp_fwd(
+                self.packed_weights(),
+                points.reshape(-1, 3).contiguous(),
+                directions.reshape(-1, 3).contiguous(),
+                n_pts,
+            )
+            return dict(
+                rays_densities=out[:, :1].reshape(*lead, n_pts, 1),
+                rays_features=out[:, 1:].reshape(*lead, n_pts, self.color_dim),
+                aux={},
+            )
+
+        embeds = harmonic_embedding(
+            points, self.n_harmonic_functions_xyz, append_input=self.harmonic_functions_xyz_append_intput
+        )
+        features = self.xyz_encoder(embeds)
+        raw_densities = linear(self.density_layer, features, self.compute_dtype).to(torch.float32)
+        rays_colors = self._get_colors(features, directions)
+        return dict(rays_densities=raw_densities, rays_features=rays_colors, aux={})

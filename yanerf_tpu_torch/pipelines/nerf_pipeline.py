@@ -1,0 +1,251 @@
+"""NeRF pipeline orchestration: rays -> models -> renderer -> losses.
+
+Counterpart of ``yanerf_tpu/pipelines/nerf_pipeline.py::NeRFPipeline`` in
+EVALUATION mode. The pipeline is an ``nn.Module`` holding the implicit
+functions, so its state dict keys are the JAX param tree's dotted paths
+(``implicit_functions.2.xyz_encoder.mlp.0.w``). The full grid renders in
+chunks with the reference's arithmetic, ``n_chunks = ceil(n_rays * P /
+chunk_size_grid)``, edge-padded to equal size; a Python loop over the
+chunks replaces ``lax.map``. Training mode is the next slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+
+import torch
+import torch.nn as nn
+
+from ..models import MODELS
+from ..ops.metrics import sample_grid, view_metrics
+from ..ops.structures import EvaluationMode, RendererOutput, RenderSamplingMode
+from ..utils import resolve_device
+from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS
+
+
+@PIPELINES.register_module()
+class NeRFPipeline(nn.Module):
+    def __init__(
+        self,
+        ray_sampler: Dict[str, Any],
+        model: Union[Dict[str, Any], Sequence[Dict[str, Any]]],
+        feature_extractor: Union[Dict[str, Any], Sequence[Dict[str, Any]], None],
+        renderer: Dict[str, Any],
+        chunk_size_grid: int,
+        num_passes: int,
+        loss_weights: Optional[Dict[str, float]] = None,
+        output_rasterized_mc: bool = False,
+        remat_models: bool = False,
+        generator: Optional[torch.Generator] = None,
+        device: Union[str, torch.device] = "cuda",
+    ) -> None:
+        """Build the stages; weights are drawn from ``generator`` and moved to ``device``."""
+        super().__init__()
+        device = resolve_device(device)
+        self.ray_sampler = RAY_SAMPLERS.build(dict(ray_sampler))
+        self.render_image_height = self.ray_sampler.image_height
+        self.render_image_width = self.ray_sampler.image_width
+        self.sampling_mode_training = self.ray_sampler.sampling_mode(EvaluationMode.TRAINING)
+        self.sampling_mode_evaluation = self.ray_sampler.sampling_mode(EvaluationMode.EVALUATION)
+
+        if isinstance(model, Sequence) and not isinstance(model, dict):
+            model_cfgs = list(model)
+            num_passes = len(model_cfgs)
+        else:
+            model_cfgs = [model] * num_passes
+        self.num_passes = num_passes
+        self.implicit_functions = nn.ModuleList(MODELS.build(dict(cfg), generator=generator) for cfg in model_cfgs)
+
+        if feature_extractor is None:
+            feature_extractor = []
+        if isinstance(feature_extractor, dict):
+            feature_extractor = [feature_extractor]
+        self.feature_extractors = nn.ModuleList(
+            FEATURE_EXTRACTORS.build(dict(cfg), generator=generator) for cfg in feature_extractor
+        )
+
+        self.renderer = RENDERERS.build(dict(renderer))
+        self.chunk_size_grid = chunk_size_grid
+        if loss_weights is None:
+            loss_weights = {"loss_rgb_mse": 1.0, "loss_prev_stage_rgb_mse": 1.0}
+        self.loss_weights = dict(loss_weights)
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def forward(
+        self,
+        *,
+        poses: torch.Tensor,
+        focal_lengths: torch.Tensor,
+        image_height: Optional[int] = None,
+        image_width: Optional[int] = None,
+        min_depth=None,
+        max_depth=None,
+        bg_image_rgb: Optional[torch.Tensor] = None,
+        image_rgb: Optional[torch.Tensor] = None,
+        depth_map: Optional[torch.Tensor] = None,
+        evaluation_mode: EvaluationMode = EvaluationMode.EVALUATION,
+        generator: Optional[torch.Generator] = None,
+        **kwargs,
+    ) -> Dict[str, Any]:
+        """Render one batch; returns ``rendered_*`` tensors, per-sample ``loss_*`` and ``objective``."""
+        if evaluation_mode == EvaluationMode.TRAINING:
+            raise NotImplementedError("NeRFPipeline training is the next slice of the port (ROADMAP.md)")
+        sampling_mode = self.sampling_mode_evaluation
+        if sampling_mode != RenderSamplingMode.FULL_GRID:
+            raise NotImplementedError("Monte-Carlo evaluation is not ported yet (ROADMAP.md Queue 1 item 4)")
+
+        ray_bundle = self.ray_sampler(
+            poses,
+            focal_lengths,
+            evaluation_mode,
+            image_height=image_height,
+            image_width=image_width,
+            min_depth=min_depth,
+            max_depth=max_depth,
+            generator=generator,
+        )
+        xys = ray_bundle.xys
+        bg_color = sample_grid(bg_image_rgb, xys) if bg_image_rgb is not None else None
+
+        extracted_features: Dict[str, Any] = {}
+        for fe in self.feature_extractors:
+            for k, v in fe(**kwargs).items():
+                extracted_features.setdefault(k, []).append(v)
+        for k, v_list in extracted_features.items():
+            if isinstance(v_list[0], torch.Tensor):
+                extracted_features[k] = torch.stack(v_list, dim=1)
+            else:
+                if len(v_list) != 1:
+                    raise KeyError(f"{k} has multiple non-tensor values.")
+                extracted_features[k] = v_list[0]
+
+        implicit_functions = [self._bind_model(fn, extracted_features) for fn in self.implicit_functions]
+        if self.chunk_size_grid > 0:
+            rendered = self._render_chunked(*ray_bundle, bg_color, implicit_functions, evaluation_mode, generator)
+        else:
+            rendered = self.renderer(
+                *ray_bundle, bg_color, implicit_functions=implicit_functions,
+                evaluation_mode=evaluation_mode, generator=generator,
+            )
+
+        preds = self._get_view_metrics(rendered, xys, image_rgb, depth_map)
+        for k, v in rendered.aux.items():
+            if k.startswith("loss_"):
+                preds[k] = v.reshape(v.shape[0], -1).mean(dim=-1)
+        preds["rendered_images"] = rendered.features
+        preds["rendered_depths"] = rendered.depths
+        preds["rendered_alpha_masks"] = rendered.alpha_masks
+
+        objective = self._get_objective(preds)
+        if objective is not None:
+            preds["objective"] = objective
+        return preds
+
+    @staticmethod
+    def _bind_model(fn: nn.Module, extracted_features: Dict[str, Any]) -> Callable[..., Dict[str, Any]]:
+        def bound(origins, directions, lengths, **kw):
+            return fn(origins, directions, lengths, **{**kw, **extracted_features})
+
+        return bound
+
+    def _render_chunked(
+        self,
+        origins: torch.Tensor,
+        directions: torch.Tensor,
+        lengths: torch.Tensor,
+        xys: torch.Tensor,
+        bg_color: Optional[torch.Tensor],
+        implicit_functions: List[Callable[..., Dict[str, Any]]],
+        evaluation_mode: EvaluationMode,
+        generator: Optional[torch.Generator],
+    ) -> RendererOutput:
+        """Render a full grid chunk by chunk, the last chunk edge-padded and sliced away."""
+        batch_size = origins.shape[0]
+        spatial = origins.shape[1:-1]
+        n_pts = lengths.shape[-1]
+        n_rays = math.prod(spatial)
+        n_chunks = -(-n_rays * max(n_pts, 1) // self.chunk_size_grid)
+        chunk_rays = -(-n_rays // n_chunks)
+        n_padded = n_chunks * chunk_rays
+
+        def to_chunks(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+            if t is None:
+                return None
+            t = t.reshape(batch_size, n_rays, 1, t.shape[-1])
+            if n_padded != n_rays:
+                t = torch.cat([t, t[:, -1:].expand(batch_size, n_padded - n_rays, 1, t.shape[-1])], dim=1)
+            return t.reshape(batch_size, n_chunks, chunk_rays, 1, t.shape[-1])
+
+        chunks = [to_chunks(t) for t in (origins, directions, lengths, xys, bg_color)]
+        outputs = [
+            self.renderer(
+                *(None if t is None else t[:, i] for t in chunks),
+                implicit_functions=implicit_functions,
+                evaluation_mode=evaluation_mode,
+                generator=generator,
+            )
+            for i in range(n_chunks)
+        ]
+
+        def collate(leaves: List[torch.Tensor]) -> torch.Tensor:
+            # (B, chunk_rays, 1, *rest) per chunk -> (B, *spatial, *rest)
+            leaf = torch.cat(leaves, dim=1)
+            rest = leaf.shape[3:]
+            return leaf.reshape(batch_size, n_padded, *rest)[:, :n_rays].reshape(batch_size, *spatial, *rest)
+
+        def merge(outs: List[RendererOutput]) -> RendererOutput:
+            return RendererOutput(
+                features=collate([o.features for o in outs]),
+                depths=collate([o.depths for o in outs]),
+                alpha_masks=collate([o.alpha_masks for o in outs]),
+                prev_stage=None if outs[0].prev_stage is None else merge([o.prev_stage for o in outs]),
+                aux={k: collate([o.aux[k] for o in outs]) for k in outs[0].aux},
+            )
+
+        return merge(outputs)
+
+    def _get_view_metrics(
+        self,
+        raymarched: RendererOutput,
+        xys: torch.Tensor,
+        image_rgb: Optional[torch.Tensor] = None,
+        depth_map: Optional[torch.Tensor] = None,
+        keys_prefix: str = "loss_",
+    ) -> Dict[str, Any]:
+        metrics = view_metrics(
+            image_sampling_grid=xys,
+            images_pred=raymarched.features,
+            images=image_rgb,
+            depths_pred=raymarched.depths,
+            depths=depth_map,
+            keys_prefix=keys_prefix,
+        )
+        prev, prefix = raymarched.prev_stage, keys_prefix
+        while prev is not None:
+            prefix = prefix + "prev_stage_"
+            metrics.update(
+                view_metrics(
+                    image_sampling_grid=xys,
+                    images_pred=prev.features,
+                    images=image_rgb,
+                    depths_pred=prev.depths,
+                    depths=depth_map,
+                    keys_prefix=prefix,
+                )
+            )
+            prev = prev.prev_stage
+        return metrics
+
+    def _get_objective(self, preds: Dict[str, Any]) -> Optional[torch.Tensor]:
+        losses_weighted = [preds[k] * float(w) for k, w in self.loss_weights.items() if k in preds and w != 0.0]
+        if not losses_weighted:
+            return None
+        loss = losses_weighted[0]
+        for extra in losses_weighted[1:]:
+            loss = loss + extra
+        return loss
