@@ -52,3 +52,29 @@ def test_the_scan_tells_the_packages_apart():
     assert FORBIDDEN_IMPORT.search("    from yanerf_tpu import utils")
     assert not FORBIDDEN_IMPORT.search("from yanerf_tpu_torch.ops import rays")
     assert not FORBIDDEN_IMPORT.search("import yanerf_tpu_torch")
+
+
+FORBIDDEN_IMAGING = re.compile(r"^\s*(?:import|from)\s+(?:PIL|cv2)\b", re.MULTILINE)
+
+
+def test_the_port_needs_no_imaging_package():
+    """PNGs are decoded and encoded with zlib and numpy (utils/images.py): the card machine has no PIL or cv2."""
+    offenders = [
+        f"{path.relative_to(REPO)}: {m.group(0).strip()}"
+        for path in _port_sources()
+        for m in FORBIDDEN_IMAGING.finditer(path.read_text())
+    ]
+    assert not offenders, offenders
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import yanerf_tpu_torch\n"
+        "for m in pkgutil.walk_packages(yanerf_tpu_torch.__path__, 'yanerf_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -13,9 +13,9 @@ cores sum the 256-long products in their own order, so over 65,440 points
 a few hidden activations round the other way and the following layers
 carry that on.
 
-The test marked ``cuda`` runs the CUDA kernel against the plain version on
-a card (``python -m pytest tests/test_torch_nerf_mlp_kernel.py -m cuda``);
-it skips where there is none.
+The CUDA kernel is held to the plain version on a card by
+tests/test_torch_cuda_kernels.py, which imports no JAX (the card machine
+has none).
 """
 
 import os.path as osp
@@ -35,7 +35,6 @@ from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K
 
 CFG_DIR = osp.join(osp.dirname(__file__), "configs")
 TOLS = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=0.0, atol=4e-3)}
-CARD_TOL = dict(rtol=1e-2, atol=1e-2)
 FLAGSHIP = dict(type="NeRFMLP")  # defaults: 8x256, skip at 5, 10/4 frequencies, 128-wide color head
 
 
@@ -130,26 +129,3 @@ def test_cuda_input_checks_reject_what_the_kernel_does_not_take():
         K._check_cuda_inputs(packed, pts.double(), dirs, 2)
     with pytest.raises(ValueError, match="contiguous"):
         K._check_cuda_inputs(packed, torch.zeros(3, 6).t(), dirs, 2)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version(cuda_device):
-    model = MODELS.build(dict(FLAGSHIP, compute_dtype="bfloat16", use_pallas=True)).to(cuda_device)
-    packed = model.packed_weights()
-    g = torch.Generator().manual_seed(0)
-    for n_rays, n_pts in ((2045, 32), (3, 5), (1, 1)):
-        pts = (torch.rand(n_rays * n_pts, 3, generator=g) * 3 - 1.5).to(cuda_device)
-        dirs = torch.randn(n_rays, 3, generator=g).to(cuda_device)
-        before = K.launches
-        out = K.nerf_mlp_fwd(packed, pts, dirs, n_pts)
-        torch.cuda.synchronize()
-        assert K.launches == before + 1
-        ref = K.nerf_mlp_fwd_plain(packed, pts, dirs, n_pts)
-        torch.testing.assert_close(out, ref, **CARD_TOL)

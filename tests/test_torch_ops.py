@@ -72,7 +72,7 @@ def test_linspace_matches_jnp(n):
 def test_ray_bundle_unported_options_raise():
     grid = torch.zeros(1, 2, 2, 2)
     with pytest.raises(NotImplementedError):
-        trays.xy_to_ray_bundle(torch.eye(4)[None], 2, 2, torch.ones(1), grid, 1.0, 2.0, 4, stratified_sampling=True)
+        trays.xy_to_ray_bundle(torch.eye(4)[None], 2, 2, torch.ones(1), grid, 1.0, 2.0, 4, sample_in_disparity=True)
     with pytest.raises(NotImplementedError):
         trays.xy_to_ray_bundle(torch.eye(4)[None], 2, 2, torch.ones(1), grid, 1.0, 2.0, 4, scene_aabb=[0] * 6)
 
@@ -192,8 +192,9 @@ def test_view_metrics_serving_case():
     pred = rng.rand(2, 4, 5, 3).astype(np.float32)
     assert tm.view_metrics(_t(grid), images=None, images_pred=_t(pred)) == {}
     assert jm.view_metrics(jnp.asarray(grid), images=None, images_pred=jnp.asarray(pred)) == {}
+    assert set(tm.view_metrics(_t(grid), images=_t(pred), images_pred=_t(pred))) == {"loss_rgb_mse", "loss_rgb_huber"}
     with pytest.raises(NotImplementedError):
-        tm.view_metrics(_t(grid), images=_t(pred), images_pred=_t(pred))
+        tm.view_metrics(_t(grid), depths=_t(pred[..., :1]), depths_pred=_t(pred[..., :1]))
 
 
 def test_sample_grid_gathers_pixels():

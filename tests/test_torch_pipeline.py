@@ -101,6 +101,10 @@ def test_chunking_does_not_change_the_frame(chunk_size_grid):
 
 
 def test_training_mode_is_the_next_slice():
+    """Training is ported (tests/test_torch_train.py); its unported options still raise."""
     pipeline = PIPELINES.build(dict(_cfg()), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="without replacement"):
         pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING)
+    with pytest.raises(NotImplementedError, match="scatter_rays_to_image"):
+        pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING,
+                 output_rasterized_mc=True)

@@ -6,11 +6,13 @@ embedding of the points (10 frequencies) and normalized directions (4), an
 (intermediate linear -> linear-with-repeat over the direction embedding ->
 ReLU -> [extra layers] -> linear -> sigmoid).
 
-Two paths, chosen by ``use_pallas`` (the config key is the JAX package's, so
-both packages read the same configs):
+Two paths, chosen by ``use_pallas`` (the config keys are the JAX package's,
+so both packages read the same configs; in TRAINING the pipeline passes
+``use_pallas_train`` in its place):
   * the eager path, the model's own, with the JAX package's bf16 policy;
-  * the fused kernel (``ops/kernels/nerf_mlp_fwd.py``): the CUDA kernel on
-    the card, its plain version on the CPU.
+  * the fused kernels (``ops/kernels/fused_mlp.py``): forward K1
+    (``nerf_mlp_fwd``) and, under autograd, backward K3 (``nerf_mlp_bwd``),
+    the CUDA kernels on the card, their plain versions on the CPU.
 
 Latent conditioning and contracted coordinates are not ported yet.
 """
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.harmonics import harmonic_embedding, harmonic_embedding_dim
 from ..ops.kernels import nerf_mlp_fwd as fused
+from ..ops.kernels.fused_mlp import fused_nerf_mlp
 from ..ops.rays import ray_bundle_to_ray_points
 from .builder import MODELS
 from .layers import Linear, init_linear_default, init_linear_xavier, linear, linear_with_repeat
@@ -154,11 +157,8 @@ class NeRFMLP(nn.Module):
         use_pallas = self.use_pallas if use_pallas is None else use_pallas
         if use_pallas:
             *lead, n_pts, _ = points.shape
-            out = fused.nerf_mlp_fwd(
-                self.packed_weights(),
-                points.reshape(-1, 3).contiguous(),
-                directions.reshape(-1, 3).contiguous(),
-                n_pts,
+            out = fused_nerf_mlp(
+                self, points.reshape(-1, 3).contiguous(), directions.reshape(-1, 3).contiguous(), n_pts
             )
             return dict(
                 rays_densities=out[:, :1].reshape(*lead, n_pts, 1),

@@ -23,21 +23,14 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..harmonics import harmonic_frequencies
+from ._build import CudaLibrary
 
 # kernel launches since import (or since a caller reset it)
 launches = 0
@@ -48,18 +41,15 @@ KERNEL_MAX_K_XYZ = 64
 KERNEL_MAX_K_DIR = 32
 _ALIGN = 64  # every packed tensor starts on a 64-element (128-byte) boundary
 
-_PACKAGE_DIR = Path(__file__).resolve().parents[2]
-SOURCE = _PACKAGE_DIR / "csrc" / "nerf_mlp_fwd.cu"
-BUILD_DIR = _PACKAGE_DIR / "_build"
-# no --use_fast_math: the embedding's phases reach |x| * 2^9 rad, where the
-# fast sine is wrong. -Xptxas -v reports registers, shared memory, spills.
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-]
 
-_lib = None
-_lib_lock = threading.Lock()
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.nerf_mlp_fwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("nerf_mlp_fwd.cu", _bind)
+build, build_report, load = LIBRARY.build, LIBRARY.build_report, LIBRARY.load
 
 
 def _round_up(x: int, m: int) -> int:
@@ -97,8 +87,35 @@ class PackedNerfMlp:
         return _round_up(3 * (2 * self.n_freq_dir + int(self.append_dir)), 16)
 
 
-def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
-    return w if w.shape[0] == rows else F.pad(w, (0, 0, 0, rows - w.shape[0]))
+def kernel_layers(model) -> List:
+    """The NeRFMLP's linear layers in kernel order: xyz layers, intermediate, density, color layers."""
+    return list(model.xyz_encoder.mlp) + [model.intermediate_linear, model.density_layer] + list(model.color_layer)
+
+
+def _embedding_rows(model, i: int) -> Optional[Tuple[int, int, int]]:
+    """``(first row, rows, padded rows)`` of the embedding block of weight ``i`` in kernel order, if it has one.
+
+    Layer 0 and the skip layers take the xyz embedding (padded to
+    ``k_xyz``), the first color layer the direction embedding after its
+    hidden rows (padded to ``k_dir``).
+    """
+    h = model.n_hidden_neurons_xyz
+    if i == 0:
+        return 0, model.embedding_dim_xyz, _round_up(model.embedding_dim_xyz, 16)
+    if i < model.n_layers and i in model.input_skips:
+        return h, model.embedding_dim_xyz, _round_up(model.embedding_dim_xyz, 16)
+    if i == model.n_layers + 2:
+        return h, model.embedding_dim_dir, _round_up(model.embedding_dim_dir, 16)
+    return None
+
+
+def unpad_weight(model, i: int, w: torch.Tensor) -> torch.Tensor:
+    """Undo ``pack_weights``' padding of weight ``i`` (kernel order): a tensor of the parameter's shape."""
+    rows = _embedding_rows(model, i)
+    if rows is None:
+        return w
+    first, n, _ = rows
+    return w[: first + n] if first == 0 else torch.cat([w[:first], w[first : first + n]])
 
 
 def pack_weights(model) -> PackedNerfMlp:
@@ -112,26 +129,14 @@ def pack_weights(model) -> PackedNerfMlp:
     if model.latent_dim != 0 or not model.input_xyz or not model.input_dir:
         raise NotImplementedError("the fused kernel covers the standard xyz+dir NeRFMLP")
     h = model.n_hidden_neurons_xyz
-    k_xyz = _round_up(model.embedding_dim_xyz, 16)
-    k_dir = _round_up(model.embedding_dim_dir, 16)
     weights: List[torch.Tensor] = []
     biases: List[torch.Tensor] = []
     with torch.no_grad():
-        for li, layer in enumerate(model.xyz_encoder.mlp):
-            w = layer.w
-            if li == 0:
-                w = _pad_rows(w, k_xyz)
-            elif li in model.input_skips:
-                w = torch.cat([w[:h], _pad_rows(w[h:], k_xyz)], dim=0)
-            weights.append(w)
-            biases.append(layer.b)
-        for layer in (model.intermediate_linear, model.density_layer):
-            weights.append(layer.w)
-            biases.append(layer.b)
-        for ci, layer in enumerate(model.color_layer):
-            w = layer.w
-            if ci == 0:
-                w = torch.cat([w[:h], _pad_rows(w[h:], k_dir)], dim=0)
+        for i, layer in enumerate(kernel_layers(model)):
+            w, rows = layer.w, _embedding_rows(model, i)
+            if rows is not None:
+                first, _, padded = rows
+                w = torch.cat([w[:first], F.pad(w[first:], (0, 0, 0, first + padded - w.shape[0]))], dim=0)
             weights.append(w)
             biases.append(layer.b)
 
@@ -238,64 +243,6 @@ def nerf_mlp_fwd_plain(packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.
         return torch.cat([density, color], dim=-1)
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc was not found: the fused NeRF-MLP kernel cannot be built")
-    return nvcc
-
-
-def _library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libnerf_mlp_fwd_{digest}.so"
-
-
-def build() -> Path:
-    """Compile ``csrc/nerf_mlp_fwd.cu`` into a shared library, cached by content.
-
-    The compiler's report is kept beside the library (``.log``).
-    """
-    out = _library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def build_report() -> str:
-    """The ptxas lines of the last build: registers, spills, shared memory."""
-    log = _library_path().with_suffix(".log")
-    lines = log.read_text().splitlines() if log.exists() else []
-    return "; ".join(line.split(":", 1)[-1].strip() for line in lines if "registers" in line or "spill" in line)
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.nerf_mlp_fwd_bf16
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
-
-
-def load() -> float:
-    """Build (if needed) and load the kernel library; returns the seconds it took."""
-    t0 = time.perf_counter()
-    _library()
-    return time.perf_counter() - t0
-
-
 def _check_cuda_inputs(packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.Tensor, pts_per_ray: int) -> None:
     if packed.compute_dtype != torch.bfloat16:
         raise NotImplementedError("the CUDA kernel computes in bfloat16 only; float32 runs on the plain version")
@@ -339,7 +286,7 @@ def nerf_mlp_fwd(packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.Tensor
     skip_mask = sum(1 << s for s in packed.input_skips if 0 < s < packed.n_layers)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = _library().nerf_mlp_fwd_bf16(
+        rc = LIBRARY.library().nerf_mlp_fwd_bf16(
             points.data_ptr(), dirs.data_ptr(), out.data_ptr(),
             packed.flat.data_ptr(), packed.biases_flat.data_ptr(),
             ctypes.addressof(w_off), ctypes.addressof(b_off), len(packed.w_offsets),

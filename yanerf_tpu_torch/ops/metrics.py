@@ -1,27 +1,95 @@
-"""Per-sample view metrics.
+"""Per-sample view metrics (reductions happen in the runner).
 
-Counterpart of ``yanerf_tpu/ops/metrics.py`` for what serving needs: with
-no ground truth (``image_rgb=None``, ``depth_map=None``) ``view_metrics``
-returns no losses. The ground-truth metrics (RGB, SSIM, depth) raise
-``NotImplementedError`` until the training slice brings a dataset.
+Counterpart of ``yanerf_tpu/ops/metrics.py``: every loss keeps the batch
+dimension, ``(B,)``. The RGB metrics, PSNR and SSIM against ground truth
+are ported; the depth metrics raise ``NotImplementedError`` (no ported
+dataset has depth maps). SSIM's Gaussian blur is written as a sum of
+shifted slices, elementwise float32, so it never takes the card's TF32
+convolution path (the JAX package pins that convolution to HIGHEST).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 
+from .sampling import sample_grid
 
-def sample_grid(tensor: torch.Tensor, image_sampling_grid: torch.Tensor) -> torch.Tensor:
-    """Gather ``(B, H, W, C)`` image values at ``(B, *spatial, 2)`` pixel coordinates."""
-    batch_size, height, width, channels = tensor.shape[0], tensor.shape[1], tensor.shape[2], tensor.shape[-1]
-    grid_spatial = image_sampling_grid.shape[1:-1]
-    flat_tensor = tensor.reshape(batch_size, height * width, channels)
-    flat_grid = image_sampling_grid.reshape(batch_size, -1, 2)
-    flat_idx = (flat_grid[..., 0] + width * flat_grid[..., 1]).to(torch.int64)
-    gathered = torch.gather(flat_tensor, 1, flat_idx[..., None].expand(-1, -1, channels))
-    return gathered.reshape(batch_size, *grid_spatial, channels)
+__all__ = ["calc_mse", "calc_psnr", "calc_ssim", "huber", "mse2psnr", "rgb_metrics", "sample_grid", "view_metrics"]
+
+
+def safe_sqrt(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(x, min=0.0) + eps)
+
+
+def huber(dfsq: torch.Tensor, scaling: float = 0.03) -> torch.Tensor:
+    """Huber-style robustification of a squared error."""
+    return (safe_sqrt(1.0 + dfsq / (scaling * scaling), eps=1e-4) - 1.0) * scaling
+
+
+def calc_mse(x: torch.Tensor, y: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if mask is None:
+        return torch.mean((x - y) ** 2, dim=-1)
+    num = torch.sum(((x - y) ** 2) * mask, dim=-1)
+    den = torch.clamp(torch.sum(mask.expand(x.shape), dim=-1), min=1e-5)
+    return num / den
+
+
+def calc_psnr(x: torch.Tensor, y: torch.Tensor, mask: Optional[torch.Tensor] = None, base: float = 1.0) -> torch.Tensor:
+    mse = calc_mse(x, y, mask=mask)
+    return torch.log10(torch.clamp(mse, min=1e-10)) * (-10.0) + 20.0 * math.log10(base)
+
+
+def mse2psnr(mse: float, base: float = 1.0) -> float:
+    return math.log10(max(1e-10, mse)) * (-10.0) + 20.0 * math.log10(base)
+
+
+def rgb_metrics(
+    images: torch.Tensor,
+    images_pred: torch.Tensor,
+    loss_reweight_masks: Optional[torch.Tensor] = None,
+    huber_scaling: float = 0.03,
+) -> Dict[str, torch.Tensor]:
+    """Per-sample ``rgb_mse`` and ``rgb_huber`` over flattened pixels."""
+    batch_size = images.shape[0]
+    differences = (images_pred.reshape(batch_size, -1) - images.reshape(batch_size, -1)) ** 2
+    if loss_reweight_masks is not None:
+        differences = differences * loss_reweight_masks.reshape(batch_size, -1)
+    rgb_squared = torch.mean(differences, dim=-1)
+    return {"rgb_huber": huber(rgb_squared, scaling=huber_scaling), "rgb_mse": rgb_squared}
+
+
+def calc_ssim(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    max_val: float = 1.0,
+    filter_size: int = 11,
+    filter_sigma: float = 1.5,
+    k1: float = 0.01,
+    k2: float = 0.03,
+) -> torch.Tensor:
+    """Per-sample SSIM over ``(B, H, W, C)`` images (separable Gaussian window, VALID)."""
+    hw = filter_size // 2
+    offsets = torch.arange(filter_size, dtype=torch.float32) - hw
+    kernel = torch.exp(-0.5 * (offsets / filter_sigma) ** 2)
+    kernel = (kernel / torch.sum(kernel)).tolist()
+
+    def blur(img):
+        h, w = img.shape[1] - 2 * hw, img.shape[2] - 2 * hw
+        rows = sum(k * img[:, :, i : i + w] for i, k in enumerate(kernel))
+        return sum(k * rows[:, i : i + h] for i, k in enumerate(kernel))
+
+    x32, y32 = x.to(torch.float32), y.to(torch.float32)
+    mu_x, mu_y = blur(x32), blur(y32)
+    mu_xx, mu_yy, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
+    sigma_xx = blur(x32 * x32) - mu_xx
+    sigma_yy = blur(y32 * y32) - mu_yy
+    sigma_xy = blur(x32 * y32) - mu_xy
+    c1, c2 = (k1 * max_val) ** 2, (k2 * max_val) ** 2
+    ssim_map = ((2.0 * mu_xy + c1) * (2.0 * sigma_xy + c2)) / ((mu_xx + mu_yy + c1) * (sigma_xx + sigma_yy + c2))
+    return torch.mean(ssim_map, dim=(1, 2, 3))
 
 
 def view_metrics(
@@ -32,7 +100,16 @@ def view_metrics(
     depths_pred: Optional[torch.Tensor] = None,
     keys_prefix: str = "loss_",
 ) -> Dict[str, torch.Tensor]:
-    """Per-sample losses against ground truth; none without it (the serving case)."""
-    if images is not None or depths is not None:
-        raise NotImplementedError("ground-truth view metrics are not ported yet (ROADMAP.md Queue 1 item 2)")
-    return {}
+    """Gather the ground truth ``(B, H, W, C)`` at the sampled pixels and compute per-sample losses."""
+    if depths is not None:
+        raise NotImplementedError("depth metrics (eval_depth) are not ported yet")
+    preds: Dict[str, torch.Tensor] = {}
+    if images is not None and images_pred is not None:
+        images = sample_grid(images, image_sampling_grid)
+        preds.update(rgb_metrics(images, images_pred))
+        # SSIM only on full image grids (FULL_GRID eval); MC samples are (B, N, 1, C)
+        if images_pred.ndim == 4 and images_pred.shape[1] >= 11 and images_pred.shape[2] >= 11:
+            preds["rgb_ssim"] = calc_ssim(images_pred, images)
+    if keys_prefix is not None:
+        preds = {keys_prefix + k: v for k, v in preds.items()}
+    return preds

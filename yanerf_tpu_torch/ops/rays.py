@@ -1,9 +1,10 @@
 """Camera-to-ray geometry.
 
-Counterpart of ``yanerf_tpu/ops/rays.py`` for the parts the serving path
-runs: the pixel grid, metric-depth ray bundles and ray points. NDC rays,
-``scene_aabb`` tightening, occupancy bounds and stratified jitter raise
-``NotImplementedError`` until a later slice ports them.
+Counterpart of ``yanerf_tpu/ops/rays.py`` for the parts the serving and
+training paths run: the pixel grid, metric-depth ray bundles with optional
+stratified jitter, and ray points. NDC rays, ``scene_aabb`` tightening,
+occupancy bounds and disparity spacing raise ``NotImplementedError`` until
+a later slice ports them.
 """
 
 from __future__ import annotations
@@ -45,6 +46,23 @@ def linspace01(n: int, dtype: torch.dtype = torch.float32, device: Union[str, to
     return torch.cat([step, torch.ones(1, dtype=dtype, device=device)])
 
 
+def jiggle_within_stratas(
+    bin_centers: torch.Tensor, generator: Optional[torch.Generator] = None, u: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Stratified resampling: one uniform draw per bin around each center.
+
+    Each value ``z`` becomes a draw on ``[z - d-, z + d+]``, the deltas the
+    half-distances to the neighbouring centers (zero at the ends). ``u``
+    (the shape of ``bin_centers``, on [0, 1)) replaces the generator's draws.
+    """
+    mids = 0.5 * (bin_centers[..., 1:] + bin_centers[..., :-1])
+    upper = torch.cat([mids, bin_centers[..., -1:]], dim=-1)
+    lower = torch.cat([bin_centers[..., :1], mids], dim=-1)
+    if u is None:
+        u = torch.rand(lower.shape, generator=generator, dtype=lower.dtype, device=lower.device)
+    return lower + (upper - lower) * u
+
+
 def xy_to_ray_bundle(
     poses: torch.Tensor,
     image_width: int,
@@ -59,6 +77,7 @@ def xy_to_ray_bundle(
     sample_in_disparity: bool = False,
     scene_aabb=None,
     occupancy=None,
+    strata_u: Optional[torch.Tensor] = None,
 ) -> RayBundle:
     """Unproject pixel coordinates into world-space rays with metric depth samples.
 
@@ -70,13 +89,14 @@ def xy_to_ray_bundle(
         xy_grid: ``(B, *spatial, 2)`` pixel coordinates to unproject.
         min_depth/max_depth: scalars bounding the depth range.
         n_pts_per_ray: number of depth samples per ray (0 for none).
+        stratified_sampling: jiggle the depths within their strata, with
+            ``strata_u`` (``(B, *spatial, n_pts_per_ray)``) or the
+            generator's draws.
 
     Returns:
         A :class:`RayBundle`; directions are NOT normalized (their norm
         carries the depth->distance scale used by the raymarcher).
     """
-    if stratified_sampling:
-        raise NotImplementedError("stratified depth jitter is training-only and not ported yet (ROADMAP Queue 1)")
     if sample_in_disparity or scene_aabb is not None or occupancy is not None:
         raise NotImplementedError(
             "disparity spacing, scene_aabb and occupancy bounds are not ported yet (ROADMAP Queue 1 item 11)"
@@ -107,6 +127,8 @@ def xy_to_ray_bundle(
         t = linspace01(n_pts_per_ray, dtype=dtype, device=device)
         depths = t * (hi - lo) + lo
         rays_zs = depths.expand(batch_size, *spatial_size, n_pts_per_ray)
+        if stratified_sampling:
+            rays_zs = jiggle_within_stratas(rays_zs, generator, strata_u)
     else:
         rays_zs = torch.zeros((batch_size, *spatial_size, 0), dtype=dtype, device=device)
 

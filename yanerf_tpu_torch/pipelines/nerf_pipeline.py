@@ -1,12 +1,14 @@
 """NeRF pipeline orchestration: rays -> models -> renderer -> losses.
 
 Counterpart of ``yanerf_tpu/pipelines/nerf_pipeline.py::NeRFPipeline`` in
-EVALUATION mode. The pipeline is an ``nn.Module`` holding the implicit
+EVALUATION and TRAINING mode. The pipeline is an ``nn.Module`` holding the implicit
 functions, so its state dict keys are the JAX param tree's dotted paths
 (``implicit_functions.2.xyz_encoder.mlp.0.w``). The full grid renders in
 chunks with the reference's arithmetic, ``n_chunks = ceil(n_rays * P /
 chunk_size_grid)``, edge-padded to equal size; a Python loop over the
-chunks replaces ``lax.map``. Training mode is the next slice.
+chunks replaces ``lax.map``. In TRAINING the rays are Monte-Carlo samples,
+rendered in one call, and the NeRF-MLP's kernel switch is
+``use_pallas_train`` (as ``_bind_model`` does in the JAX package).
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ class NeRFPipeline(nn.Module):
 
         self.renderer = RENDERERS.build(dict(renderer))
         self.chunk_size_grid = chunk_size_grid
+        self.output_rasterized_mc = output_rasterized_mc
         if loss_weights is None:
             loss_weights = {"loss_rgb_mse": 1.0, "loss_prev_stage_rgb_mse": 1.0}
         self.loss_weights = dict(loss_weights)
@@ -89,15 +92,27 @@ class NeRFPipeline(nn.Module):
         image_rgb: Optional[torch.Tensor] = None,
         depth_map: Optional[torch.Tensor] = None,
         evaluation_mode: EvaluationMode = EvaluationMode.EVALUATION,
+        output_rasterized_mc: Optional[bool] = None,
         generator: Optional[torch.Generator] = None,
+        draws: Optional[Dict[str, Any]] = None,
         **kwargs,
     ) -> Dict[str, Any]:
-        """Render one batch; returns ``rendered_*`` tensors, per-sample ``loss_*`` and ``objective``."""
-        if evaluation_mode == EvaluationMode.TRAINING:
-            raise NotImplementedError("NeRFPipeline training is the next slice of the port (ROADMAP.md)")
-        sampling_mode = self.sampling_mode_evaluation
-        if sampling_mode != RenderSamplingMode.FULL_GRID:
-            raise NotImplementedError("Monte-Carlo evaluation is not ported yet (ROADMAP.md Queue 1 item 4)")
+        """Render one batch; returns ``rendered_*`` tensors, per-sample ``loss_*`` and ``objective``.
+
+        ``draws`` optionally replaces the random draws of a TRAINING call:
+        ``pixel_idx`` ``(B, n_rays)``, ``strata_u`` ``(B, n_rays, 1, P)`` and
+        ``pdf_u``, one ``(B, n_rays, 1, n_pts)`` tensor per proposal pass;
+        whatever is missing comes from ``generator``.
+        """
+        training = evaluation_mode == EvaluationMode.TRAINING
+        sampling_mode = self.sampling_mode_training if training else self.sampling_mode_evaluation
+        draws = draws or {}
+        rasterize_mc = self.output_rasterized_mc if output_rasterized_mc is None else output_rasterized_mc
+        if sampling_mode == RenderSamplingMode.MASK_SAMPLE and rasterize_mc:
+            raise NotImplementedError(
+                "rasterizing Monte-Carlo samples (scatter_rays_to_image, the training vis) is not ported yet: "
+                "pass output_rasterized_mc=False"
+            )
 
         ray_bundle = self.ray_sampler(
             poses,
@@ -108,6 +123,8 @@ class NeRFPipeline(nn.Module):
             min_depth=min_depth,
             max_depth=max_depth,
             generator=generator,
+            pixel_idx=draws.get("pixel_idx"),
+            strata_u=draws.get("strata_u"),
         )
         xys = ray_bundle.xys
         bg_color = sample_grid(bg_image_rgb, xys) if bg_image_rgb is not None else None
@@ -124,22 +141,24 @@ class NeRFPipeline(nn.Module):
                     raise KeyError(f"{k} has multiple non-tensor values.")
                 extracted_features[k] = v_list[0]
 
-        implicit_functions = [self._bind_model(fn, extracted_features) for fn in self.implicit_functions]
-        if self.chunk_size_grid > 0:
+        implicit_functions = [self._bind_model(fn, extracted_features, training) for fn in self.implicit_functions]
+        if sampling_mode == RenderSamplingMode.FULL_GRID and self.chunk_size_grid > 0:
             rendered = self._render_chunked(*ray_bundle, bg_color, implicit_functions, evaluation_mode, generator)
         else:
             rendered = self.renderer(
                 *ray_bundle, bg_color, implicit_functions=implicit_functions,
-                evaluation_mode=evaluation_mode, generator=generator,
+                evaluation_mode=evaluation_mode, generator=generator, pdf_u=draws.get("pdf_u"),
             )
 
         preds = self._get_view_metrics(rendered, xys, image_rgb, depth_map)
+        # renderer losses (the interlevel loss) reduce per sample like every other loss
         for k, v in rendered.aux.items():
             if k.startswith("loss_"):
                 preds[k] = v.reshape(v.shape[0], -1).mean(dim=-1)
-        preds["rendered_images"] = rendered.features
-        preds["rendered_depths"] = rendered.depths
-        preds["rendered_alpha_masks"] = rendered.alpha_masks
+        if sampling_mode == RenderSamplingMode.FULL_GRID:
+            preds["rendered_images"] = rendered.features
+            preds["rendered_depths"] = rendered.depths
+            preds["rendered_alpha_masks"] = rendered.alpha_masks
 
         objective = self._get_objective(preds)
         if objective is not None:
@@ -147,9 +166,13 @@ class NeRFPipeline(nn.Module):
         return preds
 
     @staticmethod
-    def _bind_model(fn: nn.Module, extracted_features: Dict[str, Any]) -> Callable[..., Dict[str, Any]]:
+    def _bind_model(fn: nn.Module, extracted_features: Dict[str, Any], training: bool) -> Callable[..., Dict[str, Any]]:
+        # in TRAINING the fused kernels (forward K1, backward K3) run only
+        # when the model opted in with use_pallas_train
+        extra = {"use_pallas": bool(getattr(fn, "use_pallas_train", False))} if training else {}
+
         def bound(origins, directions, lengths, **kw):
-            return fn(origins, directions, lengths, **{**kw, **extracted_features})
+            return fn(origins, directions, lengths, **{**kw, **extracted_features, **extra})
 
         return bound
 

@@ -1,10 +1,14 @@
 """Camera -> RayBundle sampling stage.
 
-Counterpart of ``yanerf_tpu/pipelines/ray_sampler.py`` for its full-grid
-EVALUATION half: every pixel of the grid, metric depths between the
-bounds. The Monte-Carlo training half (pixel selection and stratified
-jitter), NDC, ``scene_aabb``, occupancy grids, disparity spacing and
-scene-extent bounds raise ``NotImplementedError`` until later slices.
+Counterpart of ``yanerf_tpu/pipelines/ray_sampler.py``: the full-grid
+EVALUATION half (every pixel, metric depths between the bounds) and the
+Monte-Carlo TRAINING half with ``pixel_replacement`` and no mask (uniform
+pixel indices drawn with replacement, stratified depth jitter). The pixel
+indices and the jitter draws are optional inputs (``pixel_idx``,
+``strata_u``), else drawn from ``generator``. Sampling without replacement,
+masks and sampling-probability masks, NDC, ``scene_aabb``, occupancy
+grids, disparity spacing and scene-extent bounds raise
+``NotImplementedError`` until later slices.
 
 As in the reference, the principal point comes from the constructor's
 ``image_width/height`` even when a call overrides the grid size.
@@ -17,6 +21,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..ops.rays import get_xy_grid, xy_to_ray_bundle
+from ..ops.sampling import uniform_sample_with_replacement
 from ..ops.structures import EvaluationMode, RayBundle, RenderSamplingMode
 from .builder import RAY_SAMPLERS
 
@@ -34,6 +39,7 @@ class _RaySampler:
         max_depth: float,
         n_rays_per_image: Optional[int] = None,
         stratified_sampling: bool = False,
+        pixel_replacement: bool = False,
     ) -> None:
         self.image_width = image_width
         self.image_height = image_height
@@ -42,6 +48,7 @@ class _RaySampler:
         self.max_depth = max_depth
         self.n_rays_per_image = n_rays_per_image
         self.stratified_sampling = stratified_sampling
+        self.pixel_replacement = pixel_replacement
 
     def __call__(
         self,
@@ -53,15 +60,26 @@ class _RaySampler:
         min_depth=None,
         max_depth=None,
         generator: Optional[torch.Generator] = None,
+        pixel_idx: Optional[torch.Tensor] = None,
+        strata_u: Optional[torch.Tensor] = None,
     ) -> RayBundle:
-        if self.n_rays_per_image is not None:
-            raise NotImplementedError("Monte-Carlo ray sampling is training-only and not ported yet (ROADMAP.md)")
         batch_size = poses.shape[0]
         if image_height is None or image_width is None:
             image_height, image_width = self.image_height, self.image_width
         xy_grid = get_xy_grid(image_height, image_width, device=poses.device).expand(
             batch_size, image_height, image_width, 2
         )
+        if self.n_rays_per_image is not None:
+            if not self.pixel_replacement:
+                raise NotImplementedError(
+                    "pixel sampling without replacement is not ported yet: set ray_sampler.pixel_replacement=True"
+                )
+            if pixel_idx is None:
+                pixel_idx = uniform_sample_with_replacement(
+                    batch_size, image_height * image_width, self.n_rays_per_image, generator, poses.device
+                )
+            xy_flat = xy_grid.reshape(batch_size, -1, 2)
+            xy_grid = torch.gather(xy_flat, 1, pixel_idx.to(torch.int64)[..., None].expand(-1, -1, 2))[:, :, None]
         return xy_to_ray_bundle(
             poses[:, :3, :4],
             self.image_width,
@@ -73,6 +91,7 @@ class _RaySampler:
             self.n_pts_per_ray,
             self.stratified_sampling,
             generator=generator,
+            strata_u=strata_u,
         )
 
 
@@ -128,6 +147,7 @@ class RaySampler:
                     else None
                 ),
                 stratified_sampling=stratified,
+                pixel_replacement=pixel_replacement,
             )
             for mode, n_pts, stratified in (
                 (EvaluationMode.TRAINING, n_pts_per_ray_training, stratified_point_sampling_training),
@@ -149,9 +169,10 @@ class RaySampler:
         min_depth=None,
         max_depth=None,
         generator: Optional[torch.Generator] = None,
+        pixel_idx: Optional[torch.Tensor] = None,
+        strata_u: Optional[torch.Tensor] = None,
     ) -> RayBundle:
-        if evaluation_mode == EvaluationMode.TRAINING:
-            raise NotImplementedError("the training half of RaySampler is not ported yet (ROADMAP.md, next slice)")
+        """Rays of ``evaluation_mode``; ``pixel_idx`` ``(B, n_rays)`` and ``strata_u`` replace the draws."""
         return self._raysamplers[evaluation_mode](
             poses,
             focal_lengths,
@@ -160,4 +181,6 @@ class RaySampler:
             min_depth=min_depth,
             max_depth=max_depth,
             generator=generator,
+            pixel_idx=pixel_idx,
+            strata_u=strata_u,
         )

@@ -5,8 +5,11 @@ Counterpart of ``yanerf_tpu/pipelines/renderer.py``'s
 ``implicit_functions = [proposal_0, ..., proposal_{k-1}, main]``; each
 proposal's emission-absorption weights importance-sample the next pass's
 depths, only the main model composites colors, and the interlevel and
-distortion losses land in ``aux``. The multipass (coarse -> fine) renderer
-and the eval-compositing dtype experiment are not ported yet.
+distortion losses land in ``aux``. The resampled depths are detached where
+the JAX package has ``stop_gradient``; the u's of each pass's ``sample_pdf``
+are an optional input (``pdf_u``), else drawn from ``generator``. The
+multipass (coarse -> fine) renderer, density noise and the eval-compositing
+dtype experiment are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ def refine_ray_points(
     add_input_samples: bool = True,
     stratified_u: bool = False,
     generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> RayBundle:
-    """Importance-sample new depths from previous-pass weights (detached)."""
+    """Importance-sample new depths from previous-pass weights (detached); ``u`` replaces the draws."""
     z_vals = lengths
     z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     z_samples = sample_pdf(
@@ -45,6 +49,7 @@ def refine_ray_points(
         generator=generator,
         det=not random_sampling,
         stratified=stratified_u,
+        u=u,
     ).detach()
 
     if add_input_samples:
@@ -125,8 +130,10 @@ class ProposalEmissionAbsorpsionRenderer:
         implicit_functions: List[Callable[..., Dict[str, Any]]],
         evaluation_mode: EvaluationMode = EvaluationMode.EVALUATION,
         generator: Optional[torch.Generator] = None,
+        pdf_u: Optional[Sequence[torch.Tensor]] = None,
         **kwargs,
     ) -> RendererOutput:
+        """``pdf_u``: one ``(..., n_pts)`` tensor of uniform draws per proposal pass, in place of the generator's."""
         if len(implicit_functions) < 2:
             raise ValueError(
                 "The proposal renderer expects [proposal..., main] — at least two implicit functions"
@@ -161,6 +168,7 @@ class ProposalEmissionAbsorpsionRenderer:
                 add_input_samples=False,
                 stratified_u=True,
                 generator=generator,
+                u=None if pdf_u is None else pdf_u[k],
             )
             lengths = bundle.lengths
 

@@ -1,14 +1,19 @@
-"""PNG and GIF encoding with the standard library alone.
+"""PNG decoding, PNG and GIF encoding, with zlib and numpy alone.
 
-The serving path depends on no imaging package: PNG is zlib-compressed
-scanlines, GIF is LZW over a fixed 3-3-2 palette.
+The port depends on no imaging package: a PNG is zlib-compressed filtered
+scanlines, a GIF is LZW over a fixed 3-3-2 palette. ``decode_png`` reads
+8- and 16-bit grey, grey+alpha, RGB, RGBA and palette images with any of
+the five scanline filters (not interlaced), and returns RGB with the alpha
+dropped and grey repeated, as ``yanerf_tpu``'s loader does
+(``native/src/image_io.cpp``: no compositing; 16-bit keeps the high byte).
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import List
+from pathlib import Path
+from typing import List, Union
 
 import numpy as np
 
@@ -37,6 +42,81 @@ def png_bytes(img: np.ndarray) -> bytes:
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if img.ndim == 3 else 0, 0, 0, 0)
     return _PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b"")
+
+
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(ftypes: np.ndarray, filt: np.ndarray) -> np.ndarray:
+    """Undo the scanline filters: ``filt`` is ``(H, W, bytes per pixel)``, ``ftypes`` ``(H,)``."""
+    if ftypes.max(initial=0) > 4:
+        raise ValueError(f"unknown PNG filter type {int(ftypes.max())}")
+    h, w, bpp = filt.shape
+    f = filt.astype(np.int64)
+    if ftypes.max(initial=0) <= 2:  # None, Sub, Up: one vectorized step per row
+        out = np.zeros((h + 1, w, bpp), np.int64)
+        for r in range(h):
+            t = ftypes[r]
+            out[r + 1] = f[r] if t == 0 else np.cumsum(f[r], axis=0) if t == 1 else f[r] + out[r]
+            out[r + 1] &= 255
+        return out[1:].astype(np.uint8)
+    # Average and Paeth depend on the left, upper and upper-left pixels:
+    # decode one anti-diagonal (r + x = d) at a time, all rows at once
+    out = np.zeros((h + 1, w + 1, bpp), np.int64)  # a zero row above and a zero column left
+    for d in range(h + w - 1):
+        r = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        x = d - r
+        a, b, c = out[r + 1, x], out[r, x + 1], out[r, x]
+        t = ftypes[r][:, None]
+        pred = np.select([t == 1, t == 2, t == 3, t == 4], [a, b, (a + b) >> 1, _paeth(a, b, c)], 0)
+        out[r + 1, x + 1] = (f[r, x] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """Decode PNG bytes to an ``(H, W, 3)`` uint8 RGB image (alpha dropped, grey repeated)."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, idat, palette, header = 8, [], None, None
+    while pos + 8 <= len(data):
+        length, tag = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = header
+    if interlace or ctype not in _CHANNELS or depth not in (8, 16) or (ctype == 3 and depth != 8):
+        raise NotImplementedError(f"PNG colour type {ctype}, bit depth {depth}, interlace {interlace}")
+    channels = _CHANNELS[ctype]
+    bpp = channels * depth // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[: h * (1 + w * bpp)].reshape(h, 1 + w * bpp)
+    px = _unfilter(raw[:, 0], raw[:, 1:].reshape(h, w, bpp))
+    if depth == 16:
+        px = px.reshape(h, w, channels, 2)[..., 0]  # big-endian samples: keep the high byte
+    if ctype == 3:
+        return palette[px[..., 0]]
+    if ctype in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def load_image(path: Union[str, Path]) -> np.ndarray:
+    """A PNG file as float32 RGB in [0, 1], ``(H, W, 3)``."""
+    return decode_png(Path(path).read_bytes()).astype(np.float32) / 255.0
 
 
 def _palette_332() -> bytes:
