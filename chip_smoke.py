@@ -2,35 +2,51 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its numbers on a line of its own with the card's
-name and power limit:
+Two configurations at their published widths, random weights from a seed:
+configs/nerf/lego_proposal.yml ("proposal": two 4x128 ProposalMLPs and one
+8x256 NeRFMLP at 48 points per ray) and configs/nerf/lego.yml ("classic":
+two 8x256 NeRFMLPs, coarse at 64 points per ray, fine at 64 + 128 merged
+and sorted). Phases, each printing its numbers on a line of its own with
+the card's name and power limit:
   1. build   compile every kernel of the serving and training paths from
-             the sources in this checkout (one nvcc per source, all started
-             together);
+             the sources in this checkout, one nvcc per source, all started
+             together: the NeRF-MLP forward (K1), its pipelined twin (K2)
+             and the NeRF-MLP backward (K3); ptxas registers, spills and
+             shared memory of each;
   2. kernel  hold each kernel against its plain PyTorch version at the
-             shapes the paths give it, and time both: the NeRF-MLP forward
-             (K1) at one eval chunk (2045 rays x 32 points) and at one train
-             step (4096 rays x 48 points), the NeRF-MLP backward (K3) at one
-             train step;
-  3. serve   build the service from configs/nerf/lego_proposal.yml with
-             the NeRF-MLP kernel on (seeded random weights), start the
-             HTTP server on 127.0.0.1, and answer GET /render, POST /render
-             and GET /health at 800x800; K1 must be launched exactly 313
-             times per frame, K3 never;
-  4. frame   render one frame with the kernel and again with its plain
-             version; the PSNR between the two must reach 40 dB;
+             shapes the paths give it, and time both: K1 at the proposal
+             eval chunk (2045 rays x 32 points) and train step (4096 x 48);
+             K3 at the proposal train step; K2 bit for bit against K1
+             (torch.equal) at the classic fine eval chunk (2045 x 192), the
+             proposal train step, 3 x 5 and 1 x 1, and against the plain
+             version, K2 and K1 timed in turns at both large shapes; K1 and
+             K3 against their plain versions and timed at the classic train
+             step's coarse (4096 x 64) and fine (4096 x 192) shapes;
+  3. serve   for each configuration, the HTTP server on 127.0.0.1 with the
+             NeRF-MLP kernel switched on answers GET /render, POST /render
+             and GET /health at 800x800; K1 is launched exactly once per
+             chunk and NeRFMLP (313 times per proposal frame, 626 per
+             classic frame), K3 never;
+  4. frame   for each configuration, one frame with K1 and again with its
+             plain version: PSNR >= 40 dB; the classic frame also with K2
+             at the kernel entry, which must equal the K1 frame bit for bit
+             (626 K2 launches, the path K2 runs on);
   5. train   write a procedural 800x800 Blender-format scene from a seed
-             and train lego_proposal.yml on it at full width through
-             ``python -m yanerf_tpu_torch.run`` with
-             ``pipeline.model.2.use_pallas_train=True``: K1 and K3 launched
-             exactly once per step, the objective finite at every step,
-             every parameter moved, the final checkpoint reloads to the
-             same parameters, Adam state and step;
-  6. step    one train step from the same weights, batch and draws with
-             the fused kernels and with the eager model: the objectives
-             agree within 1e-2 relative and the NeRF-MLP gradients at a
-             cosine >= 0.999 (the two bf16 policies differ: the kernels add
-             the bias in float32, the eager model in bf16).
+             and train each configuration on it through
+             ``python -m yanerf_tpu_torch.run`` with ``use_pallas_train`` on
+             every NeRFMLP (32 proposal steps, 16 classic steps with density
+             noise 0.2 and pixels drawn without replacement): K1 and K3
+             launched exactly once per step and NeRFMLP, the objective
+             finite at every step, every parameter moved, the final
+             checkpoint reloads to the same parameters, Adam state and step;
+  6. step    for each configuration, one train step from the same weights,
+             batch and draws with the fused kernels and with the eager
+             model: the objectives agree within 1e-2 relative and each
+             NeRF-MLP's gradients at a cosine >= 0.999 (the two bf16
+             policies differ: the kernels add the bias in float32, the
+             eager model in bf16; each kernel is held tensor by tensor to
+             its plain version in phase 2); the peak device memory of each
+             step.
 
 Any failure exits non-zero. Imports nothing of JAX or of yanerf_tpu. The
 last three lines are the kernels' JSON record, the card's name and power
@@ -54,15 +70,17 @@ from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "nerf" / "lego_proposal.yml"
-CFG_OPTIONS = {"pipeline.model.2.use_pallas": True}
+CLASSIC_CONFIG = REPO / "configs" / "nerf" / "lego.yml"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FRAMES_PER_RUN = 2  # frames rendered in the serve phase (GET and POST /render)
-CHUNKS_PER_FRAME = 313  # ceil(800 * 800 * 64 / 131072)
+CHUNKS_PER_FRAME = 313  # ceil(800 * 800 * 64 / 131072), both configurations
 KERNEL_ATOL = 1e-2  # bf16: sums taken in another order can flip one bf16 rounding (2^-8) of a hidden activation
 KERNEL_RTOL = 1e-2
 MIN_FRAME_PSNR = 40.0
 TRAIN_RAYS, TRAIN_PTS = 4096, 48  # lego_proposal's rays per step and final points per ray
+CLASSIC_EVAL_FINE_PTS = 64 + 128  # the classic fine pass at eval: coarse points merged with the fine ones
+CLASSIC_TRAIN_PTS = (64, 64 + 128)  # the classic train step's coarse and fine passes
 # K3 against its plain version, per gradient tensor: the same bf16 roundings at
 # the same places, but a hidden cotangent whose float32 sum rounds the other
 # way (2^-8) moves the weight-gradient sums it enters, by 1-2% of the largest
@@ -70,7 +88,8 @@ TRAIN_RAYS, TRAIN_PTS = 4096, 48  # lego_proposal's rays per step and final poin
 K3_MIN_COSINE = 0.9999
 K3_REL_ATOL = 5e-2  # of the tensor's largest entry
 TRAIN_FRAMES, TEST_FRAMES = 4, 1  # 800x800 frames of the procedural scene
-TRAIN_STEPS = 32  # 8 epochs of 4 frames
+TRAIN_STEPS = 32  # proposal: 8 epochs of 4 frames
+CLASSIC_TRAIN_STEPS = 16  # classic: 4 epochs of 4 frames
 DEVICE = "cuda"
 STEP_OBJECTIVE_RTOL = 1e-2
 STEP_MIN_GRAD_COSINE = 0.999
@@ -118,37 +137,88 @@ def cosine(torch, a, b) -> float:
     return float(a @ b / torch.clamp(a.norm() * b.norm(), min=1e-30))
 
 
+def nerf_mlp_keys(config) -> list:
+    """Dotted config keys of the NeRFMLPs of the config file ``config``."""
+    from yanerf_tpu_torch.pipelines import nerf_mlp_keys as keys
+    from yanerf_tpu_torch.utils import Config
+
+    return keys(Config.fromfile(str(config)))
+
+
+def mlp_inputs(torch, n_rays: int, pts_per_ray: int, gen):
+    points = (torch.rand(n_rays * pts_per_ray, 3, generator=gen) * 3.0 - 1.5).cuda()
+    dirs = torch.randn(n_rays, 3, generator=gen).cuda()
+    return points, dirs
+
+
+def k1_bound(K1, packed, points, dirs):
+    flops = K1.flops_per_point(packed) * points.shape[0]
+    out_bytes = points.shape[0] * (1 + packed.color_dim) * 4
+    return flops, bound(flops, points.numel() * 4 + dirs.numel() * 4 + out_bytes + K1.weight_bytes(packed))
+
+
 def check_k1(torch, K1, packed, n_rays: int, pts_per_ray: int, gen):
     """K1 against its plain version at ``n_rays`` x ``pts_per_ray``; returns its numbers."""
-    n_pts = n_rays * pts_per_ray
-    points = (torch.rand(n_pts, 3, generator=gen) * 3.0 - 1.5).cuda()
-    dirs = torch.randn(n_rays, 3, generator=gen).cuda()
+    points, dirs = mlp_inputs(torch, n_rays, pts_per_ray, gen)
     out = K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray)
     torch.cuda.synchronize()
     ref = K1.nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray)
     err = (out - ref).abs()
     max_abs_err = float(err.max())
     if not bool(torch.isfinite(out).all()) or bool((err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()).any()):
-        raise SystemExit(f"nerf_mlp_fwd disagrees with its plain version at {n_pts} points: max abs err {max_abs_err}")
+        raise SystemExit(f"nerf_mlp_fwd disagrees with its plain version at {points.shape[0]} points: "
+                         f"max abs err {max_abs_err}")
     kernel_ms = time_ms(torch, lambda: K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray))
     plain_ms = time_ms(torch, lambda: K1.nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray))
-    flops = K1.flops_per_point(packed) * n_pts
-    bound_ms, bound_by = bound(flops, points.numel() * 4 + dirs.numel() * 4 + out.numel() * 4 + K1.weight_bytes(packed))
-    return dict(points=n_pts, max_abs_err=max_abs_err, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=kernel_ms,
+    flops, (bound_ms, bound_by) = k1_bound(K1, packed, points, dirs)
+    return dict(points=points.shape[0], max_abs_err=max_abs_err, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
                 achieved_tflops=flops / kernel_ms / 1e9)
 
 
-def check_k3(torch, K3, nerf_mlp, packed, gen):
-    """K3 against its plain version at one train step's shapes; returns its numbers."""
-    n_pts = TRAIN_RAYS * TRAIN_PTS
-    points = (torch.rand(n_pts, 3, generator=gen) * 3.0 - 1.5).cuda()
-    dirs = torch.randn(TRAIN_RAYS, 3, generator=gen).cuda()
-    cot = (torch.randn(n_pts, 1 + packed.color_dim, generator=gen) / n_pts).cuda()
-    gw, gb = K3.nerf_mlp_bwd(packed, points, dirs, TRAIN_PTS, cot)
+def check_k2(torch, K1, packed, n_rays: int, pts_per_ray: int, gen, timed: bool):
+    """K2 against K1 (bit for bit) and against the plain version; with ``timed``, K1 and K2 in turns."""
+    points, dirs = mlp_inputs(torch, n_rays, pts_per_ray, gen)
+    out = K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray, pipelined=True)
+    k1_out = K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray)
     torch.cuda.synchronize()
-    again = K3.nerf_mlp_bwd(packed, points, dirs, TRAIN_PTS, cot)
-    rw, rb = K3.nerf_mlp_bwd_plain(packed, points, dirs, TRAIN_PTS, cot)
+    ref = K1.nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray)
+    err = (out - ref).abs()
+    numbers = dict(points=points.shape[0], equal_to_k1=bool(torch.equal(out, k1_out)),
+                   max_abs_err=float(err.max()), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    if not numbers["equal_to_k1"] or not bool(torch.isfinite(out).all()) or bool(
+        (err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()).any()
+    ):
+        raise SystemExit(f"nerf_mlp_fwd(pipelined=True) at {points.shape[0]} points: {numbers}")
+    if timed:
+        k2 = lambda: K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray, pipelined=True)  # noqa: E731
+        k1 = lambda: K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray)  # noqa: E731
+        k1_ms = [time_ms(torch, k1)]
+        k2_ms = [time_ms(torch, k2), time_ms(torch, k2)]
+        k1_ms.append(time_ms(torch, k1))
+        flops, (bound_ms, bound_by) = k1_bound(K1, packed, points, dirs)
+        numbers.update(ms=sum(k2_ms) / 2, k2_ms_turns=k2_ms, k1_ms=sum(k1_ms) / 2, k1_ms_turns=k1_ms,
+                       plain_ms=time_ms(torch, lambda: K1.nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray)),
+                       bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+                       achieved_tflops=flops / (sum(k2_ms) / 2) / 1e9,
+                       k1_achieved_tflops=flops / (sum(k1_ms) / 2) / 1e9)
+    return numbers
+
+
+def check_k3(torch, K3, nerf_mlp, packed, gen, n_rays: int = TRAIN_RAYS, pts_per_ray: int = TRAIN_PTS):
+    """K3 against its plain version at ``n_rays`` x ``pts_per_ray`` (a train step's shapes); returns its numbers.
+
+    Per gradient tensor: cosine >= K3_MIN_COSINE, max abs error within
+    K3_REL_ATOL of the largest entry; the padded weight rows stay zero and
+    two launches give the same bits.
+    """
+    n_pts = n_rays * pts_per_ray
+    points, dirs = mlp_inputs(torch, n_rays, pts_per_ray, gen)
+    cot = (torch.randn(n_pts, 1 + packed.color_dim, generator=gen) / n_pts).cuda()
+    gw, gb = K3.nerf_mlp_bwd(packed, points, dirs, pts_per_ray, cot)
+    torch.cuda.synchronize()
+    again = K3.nerf_mlp_bwd(packed, points, dirs, pts_per_ray, cot)
+    rw, rb = K3.nerf_mlp_bwd_plain(packed, points, dirs, pts_per_ray, cot)
     got_w, got_b = K3.grad_views(packed, gw, gb)
     ref_w, ref_b = K3.grad_views(packed, rw, rb)
     worst_cos, max_abs_err, failures = 1.0, 0.0, []
@@ -168,27 +238,143 @@ def check_k3(torch, K3, nerf_mlp, packed, gen):
     )
     deterministic = bool(torch.equal(gw, again[0]) and torch.equal(gb, again[1]))
     if failures or not padded_zero or not deterministic:
-        raise SystemExit(f"nerf_mlp_bwd disagrees with its plain version: {failures}, padded rows zero "
-                         f"{padded_zero}, same result twice {deterministic}")
-    kernel_ms = time_ms(torch, lambda: K3.nerf_mlp_bwd(packed, points, dirs, TRAIN_PTS, cot), iters=10)
-    plain_ms = time_ms(torch, lambda: K3.nerf_mlp_bwd_plain(packed, points, dirs, TRAIN_PTS, cot), iters=5)
+        raise SystemExit(f"nerf_mlp_bwd disagrees with its plain version at {n_pts} points: {failures}, padded "
+                         f"rows zero {padded_zero}, same result twice {deterministic}")
+    kernel_ms = time_ms(torch, lambda: K3.nerf_mlp_bwd(packed, points, dirs, pts_per_ray, cot), iters=10)
+    plain_ms = time_ms(torch, lambda: K3.nerf_mlp_bwd_plain(packed, points, dirs, pts_per_ray, cot), iters=5)
     flops = K3.flops_per_point(packed) * n_pts
-    bound_ms, bound_by = bound(flops, K3.io_bytes(packed, n_pts, TRAIN_RAYS))
+    bound_ms, bound_by = bound(flops, K3.io_bytes(packed, n_pts, n_rays))
     return dict(points=n_pts, max_abs_err=max_abs_err, worst_cosine=worst_cos, min_cosine=K3_MIN_COSINE,
                 rel_atol=K3_REL_ATOL, padded_rows_zero=padded_zero, deterministic=deterministic, ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
-                achieved_tflops=flops / kernel_ms / 1e9)
+                achieved_tflops=flops / kernel_ms / 1e9,
+                stash_gb=n_pts * sum(K3.stash_widths(packed.n_layers)) * 2 / 1e9)
 
 
-def train(torch, K1, K3, scene: Path, out_dir: Path):
-    """Train lego_proposal.yml on ``scene`` through ``yanerf_tpu_torch.run``; returns its checks and numbers."""
+def check_classic_train_shapes(torch, K1, K3, nerf_mlp, packed, gen, card_line):
+    """K1 and K3 against their plain versions, and timed, at the classic train step's coarse and fine shapes.
+
+    The weights are those of the proposal config's NeRFMLP, whose layers
+    are the classic's (8x256, the same embeddings).
+    """
+    for name, pts_per_ray in zip(("coarse", "fine"), CLASSIC_TRAIN_PTS):
+        shape = f"classic train step, {name} pass, {TRAIN_RAYS} rays x {pts_per_ray} points"
+        say(card_line, "kernel", name="nerf_mlp_fwd", shape=shape,
+            **check_k1(torch, K1, packed, TRAIN_RAYS, pts_per_ray, gen))
+        say(card_line, "kernel", name="nerf_mlp_bwd", shape=shape,
+            **check_k3(torch, K3, nerf_mlp, packed, gen, TRAIN_RAYS, pts_per_ray))
+        torch.cuda.empty_cache()
+
+
+def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame: int):
+    """The port's HTTP server answers at full width; returns the launches of its two frames."""
+    import numpy as np
+
+    from yanerf_tpu_torch.serve import create_server, orbit_pose
+    from yanerf_tpu_torch.utils.images import decode_png
+
+    # after one warm-up frame, so that the latencies are those of a running server
+    t = time.perf_counter()
+    service.warmup()
+    warmup_s = time.perf_counter() - t
+    server = create_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    h, w = service.image_hw
+    latencies = {}
+    try:
+        K1.launches = K1.pipelined_launches = K3.launches = 0
+        t = time.perf_counter()
+        with urllib.request.urlopen(f"{url}/render?theta=30&phi=-30&radius=4", timeout=600) as resp:
+            png, png_type = resp.read(), resp.headers["Content-Type"]
+        latencies["GET /render png"] = time.perf_counter() - t
+        pose = orbit_pose(120.0, -25.0, 4.0)
+        body = json.dumps({"pose": pose.tolist(), "format": "json"}).encode()
+        req = urllib.request.Request(f"{url}/render", data=body, headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            grid = json.loads(resp.read())
+        latencies["POST /render json"] = time.perf_counter() - t
+        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                    "nerf_mlp_bwd": K3.launches}
+        t = time.perf_counter()
+        with urllib.request.urlopen(f"{url}/health", timeout=60) as resp:
+            health = json.loads(resp.read())
+        latencies["GET /health"] = time.perf_counter() - t
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    img = decode_png(png)
+    arr = np.asarray(grid["data"], dtype=np.float64)
+    checks = {
+        "png_shape": png_type == "image/png" and img.shape == (h, w, 3),
+        "json_shape": grid["shape"] == [h, w, 3] and arr.shape == (h, w, 3),
+        "json_finite": bool(np.isfinite(arr).all()),
+        "health": health["status"] == "ok" and health["renders"] >= FRAMES_PER_RUN,
+        "launches_per_frame": launches == {"nerf_mlp_fwd": k1_per_frame * FRAMES_PER_RUN,
+                                           "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0},
+    }
+    say(card_line, "serve", config=config_name, warmup_s=warmup_s, latency_s=latencies, launches=launches,
+        k1_launches_per_frame=launches["nerf_mlp_fwd"] / FRAMES_PER_RUN, frame_hw=[h, w], checks=checks,
+        server_mean_render_s=health["mean_render_s"])
+    if not all(checks.values()):
+        raise SystemExit(f"{config_name} serve phase failed: {checks}")
+    return launches
+
+
+def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool):
+    """One frame with K1, [with K2 at the kernel entry,] and with the plain version; returns the launches."""
+    import numpy as np
+
+    from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose
+
+    pose_world = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
+    numbers, launches = {}, {}
+    K1.launches = K1.pipelined_launches = 0
+    t = time.perf_counter()
+    rgb_kernel, depth_kernel = service.render(pose_world, service.default_focal)
+    numbers["kernel_frame_s"] = time.perf_counter() - t
+    launches["nerf_mlp_fwd"] = K1.launches
+    checks = {"finite": bool(np.isfinite(rgb_kernel).all())}
+    if with_k2:
+        k1_entry = K1.nerf_mlp_fwd
+        K1.launches = K1.pipelined_launches = 0
+        with mock.patch.object(K1, "nerf_mlp_fwd", lambda *args, **kw: k1_entry(*args, pipelined=True, **kw)):
+            t = time.perf_counter()
+            rgb_k2, depth_k2 = service.render(pose_world, service.default_focal)
+            numbers["k2_frame_s"] = time.perf_counter() - t
+        launches["nerf_mlp_fwd_pipelined"] = K1.pipelined_launches
+        checks["k2_frame_equals_k1_frame"] = bool(np.array_equal(rgb_k2, rgb_kernel) and
+                                                  np.array_equal(depth_k2, depth_kernel))
+        checks["k2_launches"] = K1.launches == 0 and K1.pipelined_launches == launches["nerf_mlp_fwd"] > 0
+    with mock.patch.object(K1, "nerf_mlp_fwd", K1.nerf_mlp_fwd_plain):
+        t = time.perf_counter()
+        rgb_plain, _ = service.render(pose_world, service.default_focal)
+        numbers["plain_frame_s"] = time.perf_counter() - t
+    mse = float(np.mean((rgb_kernel.astype(np.float64) - rgb_plain) ** 2))
+    numbers["psnr_db"] = -10.0 * math.log10(max(mse, 1e-20))
+    checks["psnr"] = numbers["psnr_db"] >= MIN_FRAME_PSNR
+    say(card_line, "frame", config=config_name, min_psnr_db=MIN_FRAME_PSNR, launches=launches,
+        mean_rgb=float(rgb_kernel.mean()), checks=checks, **numbers)
+    if not all(checks.values()):
+        raise SystemExit(f"{config_name} frame phase failed: {checks}")
+    return launches
+
+
+def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
+    """Train ``config`` on ``scene`` through ``yanerf_tpu_torch.run``; returns its checks and numbers."""
     import yanerf_tpu_torch.runners as runners
     from yanerf_tpu_torch import run
     from yanerf_tpu_torch.pipelines import PIPELINES
     from yanerf_tpu_torch.utils import Config
 
-    argv = ["--config", str(CONFIG), "--device", DEVICE, "--output_dir", str(out_dir), "--cfg_options",
-            "pipeline.model.2.use_pallas_train=True", f"runner.num_iters={TRAIN_STEPS}",
+    config = CONFIG if config is None else config
+    steps = TRAIN_STEPS if steps is None else steps
+    keys = nerf_mlp_keys(config)
+    argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir), "--cfg_options",
+            *(f"{key}.use_pallas_train=True" for key in keys), f"runner.num_iters={steps}",
             *(f"datasets.{i}.base_dir={scene}" for i in range(3))]
     # observe the run: the parameters it starts from and every step's objective
     objectives, initial = [], {}
@@ -206,12 +392,13 @@ def train(torch, K1, K3, scene: Path, out_dir: Path):
         return wrapped
 
     with mock.patch.object(runners, "make_train_step", observed):
-        K1.launches = K3.launches = 0
+        K1.launches = K1.pipelined_launches = K3.launches = 0
         t = time.perf_counter()
         result = run.main(argv)
         sync(torch)
         run_s = time.perf_counter() - t
-        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_bwd": K3.launches}
+        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                    "nerf_mlp_bwd": K3.launches}
 
     state = result["state"]
     n_steps = state.step
@@ -230,67 +417,104 @@ def train(torch, K1, K3, scene: Path, out_dir: Path):
     )
     step_s = [s["step_s"] for s in result["train_stats"] if "step_s" in s]
     ms_per_step = 1e3 * sorted(step_s)[len(step_s) // 2]
+    n_rays = cfg.pipeline.ray_sampler.n_rays_per_image_sampled_from_mask
+    n_mlps = sum(int(getattr(fn, "use_pallas_train", False)) for fn in state.pipeline.implicit_functions)
     checks = {
-        "steps": n_steps == TRAIN_STEPS == len(objectives),
-        "k3_once_per_step": launches["nerf_mlp_bwd"] == n_steps,
-        # the test frame at the end renders with the eager model: the config
-        # turns the kernel on for training only (use_pallas_train)
-        "k1_once_per_step": launches["nerf_mlp_fwd"] == n_steps,
+        "steps": n_steps == steps == len(objectives),
+        # once per step and NeRFMLP; the test frame at the end renders with
+        # the eager model: the run turns the kernels on for training only
+        # (use_pallas_train)
+        "k3_per_nerf_mlp_per_step": launches["nerf_mlp_bwd"] == n_mlps * n_steps > 0,
+        "k1_per_nerf_mlp_per_step": launches["nerf_mlp_fwd"] == n_mlps * n_steps > 0,
         "objective_finite": bool(torch.isfinite(objective).all()),
         "params_moved": moved == len(initial),
         "checkpoint_reloads": same_params and same_adam and reloaded.step == n_steps,
         "test_metrics_finite": all(math.isfinite(v) for v in result["test_stats"].values()),
     }
     numbers = dict(
-        steps=n_steps, run_s=run_s, ms_per_step=ms_per_step, step_s_per_epoch=step_s,
-        train_rays_per_s=TRAIN_RAYS / ms_per_step * 1e3, launches=launches,
+        config=Path(config).name, nerf_mlps_on_kernels=n_mlps, steps=n_steps, run_s=run_s, ms_per_step=ms_per_step,
+        step_s_per_epoch=step_s,
+        train_rays_per_s=n_rays / ms_per_step * 1e3, launches=launches,
         objective_first=float(objective[0]), objective_last=float(objective[-1]),
         params_moved=f"{moved}/{len(initial)}", test_stats=result["test_stats"], checks=checks,
     )
     return numbers, launches
 
 
-def step_equivalence(torch, scene: Path):
+def step_draws(torch, cfg, n_pixels: int, gen) -> dict:
+    """The random draws of one train step of ``cfg``'s pipeline, from ``gen``, as ``draws`` takes them."""
+    sampler, renderer = cfg.pipeline.ray_sampler, cfg.pipeline.renderer
+    n_rays, n_pts = sampler.n_rays_per_image_sampled_from_mask, sampler.n_pts_per_ray_training
+
+    def rand(n, normal=False):
+        draw = torch.randn if normal else torch.rand
+        return draw(1, n_rays, 1, n, generator=gen, device=DEVICE)
+
+    if sampler.get("pixel_replacement", False):
+        pixel_idx = torch.randint(0, n_pixels, (1, n_rays), generator=gen, device=DEVICE)
+    else:
+        pixel_idx = torch.randperm(n_pixels, generator=gen, device=DEVICE)[None, :n_rays]
+    draws = {"pixel_idx": pixel_idx, "strata_u": rand(n_pts)}
+    noisy = renderer.get("density_noise_std_train", 0.0) > 0.0
+    if renderer.type == "MultipassEmissionAbsorpsionRenderer":
+        n_fine = renderer.get("n_pts_per_ray_fine_training", 64)
+        model = cfg.pipeline.model
+        n_passes = cfg.pipeline.num_passes if isinstance(model, dict) else len(model)
+        draws["pdf_u"] = [rand(n_fine) for _ in range(n_passes - 1)]
+        append = renderer.get("append_coarse_samples_to_fine", True)
+        per_pass = [n_pts + k * n_fine if append else (n_fine if k else n_pts) for k in range(n_passes)]
+        if noisy:
+            draws["density_noise"] = [rand(n, normal=True) for n in per_pass]
+    else:
+        finals = [*renderer.n_pts_per_ray_intermediate_training, renderer.n_pts_per_ray_final_training]
+        draws["pdf_u"] = [rand(n) for n in finals]
+        if noisy:
+            draws["density_noise"] = [rand(finals[-1], normal=True)]
+    return draws
+
+
+def step_equivalence(torch, scene: Path, config=None):
     """One train step with the fused kernels and with the eager model, same weights, batch and draws."""
     from yanerf_tpu_torch.datasets import BlenderDataset
-    from yanerf_tpu_torch.pipelines import PIPELINES
+    from yanerf_tpu_torch.pipelines import PIPELINES, set_nerf_mlp_option
     from yanerf_tpu_torch.runners import TrainState, create_optimizer, make_train_step, prepare_batch
     from yanerf_tpu_torch.utils import Config
 
-    cfg = Config.fromfile(str(CONFIG))
-    cfg.merge_from_dict({"pipeline.model.2.use_pallas_train": True})
+    config = CONFIG if config is None else config
+    cfg = Config.fromfile(str(config))
+    set_nerf_mlp_option(cfg, "use_pallas_train", True)
     dataset = BlenderDataset(scene, "train")
     batch = prepare_batch(tuple(x[None] for x in dataset[0]), dataset.data_wrapper, torch.device(DEVICE))
-    # the draws of one step, fed to both: pixel indices, strata jitter, the u's of both proposal passes
-    sampler, renderer = cfg.pipeline.ray_sampler, cfg.pipeline.renderer
-    n_rays = sampler.n_rays_per_image_sampled_from_mask
-    gen = torch.Generator(device=DEVICE).manual_seed(3)
-    draws = {
-        "pixel_idx": torch.randint(0, dataset.H * dataset.W, (1, n_rays), generator=gen, device=DEVICE),
-        "strata_u": torch.rand(1, n_rays, 1, sampler.n_pts_per_ray_training, generator=gen, device=DEVICE),
-        "pdf_u": [
-            torch.rand(1, n_rays, 1, n, generator=gen, device=DEVICE)
-            for n in [*renderer.n_pts_per_ray_intermediate_training, renderer.n_pts_per_ray_final_training]
-        ],
-    }
+    draws = step_draws(torch, cfg, dataset.H * dataset.W, torch.Generator(device=DEVICE).manual_seed(3))
     kernel_pipe = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(5), device=DEVICE)
     eager_pipe = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(5), device=DEVICE)
     eager_pipe.load_state_dict(kernel_pipe.state_dict())
-    eager_pipe.implicit_functions[2].use_pallas_train = False
+    nerf_mlps = [i for i, fn in enumerate(kernel_pipe.implicit_functions) if getattr(fn, "use_pallas_train", False)]
+    for i in nerf_mlps:
+        eager_pipe.implicit_functions[i].use_pallas_train = False
     out = {}
     for name, pipe in (("kernels", kernel_pipe), ("eager", eager_pipe)):
         state = TrainState(pipeline=pipe, optimizer=create_optimizer(cfg.runner, pipe), step=0)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         preds = make_train_step(pipe, cfg.runner, 0)(state, batch, draws)
-        out[name] = (float(preds["objective"].mean()), [p.grad for p in pipe.implicit_functions[2].parameters()])
-    (obj_k, tensors_k), (obj_e, tensors_e) = out["kernels"], out["eager"]
-    grad_cos = cosine(torch, torch.cat([g.flatten() for g in tensors_k]), torch.cat([g.flatten() for g in tensors_e]))
+        sync(torch)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
+        grads = [[p.grad for p in pipe.implicit_functions[i].parameters()] for i in nerf_mlps]
+        out[name] = (float(preds["objective"].mean()), grads, peak_gb)
+    (obj_k, grads_k, peak_k), (obj_e, grads_e, peak_e) = out["kernels"], out["eager"]
+    grad_cos = [cosine(torch, torch.cat([g.flatten() for g in gk]), torch.cat([g.flatten() for g in ge]))
+                for gk, ge in zip(grads_k, grads_e)]
+    worst = [min(cosine(torch, a, b) for a, b in zip(gk, ge)) for gk, ge in zip(grads_k, grads_e)]
     checks = {
         "objective": abs(obj_k - obj_e) <= STEP_OBJECTIVE_RTOL * abs(obj_e) and math.isfinite(obj_k),
-        "nerf_mlp_grad_cosine": grad_cos >= STEP_MIN_GRAD_COSINE,
+        "nerf_mlp_grad_cosine": all(c >= STEP_MIN_GRAD_COSINE for c in grad_cos),
     }
-    return dict(objective_kernels=obj_k, objective_eager=obj_e, objective_rtol=STEP_OBJECTIVE_RTOL,
-                nerf_mlp_grad_cosine=grad_cos, min_grad_cosine=STEP_MIN_GRAD_COSINE,
-                worst_tensor_cosine=min(cosine(torch, a, b) for a, b in zip(tensors_k, tensors_e)), checks=checks)
+    return dict(config=Path(config).name, objective_kernels=obj_k, objective_eager=obj_e,
+                objective_rtol=STEP_OBJECTIVE_RTOL, nerf_mlp_grad_cosine=grad_cos,
+                min_grad_cosine=STEP_MIN_GRAD_COSINE, worst_tensor_cosine=worst,
+                peak_memory_gb_kernels=peak_k, peak_memory_gb_eager=peak_e, checks=checks)
 
 
 def main() -> int:
@@ -300,122 +524,90 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    import numpy as np
 
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
-    from yanerf_tpu_torch.serve import CAM_CALIBRATION, create_server, orbit_pose, service_from_config
+    from yanerf_tpu_torch.pipelines import set_nerf_mlp_option
+    from yanerf_tpu_torch.serve import service_from_config
     from yanerf_tpu_torch.synth_scene import write_scene
     from yanerf_tpu_torch.utils import Config
-    from yanerf_tpu_torch.utils.images import decode_png
 
     card_line = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # 1. build: one nvcc per kernel source, all started together
-    kernels = {"nerf_mlp_fwd": K1, "nerf_mlp_bwd": K3}
+    libraries = {"nerf_mlp_fwd": K1.LIBRARY, "nerf_mlp_fwd_pipelined": K1.PIPELINED_LIBRARY,
+                 "nerf_mlp_bwd": K3.LIBRARY}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        build_s = dict(zip(kernels, pool.map(lambda mod: mod.load(), kernels.values())))
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        build_s = dict(zip(libraries, pool.map(lambda lib: lib.load(), libraries.values())))
     say(card_line, "build", seconds=time.perf_counter() - t0, per_kernel_s=build_s,
-        ptxas={name: mod.build_report() for name, mod in kernels.items()})
+        ptxas={name: lib.build_report() for name, lib in libraries.items()})
 
-    cfg = Config.fromfile(str(CONFIG))
-    cfg.merge_from_dict(CFG_OPTIONS)
-    service = service_from_config(cfg, checkpoint=None, device="cuda", seed=0)
-    nerf_mlp = service._pipeline.implicit_functions[-1]
-    if not nerf_mlp.use_pallas:
-        raise SystemExit("the config override did not turn the NeRF-MLP kernel on")
+    def build_service(config):
+        cfg = Config.fromfile(str(config))
+        set_nerf_mlp_option(cfg, "use_pallas", True)
+        service = service_from_config(cfg, checkpoint=None, device="cuda", seed=0)
+        nerf_mlps = [fn for fn in service._pipeline.implicit_functions if hasattr(fn, "use_pallas")]
+        if not nerf_mlps or not all(fn.use_pallas for fn in nerf_mlps):
+            raise SystemExit(f"the config override did not turn the NeRF-MLP kernel on in {config}")
+        return service, nerf_mlps
+
+    service, nerf_mlps = build_service(CONFIG)
+    nerf_mlp = nerf_mlps[-1]
     packed = nerf_mlp.packed_weights()
 
-    # 2. kernels vs plain versions: K1 at one eval chunk and at one train
-    # step, K3 at one train step; these launches do not count
+    # 2. kernels vs plain versions; these launches do not count
     gen = torch.Generator().manual_seed(1)
     k1 = check_k1(torch, K1, packed, 2045, 32, gen)
-    say(card_line, "kernel", name="nerf_mlp_fwd", shape="eval chunk, 2045 rays x 32 points", **k1)
+    say(card_line, "kernel", name="nerf_mlp_fwd", shape="proposal eval chunk, 2045 rays x 32 points", **k1)
     k1_train = check_k1(torch, K1, packed, TRAIN_RAYS, TRAIN_PTS, gen)
-    say(card_line, "kernel", name="nerf_mlp_fwd", shape="train step, 4096 rays x 48 points", **k1_train)
+    say(card_line, "kernel", name="nerf_mlp_fwd", shape="proposal train step, 4096 rays x 48 points", **k1_train)
     k3 = check_k3(torch, K3, nerf_mlp, packed, gen)
-    say(card_line, "kernel", name="nerf_mlp_bwd", shape="train step, 4096 rays x 48 points", **k3)
+    say(card_line, "kernel", name="nerf_mlp_bwd", shape="proposal train step, 4096 rays x 48 points", **k3)
+    k2 = check_k2(torch, K1, packed, 2045, CLASSIC_EVAL_FINE_PTS, gen, timed=True)
+    say(card_line, "kernel", name="nerf_mlp_fwd_pipelined", shape="classic fine eval chunk, 2045 rays x 192 points",
+        **k2)
+    k2_train = check_k2(torch, K1, packed, TRAIN_RAYS, TRAIN_PTS, gen, timed=True)
+    say(card_line, "kernel", name="nerf_mlp_fwd_pipelined", shape="proposal train step, 4096 rays x 48 points",
+        **k2_train)
+    for n_rays, pts_per_ray in ((3, 5), (1, 1)):
+        say(card_line, "kernel", name="nerf_mlp_fwd_pipelined", shape=f"ragged, {n_rays} rays x {pts_per_ray} points",
+            **check_k2(torch, K1, packed, n_rays, pts_per_ray, gen, timed=False))
+    check_classic_train_shapes(torch, K1, K3, nerf_mlp, packed, gen, card_line)
+    torch.cuda.empty_cache()
 
-    # 3. serve: the port's HTTP server answers at full width (after one
-    # warm-up frame, so that the latencies are those of a running server)
-    t = time.perf_counter()
-    service.warmup()
-    warmup_s = time.perf_counter() - t
-    server = create_server(service, "127.0.0.1", 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}"
-    h, w = service.image_hw
-    latencies = {}
-    try:
-        K1.launches = K3.launches = 0
-        t = time.perf_counter()
-        with urllib.request.urlopen(f"{url}/render?theta=30&phi=-30&radius=4", timeout=600) as resp:
-            png, png_type = resp.read(), resp.headers["Content-Type"]
-        latencies["GET /render png"] = time.perf_counter() - t
-        pose = orbit_pose(120.0, -25.0, 4.0)
-        body = json.dumps({"pose": pose.tolist(), "format": "json"}).encode()
-        req = urllib.request.Request(f"{url}/render", data=body, headers={"Content-Type": "application/json"})
-        t = time.perf_counter()
-        with urllib.request.urlopen(req, timeout=600) as resp:
-            grid = json.loads(resp.read())
-        latencies["POST /render json"] = time.perf_counter() - t
-        serve_launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_bwd": K3.launches}
-        t = time.perf_counter()
-        with urllib.request.urlopen(f"{url}/health", timeout=60) as resp:
-            health = json.loads(resp.read())
-        latencies["GET /health"] = time.perf_counter() - t
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
-    img = decode_png(png)
-    arr = np.asarray(grid["data"], dtype=np.float64)
-    checks = {
-        "png_shape": png_type == "image/png" and img.shape == (h, w, 3),
-        "json_shape": grid["shape"] == [h, w, 3] and arr.shape == (h, w, 3),
-        "json_finite": bool(np.isfinite(arr).all()),
-        "health": health["status"] == "ok" and health["renders"] >= FRAMES_PER_RUN,
-        "launches_per_frame": serve_launches == {"nerf_mlp_fwd": CHUNKS_PER_FRAME * FRAMES_PER_RUN, "nerf_mlp_bwd": 0},
-    }
-    say(card_line, "serve", warmup_s=warmup_s, latency_s=latencies, launches=serve_launches, frame_hw=[h, w],
-        checks=checks, server_mean_render_s=health["mean_render_s"])
-    if not all(checks.values()):
-        raise SystemExit(f"serve phase failed: {checks}")
-
-    # 4. frame check: the kernel's frame against the plain version's, same pose
-    pose_world = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
-    t = time.perf_counter()
-    rgb_kernel, _ = service.render(pose_world, service.default_focal)
-    kernel_frame_s = time.perf_counter() - t
-    with mock.patch.object(K1, "nerf_mlp_fwd", K1.nerf_mlp_fwd_plain):
-        t = time.perf_counter()
-        rgb_plain, _ = service.render(pose_world, service.default_focal)
-        plain_frame_s = time.perf_counter() - t
-    mse = float(np.mean((rgb_kernel.astype(np.float64) - rgb_plain) ** 2))
-    psnr = -10.0 * math.log10(max(mse, 1e-20))
-    say(card_line, "frame", psnr_db=psnr, min_psnr_db=MIN_FRAME_PSNR, kernel_frame_s=kernel_frame_s,
-        plain_frame_s=plain_frame_s, mean_rgb=float(rgb_kernel.mean()))
-    if not (psnr >= MIN_FRAME_PSNR and np.isfinite(rgb_kernel).all()):
-        raise SystemExit(f"kernel frame vs plain frame: {psnr:.2f} dB < {MIN_FRAME_PSNR} dB")
-    del service
+    # 3. serve and 4. frame, proposal then classic
+    serve_launches = {"proposal": serve(torch, K1, K3, service, card_line, CONFIG.name, CHUNKS_PER_FRAME)}
+    frame(torch, K1, service, card_line, CONFIG.name, with_k2=False)
+    del service, nerf_mlps, nerf_mlp
+    service, nerf_mlps = build_service(CLASSIC_CONFIG)
+    serve_launches["classic"] = serve(torch, K1, K3, service, card_line, CLASSIC_CONFIG.name,
+                                      len(nerf_mlps) * CHUNKS_PER_FRAME)
+    classic_frame_launches = frame(torch, K1, service, card_line, CLASSIC_CONFIG.name, with_k2=True)
+    del service, nerf_mlps
+    torch.cuda.empty_cache()
 
     # 5. train and 6. step equivalence, on a scene written from a seed
+    train_launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t = time.perf_counter()
         scene = write_scene(Path(tmp) / "scene", hw=800, n_train=TRAIN_FRAMES, n_val=1, n_test=TEST_FRAMES, seed=0)
         scene_s = time.perf_counter() - t
-        numbers, train_launches = train(torch, K1, K3, scene, Path(tmp) / "results")
-        say(card_line, "train", scene_write_s=scene_s, **numbers)
-        if not all(numbers["checks"].values()):
-            raise SystemExit(f"train phase failed: {numbers['checks']}")
-        step = step_equivalence(torch, scene)
-        say(card_line, "step", **step)
-        if not all(step["checks"].values()):
-            raise SystemExit(f"step equivalence failed: {step['checks']}")
+        runs = (("proposal", CONFIG, TRAIN_STEPS), ("classic", CLASSIC_CONFIG, CLASSIC_TRAIN_STEPS))
+        for name, config, steps in runs:
+            numbers, train_launches[name] = train(torch, K1, K3, scene, Path(tmp) / f"results_{name}", config, steps)
+            say(card_line, "train", scene_write_s=scene_s, **numbers)
+            if not all(numbers["checks"].values()):
+                raise SystemExit(f"{name} train phase failed: {numbers['checks']}")
+            torch.cuda.empty_cache()
+            step = step_equivalence(torch, scene, config)
+            say(card_line, "step", **step)
+            if not all(step["checks"].values()):
+                raise SystemExit(f"{name} step equivalence failed: {step['checks']}")
+            torch.cuda.empty_cache()
 
     def entry(name, source, replaces, numbers, launches_by_path):
         return {
@@ -425,14 +617,26 @@ def main() -> int:
             "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"], "library_ms": None,
         }
 
+    def by_path(kernel):
+        paths = {f"{name}_serve": launches[kernel] for name, launches in serve_launches.items()}
+        paths["classic_frame"] = classic_frame_launches.get(kernel, 0)
+        paths.update({f"{name}_train": launches[kernel] for name, launches in train_launches.items()})
+        return paths
+
     record = {
         "kernels": [
-            entry("nerf_mlp_fwd", "yanerf_tpu_torch/csrc/nerf_mlp_fwd.cu", "yanerf_tpu/ops/pallas/nerf_mlp_kernel.py:154",
-                  k1, {"serve": serve_launches["nerf_mlp_fwd"], "train": train_launches["nerf_mlp_fwd"]}),
+            entry("nerf_mlp_fwd", "yanerf_tpu_torch/csrc/nerf_mlp_fwd.cu",
+                  "yanerf_tpu/ops/pallas/nerf_mlp_kernel.py:154", k1, by_path("nerf_mlp_fwd")),
+            entry("nerf_mlp_fwd_pipelined", "yanerf_tpu_torch/csrc/nerf_mlp_fwd_pipelined.cu",
+                  "yanerf_tpu/ops/pallas/nerf_mlp_kernel.py:296", k2, by_path("nerf_mlp_fwd_pipelined")),
             entry("nerf_mlp_bwd", "yanerf_tpu_torch/csrc/nerf_mlp_bwd.cu", "yanerf_tpu/ops/pallas/nerf_mlp_bwd.py:67",
-                  k3, {"serve": serve_launches["nerf_mlp_bwd"], "train": train_launches["nerf_mlp_bwd"]}),
+                  k3, by_path("nerf_mlp_bwd")),
         ]
     }
+    missing = [k["name"] for k in record["kernels"] if k["launches"] == 0]
+    if missing:
+        raise SystemExit(f"kernels never launched on their paths: {missing}")
+    say(card_line, "total", seconds=time.perf_counter() - t_start)
     print(json.dumps(record))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,9 @@ Tolerances:
     tensor cores sum the 256-long products in their own order, so a few
     hidden activations round the other way in bf16 and the following
     layers carry that on.
+  * K2 (``nerf_mlp_fwd(..., pipelined=True)``) bit for bit equal to K1
+    (``torch.equal``), as tests/test_pallas.py holds the Pallas pair: the
+    two kernels take every floating-point operation from one header.
   * K3 (``nerf_mlp_bwd``) per tensor at cosine >= 0.9999 and a max abs error
     within 5% of the tensor's largest entry, all finite, the rows of the
     packed padding exactly zero. The same bf16 roundings happen at the same
@@ -65,6 +68,24 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
         assert K1.launches == before + 1
         ref = K1.nerf_mlp_fwd_plain(packed, pts, dirs, n_pts)
         torch.testing.assert_close(out, ref, **K1_TOL)
+
+
+@pytest.mark.cuda
+def test_pipelined_kernel_is_bitwise_equal_to_k1(cuda_device):
+    """K2 (``nerf_mlp_fwd(pipelined=True)``) against K1: the classic fine eval chunk, ragged tails."""
+    model = MODELS.build(dict(FLAGSHIP), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    packed = model.packed_weights()
+    g = torch.Generator().manual_seed(2)
+    for n_rays, n_pts in ((2045, 192), (3, 5), (1, 1)):
+        pts = (torch.rand(n_rays * n_pts, 3, generator=g) * 3 - 1.5).to(cuda_device)
+        dirs = torch.randn(n_rays, 3, generator=g).to(cuda_device)
+        k1_before, k2_before = K1.launches, K1.pipelined_launches
+        got = K1.nerf_mlp_fwd(packed, pts, dirs, n_pts, pipelined=True)
+        ref = K1.nerf_mlp_fwd(packed, pts, dirs, n_pts)
+        torch.cuda.synchronize()
+        assert (K1.launches, K1.pipelined_launches) == (k1_before + 1, k2_before + 1)
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, ref), (n_rays, n_pts, float((got - ref).abs().max()))
 
 
 @pytest.mark.cuda

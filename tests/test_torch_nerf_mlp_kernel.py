@@ -1,8 +1,11 @@
-"""The fused NeRF-MLP kernel's plain version against the Pallas kernel (interpret mode), and its wrapper.
+"""The fused NeRF-MLP kernels' plain version against the Pallas kernels (interpret mode), and their wrapper.
 
 ``nerf_mlp_fwd_plain`` mirrors ``_nerf_mlp_kernel`` (float32 bias after
 float32 accumulation, cos as sin(t + pi/2)), so it is held to the Pallas
-kernel, never to the eager model, whose bf16 policy differs.
+kernel, never to the eager model, whose bf16 policy differs. The pipelined
+pair (K2, ``pipelined=True`` on both sides) computes the same function:
+on CPU tensors ``nerf_mlp_fwd(..., pipelined=True)`` takes the same plain
+version, held to ``_nerf_mlp_kernel_pipelined``.
 
 Tolerances: float32 at rtol/atol 1e-5, as tests/test_pallas.py holds the
 Pallas kernel to the jnp path. bfloat16 at atol 4e-3, one bf16 ulp (2^-8) of
@@ -58,15 +61,27 @@ def _points(n_rays, n_pts, seed=1):
     return pts, dirs
 
 
+SHAPES = [(16, 16, 64), (10, 7, 32), (2, 3, 128), (3, 5, 8)]
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n_rays,n_pts,tile", [(16, 16, 64), (10, 7, 32), (2, 3, 128), (3, 5, 8)])
-def test_plain_matches_pallas_kernel(compute_dtype, n_rays, n_pts, tile):
+@pytest.mark.parametrize(
+    "n_rays,n_pts,tile,pipelined",
+    [pytest.param(*shape, False, id="-".join(map(str, shape))) for shape in SHAPES]
+    + [pytest.param(*shape, True, id="-".join(map(str, shape)) + "-pipelined") for shape in SHAPES],
+)
+def test_plain_matches_pallas_kernel(compute_dtype, n_rays, n_pts, tile, pipelined):
     jax_model, params, model = _pair(_small_cfg(), compute_dtype)
     pts, dirs = _points(n_rays, n_pts)
-    d_ref, c_ref = nerf_mlp_forward_pallas(jax_model, params, jnp.asarray(pts), jnp.asarray(dirs), tile=tile, interpret=True)
-    out = K.nerf_mlp_fwd_plain(
-        model.packed_weights(), torch.from_numpy(pts.reshape(-1, 3)), torch.from_numpy(dirs.reshape(-1, 3)), n_pts
+    d_ref, c_ref = nerf_mlp_forward_pallas(
+        jax_model, params, jnp.asarray(pts), jnp.asarray(dirs), tile=tile, interpret=True, pipelined=pipelined
     )
+    before = (K.launches, K.pipelined_launches)
+    out = K.nerf_mlp_fwd(
+        model.packed_weights(), torch.from_numpy(pts.reshape(-1, 3)), torch.from_numpy(dirs.reshape(-1, 3)), n_pts,
+        pipelined=pipelined,
+    )
+    assert (K.launches, K.pipelined_launches) == before, "CPU tensors take the plain version, no launch"
     tol = TOLS[compute_dtype]
     np.testing.assert_allclose(out[:, :1].numpy(), np.asarray(d_ref).reshape(-1, 1), **tol)
     np.testing.assert_allclose(out[:, 1:].numpy(), np.asarray(c_ref).reshape(-1, 3), **tol)
@@ -111,6 +126,30 @@ def test_packed_weights_are_cached_until_a_parameter_changes():
     second = model.packed_weights()
     assert second is not first
     assert float(second.biases[model.n_layers + 1][0]) == float(model.density_layer.b.detach()[0])
+
+
+def test_build_cache_key_covers_included_headers(tmp_path):
+    """A header edit gives a new library path: the build cache cannot hand out a stale ``.so``."""
+    from yanerf_tpu_torch.ops.kernels._build import CudaLibrary
+
+    (tmp_path / "kernel.cu").write_text('#include <cuda_runtime.h>\n#include "shared.cuh"\nint f() { return g(); }\n')
+    (tmp_path / "shared.cuh").write_text('#pragma once\n#include "inner.cuh"\ninline int g() { return h(); }\n')
+    (tmp_path / "inner.cuh").write_text("#pragma once\ninline int h() { return 1; }\n")
+    (tmp_path / "other.cuh").write_text("inline int k() { return 0; }\n")
+    lib = CudaLibrary(str(tmp_path / "kernel.cu"), lambda _: None)
+    assert [p.name for p in lib.sources()] == ["kernel.cu", "shared.cuh", "inner.cuh"]
+    first = lib.path()
+    assert first == lib.path() and first.name.startswith("libkernel_")
+    (tmp_path / "other.cuh").write_text("inline int k() { return 2; }\n")
+    assert lib.path() == first, "a header the source does not include is not part of the key"
+    (tmp_path / "inner.cuh").write_text("#pragma once\ninline int h() { return 2; }\n")
+    second = lib.path()
+    assert second != first, "an edit two includes down rebuilds"
+    (tmp_path / "shared.cuh").write_text('#pragma once\n#include "inner.cuh"\ninline int g() { return -h(); }\n')
+    assert lib.path() not in (first, second)
+    # both forward kernels of the package share one header and so one key part
+    assert [p.name for p in K.LIBRARY.sources()] == ["nerf_mlp_fwd.cu", "nerf_mlp_fwd.cuh"]
+    assert [p.name for p in K.PIPELINED_LIBRARY.sources()] == ["nerf_mlp_fwd_pipelined.cu", "nerf_mlp_fwd.cuh"]
 
 
 def test_cuda_input_checks_reject_what_the_kernel_does_not_take():

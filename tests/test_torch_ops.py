@@ -111,10 +111,35 @@ def test_emission_absorption(kwargs):
     _close(o_got, o_ref, rtol=1e-5, atol=1e-6)
 
 
-def test_emission_absorption_noise_is_not_ported():
-    dens, _, lengths, dirs = _ray_inputs()
-    with pytest.raises(NotImplementedError):
-        tr.emission_absorption_weights(_t(dens), _t(lengths), _t(dirs), density_noise_std=1.0)
+def test_emission_absorption_density_noise_with_fed_draws_matches_jax():
+    """Training density noise: N(0, 1) * std on the raw densities, the JAX package's draws fed in."""
+    dens, feats, lengths, dirs = _ray_inputs()
+    key = jax.random.PRNGKey(7)
+    noise = np.asarray(jax.random.normal(key, dens.shape[:-1], dtype=jnp.float32))
+    w_ref, o_ref = jr.emission_absorption_weights(
+        jnp.asarray(dens), jnp.asarray(lengths), jnp.asarray(dirs), density_noise_std=0.2, rng=key,
+        background_density_bias=1e-6,
+    )
+    w_got, o_got = tr.emission_absorption_weights(
+        _t(dens), _t(lengths), _t(dirs), density_noise_std=0.2, noise=_t(noise), background_density_bias=1e-6
+    )
+    _close(w_got, w_ref, rtol=1e-5, atol=1e-6)
+    _close(o_got, o_ref, rtol=1e-5, atol=1e-6)
+    ref = jr.emission_absorption(jnp.asarray(dens), jnp.asarray(feats), jnp.asarray(lengths), jnp.asarray(dirs),
+                                 density_noise_std=0.2, rng=key)
+    got = tr.emission_absorption(_t(dens), _t(feats), _t(lengths), _t(dirs), density_noise_std=0.2, noise=_t(noise))
+    for g, r in zip(got, ref):
+        _close(g, r, rtol=1e-5, atol=1e-6)
+    clean, _ = tr.emission_absorption_weights(_t(dens), _t(lengths), _t(dirs))
+    assert float((w_got - clean).abs().max()) > 1e-3, "the noise moves the weights"
+    # drawn from a generator: reproducible; with neither draws nor a generator: refused, as without an rng key
+    a, _ = tr.emission_absorption_weights(_t(dens), _t(lengths), _t(dirs), density_noise_std=0.2,
+                                          generator=torch.Generator().manual_seed(0))
+    b, _ = tr.emission_absorption_weights(_t(dens), _t(lengths), _t(dirs), density_noise_std=0.2,
+                                          generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="generator"):
+        tr.emission_absorption_weights(_t(dens), _t(lengths), _t(dirs), density_noise_std=0.2)
 
 
 def _pdf_inputs(seed=3, n_rays=8, n_bins=15):

@@ -101,10 +101,17 @@ def test_chunking_does_not_change_the_frame(chunk_size_grid):
 
 
 def test_training_mode_is_the_next_slice():
-    """Training is ported (tests/test_torch_train.py); its unported options still raise."""
+    """Training is ported (tests/test_torch_train.py, test_torch_classic.py); its unported options still raise."""
+    cfg = _cfg()
+    cfg["ray_sampler"] = dict(cfg["ray_sampler"], approx_top_k=True)
+    with pytest.raises(NotImplementedError, match="approx_top_k"):
+        PIPELINES.build(cfg, device="cpu")(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]),
+                                           evaluation_mode=EvaluationMode.TRAINING, image_rgb=torch.rand(1, HW, HW, 3),
+                                           generator=torch.Generator().manual_seed(0))
     pipeline = PIPELINES.build(dict(_cfg()), device="cpu")
-    with pytest.raises(NotImplementedError, match="without replacement"):
-        pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING)
+    with pytest.raises(NotImplementedError, match="mask"):
+        pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING,
+                 mask_crop=torch.ones(1, HW, HW))
     with pytest.raises(NotImplementedError, match="scatter_rays_to_image"):
         pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING,
                  output_rasterized_mc=True)

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 import yanerf_tpu.ops.rays as jax_rays
+import yanerf_tpu.ops.sampling as jax_sampling
 import yanerf_tpu.pipelines.ray_sampler as jax_ray_sampler
 import yanerf_tpu.pipelines.renderer as jax_renderer
 from yanerf_tpu.ops import metrics as jax_metrics
@@ -48,6 +49,7 @@ from yanerf_tpu_torch.ops import metrics
 from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
 from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
 from yanerf_tpu_torch.ops.rays import jiggle_within_stratas
+from yanerf_tpu_torch.ops.sampling import weighted_sample_without_replacement
 from yanerf_tpu_torch.ops.structures import EvaluationMode
 from yanerf_tpu_torch.pipelines import PIPELINES, RAY_SAMPLERS
 from yanerf_tpu_torch.runners import (
@@ -182,13 +184,39 @@ def test_monte_carlo_ray_sampler_with_fed_draws_matches_jax(monkeypatch):
     assert xys.shape == (1, 12, 1, 2) and xys.min() >= 0 and xys.max() <= HW - 1
 
 
-def test_sampling_without_replacement_is_refused():
+def test_sampling_without_replacement_with_fed_gumbel_matches_jax():
+    """The Gumbel top-k with the JAX package's Gumbel draws gives its indices; approx_top_k is refused."""
+    rng = np.random.RandomState(2)
+    weights = np.ones((3, 40), np.float32)
+    weights[1] = rng.rand(40)
+    weights[1, ::3] = 0.0  # zero-weight pixels are never picked
+    weights[2, 5:] = 0.0  # 5 positive weights for 8 samples: padded with zero-weight pixels
+    key = jax.random.PRNGKey(4)
+    ref = np.asarray(jax_sampling.weighted_sample_without_replacement(key, jnp.asarray(weights), 8))
+    gumbel = torch.from_numpy(np.array(jax.random.gumbel(key, weights.shape, dtype=jnp.float32)))
+    got = weighted_sample_without_replacement(torch.from_numpy(weights), 8, gumbel=gumbel).numpy()
+    np.testing.assert_array_equal(got[:2], ref[:2])
+    # the -inf keys of the padding tie: JAX takes the lowest indices, topk any of them
+    np.testing.assert_array_equal(got[2, :5], ref[2, :5])
+    assert sorted(got[2, :5]) == [0, 1, 2, 3, 4] and np.all(weights[2, got[2, 5:]] == 0.0)
+    assert np.all(weights[1, got[1]] > 0.0) and all(len(set(row)) == 8 for row in got)
+    drawn = weighted_sample_without_replacement(torch.from_numpy(weights), 8,
+                                                generator=torch.Generator().manual_seed(0))
+    assert drawn.shape == (3, 8) and np.all(weights[1, drawn[1].numpy()] > 0.0)
+    with pytest.raises(NotImplementedError, match="approx_top_k"):
+        weighted_sample_without_replacement(torch.from_numpy(weights), 8, gumbel=gumbel, approx=True)
+
+    # the ray sampler's uniform case (lego.yml's default pixel_replacement: false)
     cfg = dict(_pipeline_cfg()["ray_sampler"], pixel_replacement=False)
     batch = _batch()
-    with pytest.raises(NotImplementedError, match="without replacement"):
-        RAY_SAMPLERS.build(cfg)(
-            torch.from_numpy(batch["poses"]), torch.from_numpy(batch["focal_lengths"]), EvaluationMode.TRAINING
-        )
+    poses, focal = torch.from_numpy(batch["poses"]), torch.from_numpy(batch["focal_lengths"])
+    bundle = RAY_SAMPLERS.build(dict(cfg))(poses, focal, EvaluationMode.TRAINING,
+                                           generator=torch.Generator().manual_seed(1))
+    flat = bundle.xys[0, :, 0].numpy()
+    assert flat.shape == (12, 2) and len({tuple(xy) for xy in flat}) == 12, "no pixel twice"
+    with pytest.raises(NotImplementedError, match="approx_top_k"):
+        RAY_SAMPLERS.build(dict(cfg, approx_top_k=True))(poses, focal, EvaluationMode.TRAINING,
+                                                          generator=torch.Generator().manual_seed(1))
 
 
 # --- ground-truth metrics -------------------------------------------------
@@ -441,6 +469,6 @@ def test_chip_smoke_train_and_step_phases_run_on_the_cpu(tmp_path, monkeypatch):
         monkeypatch.setattr(module, name, counting)
     numbers, launches = chip_smoke.train(torch, K1, K3, tmp_path / "data", tmp_path / "smoke")
     assert all(numbers["checks"].values()), numbers["checks"]
-    assert launches == {"nerf_mlp_fwd": 8, "nerf_mlp_bwd": 8}
+    assert launches == {"nerf_mlp_fwd": 8, "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 8}
     step = chip_smoke.step_equivalence(torch, tmp_path / "data")
     assert all(step["checks"].values()), step

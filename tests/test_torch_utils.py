@@ -42,10 +42,10 @@ def test_registry_builds_and_reports_unported_components():
     assert reg.build({"type": "Thing", "size": 3}).size == 3
     with pytest.raises(KeyError):
         reg.build({"type": "Other"})
-    from yanerf_tpu_torch.pipelines import RENDERERS
+    from yanerf_tpu_torch.models import MODELS
 
-    with pytest.raises(NotImplementedError, match="MultipassEmissionAbsorpsionRenderer"):
-        RENDERERS.build({"type": "MultipassEmissionAbsorpsionRenderer"})
+    with pytest.raises(NotImplementedError, match="MipNeRFMLP"):
+        MODELS.build({"type": "MipNeRFMLP"})
 
 
 def test_png_and_gif_encoders_round_trip_through_pil():

@@ -2,7 +2,10 @@
 
 One ``nvcc`` per source, cached by content under ``yanerf_tpu_torch/_build/``
 (listed in ``.gitignore``), with the compiler's report kept beside the
-library. Nothing here runs at import: a library is built at its first use.
+library. The content is that of the source and of every header it
+includes from its directory (``#include "..."``, followed recursively), so
+an edit of a shared header rebuilds every library that includes it.
+Nothing here runs at import: a library is built at its first use.
 """
 
 from __future__ import annotations
@@ -10,16 +13,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Callable, List
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 BUILD_DIR = PACKAGE_DIR / "_build"
+CSRC_DIR = PACKAGE_DIR / "csrc"
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 # no --use_fast_math: the embedding's phases reach |x| * 2^9 rad, where the
 # fast sine is wrong. -Xptxas -v reports registers, shared memory, spills.
 NVCC_FLAGS = [
@@ -43,14 +49,31 @@ class CudaLibrary:
     """
 
     def __init__(self, source: str, bind: Callable[[ctypes.CDLL], None]) -> None:
-        self.source = PACKAGE_DIR / "csrc" / source
+        self.source = CSRC_DIR / source
         self._bind = bind
         self._lib = None
         self._lock = threading.Lock()
 
+    def sources(self) -> List[Path]:
+        """The source, then every file it includes from its directory, directly or not, each once."""
+        order: List[Path] = []
+        todo = [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path in order:
+                continue
+            order.append(path)
+            for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+                header = path.parent / name.decode()
+                if header.is_file():
+                    todo.append(header)
+        return order
+
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in self.sources():
+            digest.update(path.name.encode() + b"\0" + path.read_bytes())
+        return BUILD_DIR / f"lib{self.source.stem}_{digest.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
         """Compile the source, cached by content; the compiler's report goes to a ``.log`` beside it."""

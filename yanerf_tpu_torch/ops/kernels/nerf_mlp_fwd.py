@@ -1,9 +1,16 @@
-"""Fused NeRF-MLP forward: the CUDA kernel's wrapper, its plain version and the weight packing.
+"""Fused NeRF-MLP forward: the CUDA kernels' wrapper, their plain version and the weight packing.
 
-Replaces ``yanerf_tpu/ops/pallas/nerf_mlp_kernel.py::_nerf_mlp_kernel``
-(reached through ``nerf_mlp_forward_pallas``). The kernel is
-``csrc/nerf_mlp_fwd.cu``; its header says what bounds it on the card
-(operations) and what the design does about it.
+Two kernels of one function, as in the JAX package:
+  * K1 replaces ``yanerf_tpu/ops/pallas/nerf_mlp_kernel.py::_nerf_mlp_kernel``
+    (``nerf_mlp_forward_pallas``): ``csrc/nerf_mlp_fwd.cu``;
+  * K2 replaces its pipelined twin ``_nerf_mlp_kernel_pipelined``
+    (``nerf_mlp_forward_pallas(..., pipelined=True)``):
+    ``csrc/nerf_mlp_fwd_pipelined.cu``, whose producer warp group embeds the
+    next tile while the consumer warps run the layer chain of the current one.
+Both take their arithmetic from ``csrc/nerf_mlp_fwd.cuh`` and give the same
+bits. The sources' headers say what bounds them on the card (operations)
+and what the designs do about it. As in the JAX package, no config key or
+model flag reaches K2: it is chosen at this entry only.
 
 * ``pack_weights`` pads the model's weights in kernel order, with K padded
   to multiples of 16 (63 -> 64 for the xyz embedding, 27 -> 32 for the
@@ -13,9 +20,10 @@ Replaces ``yanerf_tpu/ops/pallas/nerf_mlp_kernel.py::_nerf_mlp_kernel``
   It mirrors the Pallas kernel, not the eager model: float32 bias adds after
   float32 accumulation of bf16 products, and ``cos(t)`` as
   ``sin(t + pi/2)``. It runs with TF32 off.
-* ``nerf_mlp_fwd`` launches the kernel for CUDA tensors and takes the plain
-  version only for CPU tensors. It never falls back on the card.
-* ``launches`` counts the kernel's launches.
+* ``nerf_mlp_fwd`` launches K1 (or K2 with ``pipelined=True``) for CUDA
+  tensors and takes the plain version only for CPU tensors. It never falls
+  back on the card.
+* ``launches`` counts K1's launches, ``pipelined_launches`` K2's.
 """
 
 from __future__ import annotations
@@ -32,8 +40,9 @@ import torch.nn.functional as F
 from ..harmonics import harmonic_frequencies
 from ._build import CudaLibrary
 
-# kernel launches since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset them): K1, K2
 launches = 0
+pipelined_launches = 0
 
 KERNEL_HIDDEN = 256  # xyz hidden width the CUDA kernel is compiled for
 KERNEL_HIDDEN_DIR = 128  # color hidden width the CUDA kernel is compiled for
@@ -42,13 +51,17 @@ KERNEL_MAX_K_DIR = 32
 _ALIGN = 64  # every packed tensor starts on a 64-element (128-byte) boundary
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.nerf_mlp_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _binder(entry: str):
+    def bind(lib: ctypes.CDLL) -> None:
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    return bind
 
 
-LIBRARY = CudaLibrary("nerf_mlp_fwd.cu", _bind)
+LIBRARY = CudaLibrary("nerf_mlp_fwd.cu", _binder("nerf_mlp_fwd_bf16"))
+PIPELINED_LIBRARY = CudaLibrary("nerf_mlp_fwd_pipelined.cu", _binder("nerf_mlp_fwd_pipelined_bf16"))
 build, build_report, load = LIBRARY.build, LIBRARY.build_report, LIBRARY.load
 
 
@@ -267,13 +280,16 @@ def _check_cuda_inputs(packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.
         raise ValueError(f"{points.shape[0]} points do not make {dirs.shape[0]} rays of {pts_per_ray}")
 
 
-def nerf_mlp_fwd(packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.Tensor, pts_per_ray: int) -> torch.Tensor:
+def nerf_mlp_fwd(
+    packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.Tensor, pts_per_ray: int, pipelined: bool = False
+) -> torch.Tensor:
     """Fused forward: ``(N, 3)`` points and ``(N / pts_per_ray, 3)`` dirs -> ``(N, 1 + C)``.
 
-    CPU tensors go through :func:`nerf_mlp_fwd_plain`; CUDA tensors launch
-    the kernel or raise.
+    CPU tensors go through :func:`nerf_mlp_fwd_plain` (K1 and K2 compute
+    one function); CUDA tensors launch K1, or K2 with ``pipelined``, or
+    raise.
     """
-    global launches
+    global launches, pipelined_launches
     if points.device.type == "cpu":
         return nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray)
     if points.device.type != "cuda":
@@ -284,9 +300,12 @@ def nerf_mlp_fwd(packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.Tensor
     w_off = (ctypes.c_longlong * len(packed.w_offsets))(*packed.w_offsets)
     b_off = (ctypes.c_longlong * len(packed.b_offsets))(*packed.b_offsets)
     skip_mask = sum(1 << s for s in packed.input_skips if 0 < s < packed.n_layers)
+    entry = (
+        PIPELINED_LIBRARY.library().nerf_mlp_fwd_pipelined_bf16 if pipelined else LIBRARY.library().nerf_mlp_fwd_bf16
+    )
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = LIBRARY.library().nerf_mlp_fwd_bf16(
+        rc = entry(
             points.data_ptr(), dirs.data_ptr(), out.data_ptr(),
             packed.flat.data_ptr(), packed.biases_flat.data_ptr(),
             ctypes.addressof(w_off), ctypes.addressof(b_off), len(packed.w_offsets),
@@ -295,8 +314,12 @@ def nerf_mlp_fwd(packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.Tensor
             packed.n_extra_color, packed.color_dim, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"nerf_mlp_fwd kernel launch failed with CUDA error {rc}")
-    launches += 1
+        name = "nerf_mlp_fwd_pipelined" if pipelined else "nerf_mlp_fwd"
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+    if pipelined:
+        pipelined_launches += 1
+    else:
+        launches += 1
     return out
 
 

@@ -5,9 +5,10 @@ Counterpart of ``yanerf_tpu/ops/raymarch.py``, with the same contract:
   * deltas are scaled by ``||direction||``;
   * transmittance is ``cap(cumsum(delta * sigma))`` rolled by
     ``surface_thickness`` with ones at the front;
-  * background blending is soft or hard.
-
-Density noise is training-only and raises until that slice is ported.
+  * background blending is soft or hard;
+  * density noise (training only) is ``N(0, 1) * std`` added to the raw
+    densities before the activation, the draws taken from ``generator`` or
+    fed in as ``noise`` (the densities' shape, without the channel).
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ def emission_absorption_weights(
     ray_directions: torch.Tensor,
     *,
     density_noise_std: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
     capping_function: str = "exponential",
     weight_function: str = "product",
     background_opacity: float = 1e10,
@@ -61,9 +64,12 @@ def emission_absorption_weights(
     background_density_bias: float = 0.0,
     surface_thickness: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-point weights ``(..., P)`` and per-ray opacities ``(..., 1)``."""
-    if density_noise_std > 0.0:
-        raise NotImplementedError("density noise is training-only and not ported yet (ROADMAP Queue 1)")
+    """Per-point weights ``(..., P)`` and per-ray opacities ``(..., 1)``.
+
+    With ``density_noise_std > 0`` the ``(..., P)`` standard normal draws
+    come from ``noise`` if given, else from ``generator``; with neither the
+    call raises, as the JAX package does without an rng key.
+    """
     cap = _capping_function(capping_function)
     weight_fn = _weight_function(weight_function)
 
@@ -78,6 +84,12 @@ def emission_absorption_weights(
     deltas = deltas * dir_norm[..., None]
 
     densities = rays_densities[..., 0]
+    if density_noise_std > 0.0:
+        if noise is None:
+            if generator is None:
+                raise ValueError("density_noise_std > 0 requires a generator or fed-in noise")
+            noise = torch.randn(densities.shape, generator=generator, dtype=densities.dtype, device=densities.device)
+        densities = densities + noise * density_noise_std
     act = _density_activation(density_activation, density_relu)
     if act is not None:
         densities = act(densities + density_pre_activation_bias) + background_density_bias
@@ -102,6 +114,8 @@ def emission_absorption(
     ray_directions: torch.Tensor,
     *,
     density_noise_std: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
     bg_color: Optional[torch.Tensor] = None,
     default_bg_color: Tuple[float, ...] = (0.0,),
     capping_function: str = "exponential",
@@ -126,6 +140,8 @@ def emission_absorption(
         ray_lengths,
         ray_directions,
         density_noise_std=density_noise_std,
+        generator=generator,
+        noise=noise,
         capping_function=capping_function,
         weight_function=weight_function,
         background_opacity=background_opacity,

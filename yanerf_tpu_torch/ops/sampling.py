@@ -1,9 +1,11 @@
 """Pixel selection and image gathers for Monte-Carlo ray sampling.
 
-Counterpart of ``yanerf_tpu/ops/sampling.py`` for what the flagship's
+Counterpart of ``yanerf_tpu/ops/sampling.py`` for what the lego configs'
 training needs: uniform pixel indices drawn with replacement (a bare
-``randint``) and ``sample_grid``. Weighted sampling (with or without
-replacement) and ``scatter_rays_to_image`` are not ported yet.
+``randint``), weighted sampling without replacement by the Gumbel top-k,
+and ``sample_grid``. The approximate top-k (``lax.approx_max_k``) has no
+PyTorch counterpart and raises; weighted sampling with replacement and
+``scatter_rays_to_image`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,6 +13,35 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+
+
+def weighted_sample_without_replacement(
+    weights: torch.Tensor,
+    num_samples: int,
+    generator: Optional[torch.Generator] = None,
+    gumbel: Optional[torch.Tensor] = None,
+    approx: bool = False,
+) -> torch.Tensor:
+    """``(B, num_samples)`` indices per row of ``(B, N)`` non-negative weights, without replacement.
+
+    The Gumbel top-k: ``keys = where(w > 0, log(max(w, tiny)) + g, -inf)``
+    with standard Gumbel draws ``g``, then the exact ``topk``. The draws are
+    ``gumbel`` (``weights``' shape) if given, else drawn from ``generator``.
+    As in the JAX package, a row with fewer positive weights than samples
+    pads with zero-weight indices. ``approx=True`` where the JAX package
+    would take ``lax.approx_max_k`` (``ray_sampler.approx_top_k``, when
+    ``4 * num_samples <= N``) raises: it is not ported.
+    """
+    if approx and num_samples * 4 <= weights.shape[-1]:
+        raise NotImplementedError(
+            "the approximate top-k (ray_sampler.approx_top_k) has no PyTorch counterpart: set it to False"
+        )
+    tiny = torch.finfo(weights.dtype).tiny
+    if gumbel is None:
+        u = torch.rand(weights.shape, generator=generator, dtype=weights.dtype, device=weights.device)
+        gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    keys = torch.where(weights > 0, torch.log(torch.clamp(weights, min=tiny)) + gumbel, float("-inf"))
+    return torch.topk(keys, num_samples, dim=-1).indices
 
 
 def uniform_sample_with_replacement(

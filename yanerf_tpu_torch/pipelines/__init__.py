@@ -3,13 +3,12 @@
 from __future__ import annotations
 
 from ..utils.registry import register_not_ported
-from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS
+from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS, nerf_mlp_keys, set_nerf_mlp_option
 from .feature_extractors import IdentityMapper
 from .nerf_pipeline import NeRFPipeline
 from .ray_sampler import RaySampler
-from .renderer import ProposalEmissionAbsorpsionRenderer, refine_ray_points
+from .renderer import MultipassEmissionAbsorpsionRenderer, ProposalEmissionAbsorpsionRenderer, refine_ray_points
 
-register_not_ported(RENDERERS, ("MultipassEmissionAbsorpsionRenderer",))
 register_not_ported(FEATURE_EXTRACTORS, ("LearnedSceneEmbedding",))
 
 __all__ = [
@@ -18,8 +17,11 @@ __all__ = [
     "RAY_SAMPLERS",
     "RENDERERS",
     "IdentityMapper",
+    "MultipassEmissionAbsorpsionRenderer",
     "NeRFPipeline",
     "ProposalEmissionAbsorpsionRenderer",
     "RaySampler",
+    "nerf_mlp_keys",
     "refine_ray_points",
+    "set_nerf_mlp_option",
 ]

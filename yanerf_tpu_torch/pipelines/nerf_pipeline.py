@@ -88,6 +88,8 @@ class NeRFPipeline(nn.Module):
         image_width: Optional[int] = None,
         min_depth=None,
         max_depth=None,
+        mask_crop: Optional[torch.Tensor] = None,
+        sampling_prob_mask: Optional[torch.Tensor] = None,
         bg_image_rgb: Optional[torch.Tensor] = None,
         image_rgb: Optional[torch.Tensor] = None,
         depth_map: Optional[torch.Tensor] = None,
@@ -100,13 +102,21 @@ class NeRFPipeline(nn.Module):
         """Render one batch; returns ``rendered_*`` tensors, per-sample ``loss_*`` and ``objective``.
 
         ``draws`` optionally replaces the random draws of a TRAINING call:
-        ``pixel_idx`` ``(B, n_rays)``, ``strata_u`` ``(B, n_rays, 1, P)`` and
-        ``pdf_u``, one ``(B, n_rays, 1, n_pts)`` tensor per proposal pass;
-        whatever is missing comes from ``generator``.
+        ``pixel_idx`` ``(B, n_rays)``, ``strata_u`` ``(B, n_rays, 1, P)``,
+        ``pdf_u``, one ``(B, n_rays, 1, n_pts)`` tensor of uniform draws per
+        refinement (per proposal pass, or per coarse -> fine step), and
+        ``density_noise``, the ``(B, n_rays, 1, P_k)`` standard normal draws
+        of the density noise of each compositing pass (the multipass
+        renderer's passes; the proposal renderer's main pass); whatever is
+        missing comes from ``generator``.
         """
         training = evaluation_mode == EvaluationMode.TRAINING
         sampling_mode = self.sampling_mode_training if training else self.sampling_mode_evaluation
         draws = draws or {}
+        if (mask_crop is not None and sampling_mode == RenderSamplingMode.MASK_SAMPLE) or (
+            sampling_prob_mask is not None and training
+        ):
+            raise NotImplementedError("sampling masks (mask_crop, sampling_prob_mask) are not ported yet")
         rasterize_mc = self.output_rasterized_mc if output_rasterized_mc is None else output_rasterized_mc
         if sampling_mode == RenderSamplingMode.MASK_SAMPLE and rasterize_mc:
             raise NotImplementedError(
@@ -148,6 +158,7 @@ class NeRFPipeline(nn.Module):
             rendered = self.renderer(
                 *ray_bundle, bg_color, implicit_functions=implicit_functions,
                 evaluation_mode=evaluation_mode, generator=generator, pdf_u=draws.get("pdf_u"),
+                density_noise=draws.get("density_noise"),
             )
 
         preds = self._get_view_metrics(rendered, xys, image_rgb, depth_map)

@@ -2,13 +2,14 @@
 
 Counterpart of ``yanerf_tpu/pipelines/ray_sampler.py``: the full-grid
 EVALUATION half (every pixel, metric depths between the bounds) and the
-Monte-Carlo TRAINING half with ``pixel_replacement`` and no mask (uniform
-pixel indices drawn with replacement, stratified depth jitter). The pixel
-indices and the jitter draws are optional inputs (``pixel_idx``,
-``strata_u``), else drawn from ``generator``. Sampling without replacement,
-masks and sampling-probability masks, NDC, ``scene_aabb``, occupancy
-grids, disparity spacing and scene-extent bounds raise
-``NotImplementedError`` until later slices.
+Monte-Carlo TRAINING half without a mask, stratified depth jitter and
+uniform pixel indices, drawn with replacement (``pixel_replacement``) or
+without (the Gumbel top-k over one weight of 1 per pixel, the exact
+``topk``). The pixel indices and the jitter draws are optional inputs
+(``pixel_idx``, ``strata_u``), else drawn from ``generator``. The
+approximate top-k (``approx_top_k``), masks and sampling-probability masks,
+NDC, ``scene_aabb``, occupancy grids, disparity spacing and scene-extent
+bounds raise ``NotImplementedError``.
 
 As in the reference, the principal point comes from the constructor's
 ``image_width/height`` even when a call overrides the grid size.
@@ -21,7 +22,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..ops.rays import get_xy_grid, xy_to_ray_bundle
-from ..ops.sampling import uniform_sample_with_replacement
+from ..ops.sampling import uniform_sample_with_replacement, weighted_sample_without_replacement
 from ..ops.structures import EvaluationMode, RayBundle, RenderSamplingMode
 from .builder import RAY_SAMPLERS
 
@@ -40,6 +41,7 @@ class _RaySampler:
         n_rays_per_image: Optional[int] = None,
         stratified_sampling: bool = False,
         pixel_replacement: bool = False,
+        approx_top_k: bool = False,
     ) -> None:
         self.image_width = image_width
         self.image_height = image_height
@@ -49,6 +51,7 @@ class _RaySampler:
         self.n_rays_per_image = n_rays_per_image
         self.stratified_sampling = stratified_sampling
         self.pixel_replacement = pixel_replacement
+        self.approx_top_k = approx_top_k
 
     def __call__(
         self,
@@ -70,13 +73,15 @@ class _RaySampler:
             batch_size, image_height, image_width, 2
         )
         if self.n_rays_per_image is not None:
-            if not self.pixel_replacement:
-                raise NotImplementedError(
-                    "pixel sampling without replacement is not ported yet: set ray_sampler.pixel_replacement=True"
-                )
-            if pixel_idx is None:
+            n_pixels = image_height * image_width
+            if pixel_idx is None and self.pixel_replacement:
                 pixel_idx = uniform_sample_with_replacement(
-                    batch_size, image_height * image_width, self.n_rays_per_image, generator, poses.device
+                    batch_size, n_pixels, self.n_rays_per_image, generator, poses.device
+                )
+            elif pixel_idx is None:
+                weights = torch.ones((batch_size, n_pixels), dtype=torch.float32, device=poses.device)
+                pixel_idx = weighted_sample_without_replacement(
+                    weights, self.n_rays_per_image, generator, approx=self.approx_top_k
                 )
             xy_flat = xy_grid.reshape(batch_size, -1, 2)
             xy_grid = torch.gather(xy_flat, 1, pixel_idx.to(torch.int64)[..., None].expand(-1, -1, 2))[:, :, None]
@@ -128,6 +133,7 @@ class RaySampler:
             )
         if scene_extent > 0.0:
             raise NotImplementedError("scene-extent depth bounds are not ported yet (ROADMAP.md Queue 1 item 2)")
+
         self.image_width = image_width
         self.image_height = image_height
         self._sampling_mode = {
@@ -148,6 +154,7 @@ class RaySampler:
                 ),
                 stratified_sampling=stratified,
                 pixel_replacement=pixel_replacement,
+                approx_top_k=approx_top_k,
             )
             for mode, n_pts, stratified in (
                 (EvaluationMode.TRAINING, n_pts_per_ray_training, stratified_point_sampling_training),

@@ -1,15 +1,20 @@
-"""The proposal-sampler renderer and the inverse-CDF ray refiner.
+"""The multipass (coarse -> fine) and proposal-sampler renderers, and the inverse-CDF ray refiner.
 
-Counterpart of ``yanerf_tpu/pipelines/renderer.py``'s
-``refine_ray_points`` and ``ProposalEmissionAbsorpsionRenderer``:
-``implicit_functions = [proposal_0, ..., proposal_{k-1}, main]``; each
-proposal's emission-absorption weights importance-sample the next pass's
-depths, only the main model composites colors, and the interlevel and
-distortion losses land in ``aux``. The resampled depths are detached where
-the JAX package has ``stop_gradient``; the u's of each pass's ``sample_pdf``
-are an optional input (``pdf_u``), else drawn from ``generator``. The
-multipass (coarse -> fine) renderer, density noise and the eval-compositing
-dtype experiment are not ported yet.
+Counterpart of ``yanerf_tpu/pipelines/renderer.py``:
+  * ``MultipassEmissionAbsorpsionRenderer``: every pass composites its own
+    model's colors, its weights importance-sample the next pass's depths
+    (merged with its own and sorted when ``append_coarse_samples_to_fine``),
+    and each output keeps the previous pass's as ``prev_stage``;
+  * ``ProposalEmissionAbsorpsionRenderer``: ``implicit_functions =
+    [proposal_0, ..., proposal_{k-1}, main]``; each proposal's weights
+    importance-sample the next pass's depths, only the main model
+    composites colors, and the interlevel and distortion losses land in
+    ``aux``.
+The resampled depths are detached where the JAX package has
+``stop_gradient``. The random draws are optional inputs, else drawn from
+``generator``: ``pdf_u``, the u's of each refinement's ``sample_pdf``, and
+``density_noise``, the training density noise of each compositing pass.
+The eval-compositing dtype experiment is not ported.
 """
 
 from __future__ import annotations
@@ -59,6 +64,113 @@ def refine_ray_points(
     else:
         z_vals = z_samples  # monotone by construction (det or stratified u)
     return RayBundle(origins=origins, directions=directions, lengths=z_vals, xys=xys)
+
+
+@RENDERERS.register_module()
+class MultipassEmissionAbsorpsionRenderer:
+    """Coarse -> fine rendering (NeRF's hierarchical sampling) over ``implicit_functions``, one per pass."""
+
+    def __init__(
+        self,
+        n_pts_per_ray_fine_training: int = 64,
+        n_pts_per_ray_fine_evaluation: int = 64,
+        stratified_sampling_coarse_training: bool = True,
+        stratified_sampling_coarse_evaluation: bool = False,
+        append_coarse_samples_to_fine: bool = True,
+        bg_color: Sequence[float] = (0.0,),
+        density_noise_std_train: float = 0.0,
+        capping_function: str = "exponential",
+        weight_function: str = "product",
+        background_opacity: float = 1e10,
+        blend_output: bool = False,
+        background_density_bias: float = 0.0,
+        hard_background: bool = False,
+        density_relu: bool = True,
+        density_activation: Optional[str] = None,
+        density_pre_activation_bias: float = 0.0,
+        surface_thickness: int = 1,
+        eval_compositing_dtype: str = None,
+    ) -> None:
+        if eval_compositing_dtype is not None:
+            raise NotImplementedError("eval_compositing_dtype is not ported yet")
+        self.density_noise_std_train = density_noise_std_train
+        self.append_coarse_samples_to_fine = append_coarse_samples_to_fine
+        self._refiner_cfg = {
+            EvaluationMode.TRAINING: (n_pts_per_ray_fine_training, stratified_sampling_coarse_training),
+            EvaluationMode.EVALUATION: (n_pts_per_ray_fine_evaluation, stratified_sampling_coarse_evaluation),
+        }
+        self.raymarcher_kwargs = dict(
+            default_bg_color=tuple(bg_color),
+            capping_function=capping_function,
+            weight_function=weight_function,
+            background_opacity=background_opacity,
+            density_relu=density_relu,
+            density_activation=density_activation,
+            density_pre_activation_bias=density_pre_activation_bias,
+            blend_output=blend_output,
+            background_density_bias=background_density_bias,
+            hard_background=hard_background,
+            surface_thickness=surface_thickness,
+        )
+
+    def __call__(
+        self,
+        origins: torch.Tensor,
+        directions: torch.Tensor,
+        lengths: torch.Tensor,
+        xys: torch.Tensor,
+        bg_color: Optional[torch.Tensor],
+        *,
+        implicit_functions: List[Callable[..., Dict[str, Any]]],
+        evaluation_mode: EvaluationMode = EvaluationMode.EVALUATION,
+        generator: Optional[torch.Generator] = None,
+        pdf_u: Optional[Sequence[torch.Tensor]] = None,
+        density_noise: Optional[Sequence[torch.Tensor]] = None,
+        **kwargs,
+    ) -> RendererOutput:
+        """The last pass's output, the earlier ones chained by ``prev_stage``.
+
+        ``pdf_u``: one ``(..., n_pts_fine)`` tensor of uniform draws per
+        refinement; ``density_noise``: one ``(..., P_k)`` tensor of standard
+        normal draws per pass (TRAINING only), in place of the generator's.
+        """
+        if not implicit_functions:
+            raise ValueError("The multipass renderer expects at least one implicit function")
+        density_noise_std = self.density_noise_std_train if evaluation_mode == EvaluationMode.TRAINING else 0.0
+        n_pts_fine, random_sampling = self._refiner_cfg[evaluation_mode]
+        output = None
+        for k, implicit_function in enumerate(implicit_functions):
+            if k > 0:
+                lengths = refine_ray_points(
+                    origins,
+                    directions,
+                    lengths,
+                    xys,
+                    output.aux["weights"],
+                    n_pts_per_ray=n_pts_fine,
+                    random_sampling=random_sampling,
+                    add_input_samples=self.append_coarse_samples_to_fine,
+                    generator=generator,
+                    u=None if pdf_u is None else pdf_u[k - 1],
+                ).lengths
+            model_out = implicit_function(origins, directions, lengths, **kwargs)
+            features, depths, alpha_masks, weights = emission_absorption(
+                model_out["rays_densities"],
+                model_out["rays_features"],
+                ray_lengths=lengths,
+                ray_directions=directions,
+                density_noise_std=density_noise_std,
+                generator=generator,
+                noise=None if density_noise is None else density_noise[k],
+                bg_color=bg_color,
+                **self.raymarcher_kwargs,
+            )
+            aux = dict(model_out.get("aux", {}))
+            aux["weights"] = weights
+            output = RendererOutput(
+                features=features, depths=depths, alpha_masks=alpha_masks, aux=aux, prev_stage=output
+            )
+        return output
 
 
 @RENDERERS.register_module()
@@ -131,9 +243,12 @@ class ProposalEmissionAbsorpsionRenderer:
         evaluation_mode: EvaluationMode = EvaluationMode.EVALUATION,
         generator: Optional[torch.Generator] = None,
         pdf_u: Optional[Sequence[torch.Tensor]] = None,
+        density_noise: Optional[Sequence[torch.Tensor]] = None,
         **kwargs,
     ) -> RendererOutput:
-        """``pdf_u``: one ``(..., n_pts)`` tensor of uniform draws per proposal pass, in place of the generator's."""
+        """``pdf_u``: one ``(..., n_pts)`` tensor of uniform draws per proposal pass; ``density_noise``: one
+        ``(..., n_final)`` tensor of standard normal draws for the main pass (TRAINING); in place of the generator's.
+        """
         if len(implicit_functions) < 2:
             raise ValueError(
                 "The proposal renderer expects [proposal..., main] — at least two implicit functions"
@@ -180,6 +295,8 @@ class ProposalEmissionAbsorpsionRenderer:
             ray_lengths=lengths,
             ray_directions=directions,
             density_noise_std=density_noise_std,
+            generator=generator,
+            noise=None if density_noise is None else density_noise[0],
             bg_color=bg_color,
             **self.raymarcher_kwargs,
         )

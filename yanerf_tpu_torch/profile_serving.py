@@ -1,9 +1,10 @@
 """Where one served frame's time goes on the card: a torch.profiler breakdown.
 
-    python -m yanerf_tpu_torch.profile_serving [--frames 3]
+    python -m yanerf_tpu_torch.profile_serving [--config configs/nerf/lego.yml] [--frames 3]
 
-Builds the service of ``configs/nerf/lego_proposal.yml`` with the NeRF-MLP
-kernel on (seeded random weights), renders one warm-up frame, times
+Builds the service of ``--config`` (``configs/nerf/lego_proposal.yml`` by
+default) with the NeRF-MLP kernel on for every NeRFMLP of the config
+(seeded random weights), renders one warm-up frame, times
 ``--frames`` frames on the host clock, then profiles one more and prints
 one JSON line: frame seconds, device busy time, the device's idle share,
 kernel launches per frame and the device time of the top kernels. Needs a
@@ -20,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from .pipelines import set_nerf_mlp_option
 from .serve import CAM_CALIBRATION, orbit_pose, service_from_config
 from .utils import Config
 
@@ -29,6 +31,7 @@ TOP_KERNELS = 12
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config", default=CONFIG)
     parser.add_argument("--frames", type=int, default=3, help="frames timed on the host clock")
     args = parser.parse_args(argv)
 
@@ -36,8 +39,8 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    cfg = Config.fromfile(CONFIG)
-    cfg.merge_from_dict({"pipeline.model.2.use_pallas": True})
+    cfg = Config.fromfile(args.config)
+    set_nerf_mlp_option(cfg, "use_pallas", True)
     service = service_from_config(cfg, device="cuda", seed=0)
     pose = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
     service.render(pose, service.default_focal)
@@ -65,6 +68,7 @@ def main(argv=None) -> None:
         json.dumps(
             {
                 "card": card,
+                "config": args.config,
                 "frame_s": frame_s,
                 "profiled_frame_s": profiled_s,
                 "device_busy_s": busy_us / 1e6,

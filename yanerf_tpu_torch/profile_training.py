@@ -1,16 +1,17 @@
 """Where one train step's time goes on the card: a torch.profiler breakdown.
 
-    python -m yanerf_tpu_torch.profile_training [--steps 20] [--eager]
+    python -m yanerf_tpu_torch.profile_training [--config configs/nerf/lego.yml] [--steps 20] [--eager]
 
-Builds the pipeline of ``configs/nerf/lego_proposal.yml`` with the fused
-NeRF-MLP kernels on for training (``use_pallas_train``; ``--eager`` turns
-them off), seeded random weights, Adam with the config's schedule, and one
+Builds the pipeline of ``--config`` (``configs/nerf/lego_proposal.yml`` by
+default) with the fused NeRF-MLP kernels on for training on every NeRFMLP
+of the config (``use_pallas_train``; ``--eager`` turns them off), seeded
+random weights, Adam with the config's schedule, and one
 random 800x800 image as the batch. It takes three warm-up steps, times
 ``--steps`` steps on the host clock (ending in a synchronize), then profiles
-one more and prints one JSON line: ms per step, train rays/s, device busy
-time, the device's idle share, kernel launches per step and the device time
-of the top kernels. Needs a GPU; prints the card's name and power limit
-beside the numbers.
+one more and prints one JSON line: ms per step, train rays/s, the peak
+device memory of a step, device busy time, the device's idle share, kernel
+launches per step and the device time of the top kernels. Needs a GPU;
+prints the card's name and power limit beside the numbers.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import time
 
 import torch
 
-from .pipelines import PIPELINES
+from .pipelines import PIPELINES, set_nerf_mlp_option
 from .runners import TrainState, create_optimizer, make_train_step
 from .serve import CAM_CALIBRATION, orbit_pose
 from .utils import Config
@@ -33,6 +34,7 @@ TOP_KERNELS = 12
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config", default=CONFIG)
     parser.add_argument("--steps", type=int, default=20, help="steps timed on the host clock")
     parser.add_argument("--eager", action="store_true", help="the eager NeRF-MLP instead of the fused kernels")
     args = parser.parse_args(argv)
@@ -41,8 +43,8 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    cfg = Config.fromfile(CONFIG)
-    cfg.merge_from_dict({"pipeline.model.2.use_pallas_train": not args.eager})
+    cfg = Config.fromfile(args.config)
+    set_nerf_mlp_option(cfg, "use_pallas_train", not args.eager)
     device = torch.device("cuda")
     pipeline = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(0), device=device)
     state = TrainState(pipeline=pipeline, optimizer=create_optimizer(cfg.runner, pipeline), step=0)
@@ -60,11 +62,13 @@ def main(argv=None) -> None:
         step(state, batch)
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats(device)
     t = time.perf_counter()
     for _ in range(args.steps):
         step(state, batch)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t) / args.steps
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -84,9 +88,11 @@ def main(argv=None) -> None:
         json.dumps(
             {
                 "card": card,
+                "config": args.config,
                 "nerf_mlp": "eager" if args.eager else "fused kernels (K1 forward, K3 backward)",
                 "ms_per_step": step_s * 1e3,
                 "train_rays_per_s": n_rays / step_s,
+                "peak_memory_gb": peak_gb,
                 "profiled_step_s": profiled_s,
                 "device_busy_s": busy_us / 1e6,
                 "device_idle_share": 1.0 - busy_us / 1e6 / profiled_s,
