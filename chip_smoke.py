@@ -21,7 +21,10 @@ the card's name and power limit:
              proposal train step, 3 x 5 and 1 x 1, and against the plain
              version, K2 and K1 timed in turns at both large shapes; K1 and
              K3 against their plain versions and timed at the classic train
-             step's coarse (4096 x 64) and fine (4096 x 192) shapes;
+             step's coarse (4096 x 64) and fine (4096 x 192) shapes; each
+             K3 line also gives the device time of each of K3's passes and
+             its yardstick, the eager NeRFMLP's forward + autograd backward
+             (eager_ms), timed in turns with K1 + K3 (k1_k3_ms);
   3. serve   for each configuration, the HTTP server on 127.0.0.1 with the
              NeRF-MLP kernel switched on answers GET /render, POST /render
              and GET /health at 800x800; K1 is launched exactly once per
@@ -205,15 +208,48 @@ def check_k2(torch, K1, packed, n_rays: int, pts_per_ray: int, gen, timed: bool)
     return numbers
 
 
-def check_k3(torch, K3, nerf_mlp, packed, gen, n_rays: int = TRAIN_RAYS, pts_per_ray: int = TRAIN_PTS):
+def ray_inputs(torch, n_rays: int, pts_per_ray: int, gen):
+    """A ray bundle ((1, R, 3) origins and directions, (1, R, P) sorted lengths) and its (R * P, 3) points."""
+    from yanerf_tpu_torch.ops.rays import ray_bundle_to_ray_points
+
+    origins = (torch.rand(1, n_rays, 3, generator=gen) * 2.0 - 1.0).cuda()
+    dirs = torch.randn(1, n_rays, 3, generator=gen).cuda()
+    lengths = torch.sort(torch.rand(1, n_rays, pts_per_ray, generator=gen) * 2.0 + 0.5, dim=-1).values.cuda()
+    return origins, dirs, lengths, ray_bundle_to_ray_points(origins, dirs, lengths).reshape(-1, 3).contiguous()
+
+
+def kernel_ms(torch, fn) -> dict:
+    """Device ms of each kernel that one call of ``fn`` launches, by kernel name (torch.profiler)."""
+    import re
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"::(\w+)\(", ev.name) or re.search(r"(\w+)<", ev.name)  # K3's passes, PyTorch's fills
+            name = m.group(1) if m else ev.name[:48]
+            out[name] = out.get(name, 0.0) + ev.device_time / 1e3
+    return out
+
+
+def check_k3(torch, K1, K3, nerf_mlp, packed, gen, n_rays: int = TRAIN_RAYS, pts_per_ray: int = TRAIN_PTS):
     """K3 against its plain version at ``n_rays`` x ``pts_per_ray`` (a train step's shapes); returns its numbers.
 
     Per gradient tensor: cosine >= K3_MIN_COSINE, max abs error within
     K3_REL_ATOL of the largest entry; the padded weight rows stay zero and
-    two launches give the same bits.
+    two launches give the same bits. Times: K3 (CUDA events), each of its
+    passes (torch.profiler, one call), and the yardstick K3 loses or wins
+    against: the eager NeRFMLP's bf16 forward plus ``torch.autograd.grad``
+    to its parameters (``eager_ms``), in turns with K1 + K3 (``k1_k3_ms``)
+    on the same ray points and cotangents.
     """
     n_pts = n_rays * pts_per_ray
-    points, dirs = mlp_inputs(torch, n_rays, pts_per_ray, gen)
+    origins, ray_dirs, lengths, points = ray_inputs(torch, n_rays, pts_per_ray, gen)
+    dirs = ray_dirs.reshape(-1, 3).contiguous()
     cot = (torch.randn(n_pts, 1 + packed.color_dim, generator=gen) / n_pts).cuda()
     gw, gb = K3.nerf_mlp_bwd(packed, points, dirs, pts_per_ray, cot)
     torch.cuda.synchronize()
@@ -240,15 +276,33 @@ def check_k3(torch, K3, nerf_mlp, packed, gen, n_rays: int = TRAIN_RAYS, pts_per
     if failures or not padded_zero or not deterministic:
         raise SystemExit(f"nerf_mlp_bwd disagrees with its plain version at {n_pts} points: {failures}, padded "
                          f"rows zero {padded_zero}, same result twice {deterministic}")
-    kernel_ms = time_ms(torch, lambda: K3.nerf_mlp_bwd(packed, points, dirs, pts_per_ray, cot), iters=10)
+    k3 = lambda: K3.nerf_mlp_bwd(packed, points, dirs, pts_per_ray, cot)  # noqa: E731
+    k3_ms = time_ms(torch, k3, iters=10)
+    pass_ms = kernel_ms(torch, k3)
     plain_ms = time_ms(torch, lambda: K3.nerf_mlp_bwd_plain(packed, points, dirs, pts_per_ray, cot), iters=5)
+
+    params = list(nerf_mlp.parameters())
+
+    def k1_k3():
+        K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray)
+        K3.nerf_mlp_bwd(packed, points, dirs, pts_per_ray, cot)
+
+    def eager():
+        res = nerf_mlp(origins, ray_dirs, lengths, use_pallas=False)
+        outs = (res["rays_densities"], res["rays_features"])
+        torch.autograd.grad(outs, params, (cot[:, :1].reshape(outs[0].shape), cot[:, 1:].reshape(outs[1].shape)))
+
+    k1_k3_turns = [time_ms(torch, k1_k3, iters=10)]
+    eager_turns = [time_ms(torch, eager, iters=10), time_ms(torch, eager, iters=10)]
+    k1_k3_turns.append(time_ms(torch, k1_k3, iters=10))
     flops = K3.flops_per_point(packed) * n_pts
     bound_ms, bound_by = bound(flops, K3.io_bytes(packed, n_pts, n_rays))
     return dict(points=n_pts, max_abs_err=max_abs_err, worst_cosine=worst_cos, min_cosine=K3_MIN_COSINE,
-                rel_atol=K3_REL_ATOL, padded_rows_zero=padded_zero, deterministic=deterministic, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
-                achieved_tflops=flops / kernel_ms / 1e9,
-                stash_gb=n_pts * sum(K3.stash_widths(packed.n_layers)) * 2 / 1e9)
+                rel_atol=K3_REL_ATOL, padded_rows_zero=padded_zero, deterministic=deterministic, ms=k3_ms,
+                pass_ms=pass_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+                achieved_tflops=flops / k3_ms / 1e9, k1_k3_ms=sum(k1_k3_turns) / 2, k1_k3_ms_turns=k1_k3_turns,
+                eager_ms=sum(eager_turns) / 2, eager_ms_turns=eager_turns,
+                stash_gb=n_pts * sum(K3.stash_widths(packed.n_layers, packed.n_extra_color)) * 2 / 1e9)
 
 
 def check_classic_train_shapes(torch, K1, K3, nerf_mlp, packed, gen, card_line):
@@ -262,7 +316,7 @@ def check_classic_train_shapes(torch, K1, K3, nerf_mlp, packed, gen, card_line):
         say(card_line, "kernel", name="nerf_mlp_fwd", shape=shape,
             **check_k1(torch, K1, packed, TRAIN_RAYS, pts_per_ray, gen))
         say(card_line, "kernel", name="nerf_mlp_bwd", shape=shape,
-            **check_k3(torch, K3, nerf_mlp, packed, gen, TRAIN_RAYS, pts_per_ray))
+            **check_k3(torch, K1, K3, nerf_mlp, packed, gen, TRAIN_RAYS, pts_per_ray))
         torch.cuda.empty_cache()
 
 
@@ -565,7 +619,7 @@ def main() -> int:
     say(card_line, "kernel", name="nerf_mlp_fwd", shape="proposal eval chunk, 2045 rays x 32 points", **k1)
     k1_train = check_k1(torch, K1, packed, TRAIN_RAYS, TRAIN_PTS, gen)
     say(card_line, "kernel", name="nerf_mlp_fwd", shape="proposal train step, 4096 rays x 48 points", **k1_train)
-    k3 = check_k3(torch, K3, nerf_mlp, packed, gen)
+    k3 = check_k3(torch, K1, K3, nerf_mlp, packed, gen)
     say(card_line, "kernel", name="nerf_mlp_bwd", shape="proposal train step, 4096 rays x 48 points", **k3)
     k2 = check_k2(torch, K1, packed, 2045, CLASSIC_EVAL_FINE_PTS, gen, timed=True)
     say(card_line, "kernel", name="nerf_mlp_fwd_pipelined", shape="classic fine eval chunk, 2045 rays x 192 points",
@@ -615,6 +669,7 @@ def main() -> int:
             "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
             "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
             "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"], "library_ms": None,
+            **{k: numbers[k] for k in ("pass_ms", "k1_k3_ms", "eager_ms") if k in numbers},
         }
 
     def by_path(kernel):

@@ -163,6 +163,59 @@ def test_cuda_input_checks_of_the_backward():
     with pytest.raises(ValueError, match="g must be"):
         K3._check_bwd_inputs(packed, pts, dirs, 2, torch.zeros(6, 3))
     v1 = MODELS.build(dict(FLAGSHIP, compute_dtype="bfloat16", nerf_paper_v1=True)).packed_weights()
+    K3._check_bwd_inputs(v1, pts, dirs, 2, torch.zeros(6, 4))  # two extra color layers: the kernel takes them
+    v1_deep = MODELS.build(dict(FLAGSHIP, compute_dtype="bfloat16", n_layers=12, nerf_paper_v1=True)).packed_weights()
     with pytest.raises(NotImplementedError, match="extra color"):
-        K3._check_bwd_inputs(v1, pts, dirs, 2, torch.zeros(6, 4))
-    assert K3.stash_widths(8) == (2544, 2464)
+        K3._check_bwd_inputs(v1_deep, pts, dirs, 2, torch.zeros(6, 4))
+    assert K3.stash_widths(8) == (2560, 2432)
+    assert K3.stash_widths(8, 2) == (2816, 2688)
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [dict(FLAGSHIP), dict(FLAGSHIP, n_layers=2, input_skips=()), dict(FLAGSHIP, nerf_paper_v1=True)],
+    ids=["8x256", "2x256", "8x256-paper-v1"],
+)
+def test_weight_grad_jobs_cover_every_gradient_once(cfg):
+    """The weight-gradient pass's plan: every (tensor, row, column) of dW and every bias entry exactly once,
+    each row from the stash column of its input feature, the cotangent columns inside the stash."""
+    packed = MODELS.build(dict(cfg, compute_dtype="bfloat16")).packed_weights()
+    nl, ne, h, hd = packed.n_layers, packed.n_extra_color, packed.hidden, packed.hidden_dir
+    lda, ldg = K3.stash_widths(nl, ne)
+    # the stash column of input row k of each tensor, from the layout stash_widths documents
+    a_y = lambda li: 64 + h * li  # noqa: E731
+    a_demb, a_cact = a_y(nl) + h, lambda e: a_y(nl) + h + 64 + hd * e  # noqa: E731
+
+    def input_col(i, k):
+        if i == 0:
+            return k
+        if i < nl:
+            return a_y(i - 1) + k if k < h else k - h
+        if i in (nl, nl + 1):
+            return a_y(nl - 1) + k
+        if i == nl + 2:
+            return a_y(nl) + k if k < h else a_demb + k - h
+        return a_cact(i - nl - 3) + k
+
+    seen_w = {i: torch.zeros(tuple(w.shape), dtype=torch.int32) for i, w in enumerate(packed.weights)}
+    seen_b = {i: torch.zeros(b.numel(), dtype=torch.int32) for i, b in enumerate(packed.biases)}
+    jobs = K3.weight_grad_jobs(packed)
+    assert len(jobs) <= 32  # MAX_JOBS of csrc/nerf_mlp_bwd.cu
+    tensors = [job[0] for job in jobs]
+    assert tensors == sorted(tensors)  # a tensor's jobs are adjacent
+    for tensor, row0, a_col0, rows0, a_col1, rows1, g_stash, g_col, n_mma, shift, n_out, bias in jobs:
+        assert n_mma in (64, 128, 256) and 0 <= shift and shift + n_out <= n_mma
+        assert 0 <= g_col and g_col % 64 == 0 and g_col + shift + n_out <= (lda if g_stash else ldg)
+        if g_stash:  # the heads' block: density at column 32, the color head's after it
+            assert g_col == a_demb and shift == (32 if tensor == nl + 1 else 33), tensor
+        assert row0 % 128 == 0 and 0 < rows0 <= 64 and 0 <= rows1 <= 64 and (rows1 == 0 or rows0 == 64)
+        for first, a_col, rows in ((row0, a_col0, rows0), (row0 + 64, a_col1, rows1)):
+            for k in range(first, first + rows):
+                assert input_col(tensor, k) == a_col + k - first, (tensor, k)
+            assert rows == 0 or (a_col % 64 == 0 and a_col + 64 <= lda)
+            seen_w[tensor][first : first + rows, :n_out] += 1
+        if bias:
+            seen_b[tensor][:n_out] += 1
+    for i in range(len(packed.weights)):
+        assert bool((seen_w[i] == 1).all()), i
+        assert bool((seen_b[i] == 1).all()), i

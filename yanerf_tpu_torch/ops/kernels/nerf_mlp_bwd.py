@@ -17,6 +17,9 @@ stay resident and the activations that do not fit on chip.
   version only for CPU tensors. It never falls back on the card.
 * ``launches`` counts the kernel's launches (one per call: the three
   kernels of ``csrc/nerf_mlp_bwd.cu`` run as one launch of K3).
+* ``weight_grad_jobs`` is the plan of the kernel's weight-gradient pass,
+  made here and handed to the kernel; ``layer_check`` runs one layer of the
+  first pass's building blocks (the card tests hold it to a plain product).
 
 Both return the gradients in the packed layout of ``pack_weights``:
 ``(grad_flat, grad_biases_flat)``, float32 buffers with the offsets of
@@ -37,7 +40,6 @@ from ._build import CudaLibrary
 from .nerf_mlp_fwd import (
     PackedNerfMlp,
     _check_cuda_inputs,
-    _round_up,
     embed_padded,
     no_tf32,
 )
@@ -46,15 +48,18 @@ from .nerf_mlp_fwd import (
 launches = 0
 
 KERNEL_MAX_LAYERS = 8
+KERNEL_MAX_EXTRA_COLOR = 2
 KERNEL_MAX_COLOR = 4
-TILE = 64  # points per CTA of the first pass, and the split granularity of the second
-_WAVES = 4  # the weight-gradient pass aims at this many CTAs per SM
+STEP = 64  # points per step of the weight-gradient pass
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.nerf_mlp_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    check = lib.nerf_mlp_bwd_layer_check
+    check.argtypes = [ctypes.c_void_p] * 5
+    check.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("nerf_mlp_bwd.cu", _bind)
@@ -160,30 +165,77 @@ def nerf_mlp_bwd_plain(
     return grad_flat, grad_biases
 
 
-def stash_widths(n_layers: int) -> Tuple[int, int]:
+def stash_widths(n_layers: int, n_extra_color: int = 0) -> Tuple[int, int]:
     """Per-point widths (bf16 elements) of the kernel's activation and cotangent stashes.
 
-    Activations: ones (16) | xyz embedding (64) | the layer outputs (256
-    each) | intermediate (256) | direction embedding (32) | color hidden
-    (128). Cotangents: one per xyz layer (256 each) | intermediate (256) |
-    density (16) | color hidden (128) | color head (16). Must match
+    Activations: xyz embedding (64) | the xyz layers' outputs (256 each) |
+    intermediate (256) | direction embedding (32) and the heads' cotangents
+    (density, then the color head's C), one block of 64 | the color layers'
+    outputs (128 each). Cotangents of the layer outputs: xyz layers (256
+    each) | intermediate (256) | color layers (128 each). Both are multiples
+    of 64: the stashes are column-blocked, ``(width // 64, n_points, 64)``,
+    so that a box of 64 points x 64 columns is contiguous. Must match
     ``csrc/nerf_mlp_bwd.cu``.
     """
-    return 80 + 256 * n_layers + 256 + 32 + 128, 256 * n_layers + 256 + 16 + 128 + 16
+    return 64 + 256 * (n_layers + 1) + 64 + 128 * (n_extra_color + 1), 256 * (n_layers + 1) + 128 * (n_extra_color + 1)
 
 
-def n_weight_grad_jobs(packed: PackedNerfMlp) -> int:
-    """CTAs of the weight-gradient pass per split: 64x64 blocks of each dW, plus one bias row block per 64 columns."""
-    return sum((-(-k // 64) + 1) * -(-n // 64) for k, n in (tuple(w.shape) for w in packed.weights))
+def _stash_inputs(packed: PackedNerfMlp) -> List[Tuple[List[Tuple[int, int]], int, int, int, int, int]]:
+    """Per tensor in kernel order: its input rows as activation-stash segments ``(column, rows)``,
+    then its cotangent's (stash, block column, product width, column shift, gradient width);
+    stash 0 is the cotangent stash, 1 the activation stash (the heads' block)."""
+    nl, ne, h, hd = packed.n_layers, packed.n_extra_color, packed.hidden, packed.hidden_dir
+    a_y = [64 + h * li for li in range(nl + 1)]  # the last one is the intermediate
+    a_demb = a_y[nl] + h  # the dir embedding, then the heads at column 32 of the block
+    a_cact = [a_demb + 64 + hd * e for e in range(ne + 1)]
+    g_inter = h * nl
+    g_c = [g_inter + h + hd * e for e in range(ne + 1)]
+    out = []
+    for li in range(nl):
+        segs = [(0, packed.k_xyz)] if li == 0 else [(a_y[li - 1], h)]
+        if li > 0 and li in packed.input_skips:
+            segs.append((0, packed.k_xyz))
+        out.append((segs, 0, h * li, 256, 0, h))
+    out.append(([(a_y[nl - 1], h)], 0, g_inter, 256, 0, h))  # intermediate
+    out.append(([(a_y[nl - 1], h)], 1, a_demb, 64, 32, 1))  # density
+    out.append(([(a_y[nl], h), (a_demb, packed.k_dir)], 0, g_c[0], 128, 0, hd))  # first color layer
+    for e in range(ne):
+        out.append(([(a_cact[e], hd)], 0, g_c[e + 1], 128, 0, hd))
+    out.append(([(a_cact[ne], hd)], 1, a_demb, 64, 33, packed.color_dim))  # color head
+    return out
+
+
+def weight_grad_jobs(packed: PackedNerfMlp) -> List[Tuple[int, ...]]:
+    """The plan of the weight-gradient pass, one tuple per job (per slice of the points):
+
+    ``(tensor, row0, a_col0, rows0, a_col1, rows1, g_stash, g_col, n_mma, shift, n_out, bias)``:
+    rows ``row0 ..`` of the tensor's dW, ``rows0`` of them from the
+    activation stash at column ``a_col0`` (the first consumer warp group)
+    and ``rows1`` from ``a_col1`` (the second, from ``row0 + 64``), times the
+    columns ``g_col .. + n_mma`` of stash ``g_stash`` (0: cotangents, 1:
+    activations), of which columns ``shift .. + n_out`` are the gradient's;
+    with ``bias``, the job also sums those columns into db. A tensor's jobs
+    are adjacent.
+    """
+    jobs = []
+    for i, (segs, g_stash, g_col, n_mma, shift, n_out) in enumerate(_stash_inputs(packed)):
+        blocks = [(col + r, min(64, rows - r)) for col, rows in segs for r in range(0, rows, 64)]
+        for rb in range(0, len(blocks), 2):
+            (a0, r0), (a1, r1) = blocks[rb], blocks[rb + 1] if rb + 1 < len(blocks) else (0, 0)
+            jobs.append((i, 64 * rb, a0, r0, a1, r1, g_stash, g_col, n_mma, shift, n_out, int(rb == 0)))
+    return jobs
 
 
 def _check_bwd_inputs(packed: PackedNerfMlp, points, dirs, pts_per_ray: int, g: torch.Tensor) -> None:
     _check_cuda_inputs(packed, points, dirs, pts_per_ray)
-    if packed.n_extra_color != 0:
-        raise NotImplementedError("the CUDA backward covers NeRFMLPs without extra color layers (nerf_paper_v1=False)")
-    if not 1 <= packed.n_layers <= KERNEL_MAX_LAYERS or packed.color_dim > KERNEL_MAX_COLOR:
+    if (
+        not 1 <= packed.n_layers <= KERNEL_MAX_LAYERS
+        or packed.n_extra_color > KERNEL_MAX_EXTRA_COLOR
+        or packed.color_dim > KERNEL_MAX_COLOR
+    ):
         raise NotImplementedError(
-            f"the CUDA backward takes up to {KERNEL_MAX_LAYERS} xyz layers and {KERNEL_MAX_COLOR} color channels"
+            f"the CUDA backward takes up to {KERNEL_MAX_LAYERS} xyz layers, {KERNEL_MAX_EXTRA_COLOR} extra color "
+            f"layers and {KERNEL_MAX_COLOR} color channels"
         )
     if (
         g.dtype != torch.float32
@@ -209,34 +261,51 @@ def nerf_mlp_bwd(
         raise ValueError(f"unsupported device {points.device}")
     _check_bwd_inputs(packed, points, dirs, pts_per_ray, g)
     n = points.shape[0]
-    n_pad = _round_up(max(n, 1), TILE)
-    lda, ldg = stash_widths(packed.n_layers)
+    lda, ldg = stash_widths(packed.n_layers, packed.n_extra_color)
     device = points.device
+    jobs = weight_grad_jobs(packed)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_split = max(1, min(n_pad // TILE, -(-_WAVES * sms // n_weight_grad_jobs(packed))))
+    n_split = max(1, min(-(-n // STEP), sms // len(jobs)))
     w_total, b_total = packed.flat.numel(), packed.biases_flat.numel()
-    stash_a = torch.empty((n_pad, lda), dtype=torch.bfloat16, device=device)
-    stash_g = torch.empty((n_pad, ldg), dtype=torch.bfloat16, device=device)
+    stash_a = torch.empty((lda // 64, n, 64), dtype=torch.bfloat16, device=device)
+    stash_g = torch.empty((ldg // 64, n, 64), dtype=torch.bfloat16, device=device)
     partials = torch.zeros((n_split, w_total + b_total), dtype=torch.float32, device=device)
     out = torch.zeros(w_total + b_total, dtype=torch.float32, device=device)
     w_off = (ctypes.c_longlong * len(packed.w_offsets))(*packed.w_offsets)
     b_off = (ctypes.c_longlong * len(packed.b_offsets))(*packed.b_offsets)
+    plan = (ctypes.c_longlong * (len(jobs) * len(jobs[0])))(*(f for job in jobs for f in job))
     skip_mask = sum(1 << s for s in packed.input_skips if 0 < s < packed.n_layers)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = LIBRARY.library().nerf_mlp_bwd_bf16(
             points.data_ptr(), dirs.data_ptr(), g.data_ptr(),
             packed.flat.data_ptr(), packed.biases_flat.data_ptr(),
-            ctypes.addressof(w_off), ctypes.addressof(b_off), stash_a.data_ptr(),
+            ctypes.addressof(w_off), ctypes.addressof(b_off), stash_a.data_ptr(), stash_g.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), ctypes.addressof(plan),
             len(packed.w_offsets), n, pts_per_ray, packed.n_layers, skip_mask,
             packed.n_freq_xyz, int(packed.append_xyz), packed.n_freq_dir, int(packed.append_dir),
-            packed.n_extra_color, packed.color_dim, lda, ldg, w_total, b_total, n_split,
-            stash_g.data_ptr(), partials.data_ptr(), out.data_ptr(), stream,
+            packed.n_extra_color, packed.color_dim, lda, ldg, w_total, b_total, n_split, len(jobs), stream,
         )
     if rc != 0:
         raise RuntimeError(f"nerf_mlp_bwd kernel launch failed with CUDA error {rc}")
     launches += 1
     return out[:w_total], out[w_total:]
+
+
+def layer_check(a: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(bf16(a @ w), bf16(that @ w^T))`` through the first pass's ring, wgmma descriptors, epilogues
+    and TMA stores, for ``a`` (128, 256) and ``w`` (256, 256) bf16 on the card."""
+    if a.shape != (128, 256) or w.shape != (256, 256) or a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError("layer_check takes a (128, 256) and w (256, 256) bfloat16")
+    if a.device.type != "cuda" or w.device != a.device or not (a.is_contiguous() and w.is_contiguous()):
+        raise ValueError("layer_check takes contiguous CUDA tensors")
+    y, z = (torch.empty((4, 128, 64), dtype=a.dtype, device=a.device) for _ in range(2))  # column-blocked
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = LIBRARY.library().nerf_mlp_bwd_layer_check(a.data_ptr(), w.data_ptr(), y.data_ptr(), z.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"nerf_mlp_bwd_layer_check failed with CUDA error {rc}")
+    return y.permute(1, 0, 2).reshape(128, 256), z.permute(1, 0, 2).reshape(128, 256)
 
 
 def flops_per_point(packed: PackedNerfMlp) -> int:
