@@ -15,7 +15,11 @@ the card's name and power limit:
              shared memory of each;
   2. kernel  hold each kernel against its plain PyTorch version at the
              shapes the paths give it, and time both: K1 at the proposal
-             eval chunk (2045 rays x 32 points) and train step (4096 x 48);
+             eval chunk (2045 rays x 32 points), the classic coarse and fine
+             eval chunks (2045 x 64, 2045 x 192) and the proposal train step
+             (4096 x 48), each K1 line with its yardstick, the eager
+             NeRFMLP's bf16 forward under no_grad (eager_ms), timed in
+             turns with K1;
              K3 at the proposal train step; K2 bit for bit against K1
              (torch.equal) at the classic fine eval chunk (2045 x 192), the
              proposal train step, 3 x 5 and 1 x 1, and against the plain
@@ -82,6 +86,7 @@ KERNEL_ATOL = 1e-2  # bf16: sums taken in another order can flip one bf16 roundi
 KERNEL_RTOL = 1e-2
 MIN_FRAME_PSNR = 40.0
 TRAIN_RAYS, TRAIN_PTS = 4096, 48  # lego_proposal's rays per step and final points per ray
+CLASSIC_EVAL_COARSE_PTS = 64  # the classic coarse pass at eval
 CLASSIC_EVAL_FINE_PTS = 64 + 128  # the classic fine pass at eval: coarse points merged with the fine ones
 CLASSIC_TRAIN_PTS = (64, 64 + 128)  # the classic train step's coarse and fine passes
 # K3 against its plain version, per gradient tensor: the same bf16 roundings at
@@ -160,9 +165,15 @@ def k1_bound(K1, packed, points, dirs):
     return flops, bound(flops, points.numel() * 4 + dirs.numel() * 4 + out_bytes + K1.weight_bytes(packed))
 
 
-def check_k1(torch, K1, packed, n_rays: int, pts_per_ray: int, gen):
-    """K1 against its plain version at ``n_rays`` x ``pts_per_ray``; returns its numbers."""
-    points, dirs = mlp_inputs(torch, n_rays, pts_per_ray, gen)
+def check_k1(torch, K1, nerf_mlp, packed, n_rays: int, pts_per_ray: int, gen):
+    """K1 against its plain version at ``n_rays`` x ``pts_per_ray`` ray points; returns its numbers.
+
+    Times: K1 and its plain version (CUDA events), and the yardstick K1 wins
+    or loses against: the eager NeRFMLP's bf16 forward under
+    ``torch.no_grad()`` on the same rays (``eager_ms``), in turns with K1.
+    """
+    origins, ray_dirs, lengths, points = ray_inputs(torch, n_rays, pts_per_ray, gen)
+    dirs = ray_dirs.reshape(-1, 3).contiguous()
     out = K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray)
     torch.cuda.synchronize()
     ref = K1.nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray)
@@ -171,12 +182,21 @@ def check_k1(torch, K1, packed, n_rays: int, pts_per_ray: int, gen):
     if not bool(torch.isfinite(out).all()) or bool((err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()).any()):
         raise SystemExit(f"nerf_mlp_fwd disagrees with its plain version at {points.shape[0]} points: "
                          f"max abs err {max_abs_err}")
-    kernel_ms = time_ms(torch, lambda: K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray))
-    plain_ms = time_ms(torch, lambda: K1.nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray))
+    k1 = lambda: K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray)  # noqa: E731
+
+    def eager():
+        with torch.no_grad():
+            nerf_mlp(origins, ray_dirs, lengths, use_pallas=False)
+
+    k1_turns = [time_ms(torch, k1)]
+    eager_turns = [time_ms(torch, eager), time_ms(torch, eager)]
+    k1_turns.append(time_ms(torch, k1))
+    kernel_ms = sum(k1_turns) / 2
+    plain_ms = time_ms(torch, lambda: K1.nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray), iters=5)
     flops, (bound_ms, bound_by) = k1_bound(K1, packed, points, dirs)
     return dict(points=points.shape[0], max_abs_err=max_abs_err, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
-                achieved_tflops=flops / kernel_ms / 1e9)
+                ms_turns=k1_turns, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+                achieved_tflops=flops / kernel_ms / 1e9, eager_ms=sum(eager_turns) / 2, eager_ms_turns=eager_turns)
 
 
 def check_k2(torch, K1, packed, n_rays: int, pts_per_ray: int, gen, timed: bool):
@@ -314,7 +334,7 @@ def check_classic_train_shapes(torch, K1, K3, nerf_mlp, packed, gen, card_line):
     for name, pts_per_ray in zip(("coarse", "fine"), CLASSIC_TRAIN_PTS):
         shape = f"classic train step, {name} pass, {TRAIN_RAYS} rays x {pts_per_ray} points"
         say(card_line, "kernel", name="nerf_mlp_fwd", shape=shape,
-            **check_k1(torch, K1, packed, TRAIN_RAYS, pts_per_ray, gen))
+            **check_k1(torch, K1, nerf_mlp, packed, TRAIN_RAYS, pts_per_ray, gen))
         say(card_line, "kernel", name="nerf_mlp_bwd", shape=shape,
             **check_k3(torch, K1, K3, nerf_mlp, packed, gen, TRAIN_RAYS, pts_per_ray))
         torch.cuda.empty_cache()
@@ -615,9 +635,12 @@ def main() -> int:
 
     # 2. kernels vs plain versions; these launches do not count
     gen = torch.Generator().manual_seed(1)
-    k1 = check_k1(torch, K1, packed, 2045, 32, gen)
+    k1 = check_k1(torch, K1, nerf_mlp, packed, 2045, 32, gen)
     say(card_line, "kernel", name="nerf_mlp_fwd", shape="proposal eval chunk, 2045 rays x 32 points", **k1)
-    k1_train = check_k1(torch, K1, packed, TRAIN_RAYS, TRAIN_PTS, gen)
+    for name, pts_per_ray in (("coarse", CLASSIC_EVAL_COARSE_PTS), ("fine", CLASSIC_EVAL_FINE_PTS)):
+        say(card_line, "kernel", name="nerf_mlp_fwd", shape=f"classic {name} eval chunk, 2045 rays x {pts_per_ray} points",
+            **check_k1(torch, K1, nerf_mlp, packed, 2045, pts_per_ray, gen))
+    k1_train = check_k1(torch, K1, nerf_mlp, packed, TRAIN_RAYS, TRAIN_PTS, gen)
     say(card_line, "kernel", name="nerf_mlp_fwd", shape="proposal train step, 4096 rays x 48 points", **k1_train)
     k3 = check_k3(torch, K1, K3, nerf_mlp, packed, gen)
     say(card_line, "kernel", name="nerf_mlp_bwd", shape="proposal train step, 4096 rays x 48 points", **k3)

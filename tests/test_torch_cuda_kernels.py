@@ -14,7 +14,8 @@ Tolerances:
     layers carry that on.
   * K2 (``nerf_mlp_fwd(..., pipelined=True)``) bit for bit equal to K1
     (``torch.equal``), as tests/test_pallas.py holds the Pallas pair: the
-    two kernels take every floating-point operation from one header.
+    two kernels run one tile engine (csrc/nerf_mlp_tile.cuh) and differ only
+    in who embeds.
   * K3 (``nerf_mlp_bwd``) per tensor at cosine >= 0.9999 and a max abs error
     within 5% of the tensor's largest entry, all finite, the rows of the
     packed padding exactly zero, two launches equal. The same bf16 roundings happen at the same
@@ -62,32 +63,38 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version(cuda_device):
-    """K1 (``nerf_mlp_fwd``) against its plain version."""
-    model = MODELS.build(dict(FLAGSHIP), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+# (rays, points per ray): the proposal eval chunk, ragged tails around the
+# 128-point tile, the classic coarse and fine eval chunks
+K1_SHAPES = ((2045, 32), (3, 5), (1, 1), (127, 1), (128, 1), (129, 1), (2045, 64), (2045, 192))
+
+
+def _k1_inputs(n_rays, n_pts, gen, device):
+    pts = (torch.rand(n_rays * n_pts, 3, generator=gen) * 3 - 1.5).to(device)
+    dirs = torch.randn(n_rays, 3, generator=gen).to(device)
+    return pts, dirs
+
+
+def _check_k1(model, shapes, seed, device):
+    """K1 against its plain version at each ``(n_rays, n_pts)``, once launched per call."""
     packed = model.packed_weights()
-    g = torch.Generator().manual_seed(0)
-    for n_rays, n_pts in ((2045, 32), (3, 5), (1, 1)):
-        pts = (torch.rand(n_rays * n_pts, 3, generator=g) * 3 - 1.5).to(cuda_device)
-        dirs = torch.randn(n_rays, 3, generator=g).to(cuda_device)
+    g = torch.Generator().manual_seed(seed)
+    for n_rays, n_pts in shapes:
+        pts, dirs = _k1_inputs(n_rays, n_pts, g, device)
         before = K1.launches
         out = K1.nerf_mlp_fwd(packed, pts, dirs, n_pts)
         torch.cuda.synchronize()
         assert K1.launches == before + 1
+        assert bool(torch.isfinite(out).all())
         ref = K1.nerf_mlp_fwd_plain(packed, pts, dirs, n_pts)
         torch.testing.assert_close(out, ref, **K1_TOL)
 
 
-@pytest.mark.cuda
-def test_pipelined_kernel_is_bitwise_equal_to_k1(cuda_device):
-    """K2 (``nerf_mlp_fwd(pipelined=True)``) against K1: the classic fine eval chunk, ragged tails."""
-    model = MODELS.build(dict(FLAGSHIP), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+def _check_k2(model, shapes, seed, device):
+    """K2 bit for bit against K1 at each ``(n_rays, n_pts)``."""
     packed = model.packed_weights()
-    g = torch.Generator().manual_seed(2)
-    for n_rays, n_pts in ((2045, 192), (3, 5), (1, 1)):
-        pts = (torch.rand(n_rays * n_pts, 3, generator=g) * 3 - 1.5).to(cuda_device)
-        dirs = torch.randn(n_rays, 3, generator=g).to(cuda_device)
+    g = torch.Generator().manual_seed(seed)
+    for n_rays, n_pts in shapes:
+        pts, dirs = _k1_inputs(n_rays, n_pts, g, device)
         k1_before, k2_before = K1.launches, K1.pipelined_launches
         got = K1.nerf_mlp_fwd(packed, pts, dirs, n_pts, pipelined=True)
         ref = K1.nerf_mlp_fwd(packed, pts, dirs, n_pts)
@@ -95,6 +102,41 @@ def test_pipelined_kernel_is_bitwise_equal_to_k1(cuda_device):
         assert (K1.launches, K1.pipelined_launches) == (k1_before + 1, k2_before + 1)
         assert bool(torch.isfinite(got).all())
         assert torch.equal(got, ref), (n_rays, n_pts, float((got - ref).abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version(cuda_device):
+    """K1 (``nerf_mlp_fwd``) against its plain version: eval chunks of both configs, ragged tails."""
+    model = MODELS.build(dict(FLAGSHIP), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    _check_k1(model, K1_SHAPES, 0, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_nerf_paper_v1(cuda_device):
+    """K1 with the two extra color layers of ``nerf_paper_v1`` against its plain version, and K2 to K1."""
+    model = MODELS.build(dict(FLAGSHIP, nerf_paper_v1=True), generator=torch.Generator().manual_seed(7)).to(cuda_device)
+    assert model.packed_weights().n_extra_color == 2
+    _check_k1(model, ((2045, 32), (3, 5), (129, 1)), 8, cuda_device)
+    _check_k2(model, ((2045, 32), (3, 5), (129, 1)), 9, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_is_deterministic(cuda_device):
+    """Two K1 launches on the same inputs give the same bits (no atomics, a fixed order of every sum)."""
+    model = MODELS.build(dict(FLAGSHIP), generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    packed = model.packed_weights()
+    pts, dirs = _k1_inputs(2045, 192, torch.Generator().manual_seed(4), cuda_device)
+    first = K1.nerf_mlp_fwd(packed, pts, dirs, 192)
+    again = K1.nerf_mlp_fwd(packed, pts, dirs, 192)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_pipelined_kernel_is_bitwise_equal_to_k1(cuda_device):
+    """K2 (``nerf_mlp_fwd(pipelined=True)``) against K1 at every K1 shape: eval chunks, ragged tails."""
+    model = MODELS.build(dict(FLAGSHIP), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    _check_k2(model, K1_SHAPES, 2, cuda_device)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ tests/test_torch_cuda_kernels.py, which imports no JAX (the card machine
 has none).
 """
 
+import dataclasses
 import os.path as osp
 
 import jax
@@ -34,6 +35,7 @@ from yanerf_tpu.ops.pallas.nerf_mlp_kernel import nerf_mlp_forward_pallas
 from yanerf_tpu.utils import Config
 from yanerf_tpu_torch.convert import load_jax_params
 from yanerf_tpu_torch.models import MODELS
+from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
 from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K
 
 CFG_DIR = osp.join(osp.dirname(__file__), "configs")
@@ -147,9 +149,19 @@ def test_build_cache_key_covers_included_headers(tmp_path):
     assert second != first, "an edit two includes down rebuilds"
     (tmp_path / "shared.cuh").write_text('#pragma once\n#include "inner.cuh"\ninline int g() { return -h(); }\n')
     assert lib.path() not in (first, second)
-    # both forward kernels of the package share one header and so one key part
-    assert [p.name for p in K.LIBRARY.sources()] == ["nerf_mlp_fwd.cu", "nerf_mlp_fwd.cuh"]
-    assert [p.name for p in K.PIPELINED_LIBRARY.sources()] == ["nerf_mlp_fwd_pipelined.cu", "nerf_mlp_fwd.cuh"]
+    # both forward kernels of the package (and K3) run the tile engine of one header, so its edits rebuild them
+    engine = ["nerf_mlp_tile.cuh", "hopper.cuh", "nerf_mlp_fwd.cuh"]
+    assert [p.name for p in K.LIBRARY.sources()] == ["nerf_mlp_fwd.cu", *engine]
+    assert [p.name for p in K.PIPELINED_LIBRARY.sources()] == ["nerf_mlp_fwd_pipelined.cu", *engine]
+    assert [p.name for p in K3.LIBRARY.sources()] == ["nerf_mlp_bwd.cu", *engine]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in K.LIBRARY.sources():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    k1 = CudaLibrary(str(csrc / "nerf_mlp_fwd.cu"), lambda _: None)
+    before = k1.path()
+    (csrc / "nerf_mlp_tile.cuh").write_bytes(K.LIBRARY.sources()[1].read_bytes() + b"\n// edited\n")
+    assert k1.path() != before, "an edit of the shared tile engine rebuilds K1"
 
 
 def test_cuda_input_checks_reject_what_the_kernel_does_not_take():
@@ -168,3 +180,44 @@ def test_cuda_input_checks_reject_what_the_kernel_does_not_take():
         K._check_cuda_inputs(packed, pts.double(), dirs, 2)
     with pytest.raises(ValueError, match="contiguous"):
         K._check_cuda_inputs(packed, torch.zeros(3, 6).t(), dirs, 2)
+
+
+@pytest.mark.parametrize("paper_v1", [False, True], ids=["flagship", "nerf_paper_v1"])
+def test_weight_rows_address_every_packed_matrix(paper_v1):
+    """The plan the kernels' tensor maps read: a wrong row gives wrong numbers and no error on the card."""
+    packed = MODELS.build(dict(FLAGSHIP, compute_dtype="bfloat16", nerf_paper_v1=paper_v1)).packed_weights()
+    rows = K.weight_rows(packed)
+    nl, ne = packed.n_layers, packed.n_extra_color
+    assert len(rows) == len(packed.weights) == nl + 4 + ne
+    heads = (nl + 1, nl + 3 + ne)
+    for i, (row, w, off) in enumerate(zip(rows, packed.weights, packed.w_offsets)):
+        if i in heads:
+            assert row == -1, i
+            continue
+        width = w.shape[1]
+        assert width == (128 if nl + 2 <= i <= nl + 2 + ne else 256), i
+        assert off % width == 0 and row == off // width, i
+        view = packed.flat[: packed.flat.numel() // width * width].view(-1, width)  # the map's whole rows
+        assert torch.equal(view[row : row + w.shape[0]], w), i
+    w_off, b_off, w_rows = packed.launch_tables
+    assert list(w_rows) == list(rows) and list(w_off) == list(packed.w_offsets)
+    assert list(b_off) == list(packed.b_offsets)
+
+
+def _beyond_the_maxima(case):
+    """A packed model past exactly one of the kernels' maxima."""
+    if case == "3-extra-color-layers":  # no config reaches it at <= 8 layers: nerf_paper_v1 gives n_layers // 4
+        packed = MODELS.build(dict(FLAGSHIP, compute_dtype="bfloat16", nerf_paper_v1=True)).packed_weights()
+        assert (packed.n_layers, packed.n_extra_color) == (8, 2)
+        return dataclasses.replace(packed, n_extra_color=3)
+    overrides = {"9-layers": dict(n_layers=9), "color-dim-5": dict(color_dim=5)}[case]
+    return MODELS.build(dict(FLAGSHIP, compute_dtype="bfloat16", **overrides)).packed_weights()
+
+
+@pytest.mark.parametrize("case", ["9-layers", "3-extra-color-layers", "color-dim-5"])
+def test_cuda_input_checks_refuse_beyond_the_kernels_maxima(case):
+    """Beyond the tile engine's maxima (8 layers, 2 extra color layers, 4 channels): refused before any launch."""
+    packed = _beyond_the_maxima(case)
+    pts, dirs = torch.zeros(6, 3), torch.zeros(3, 3)
+    with pytest.raises(NotImplementedError, match="xyz layers"):
+        K._check_cuda_inputs(packed, pts, dirs, 2)

@@ -83,6 +83,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v));
 }
+__device__ __forceinline__ void st_shared_b16(uint32_t addr, unsigned short v) {
+  asm volatile("st.shared.b16 [%0], %1;" ::"r"(addr), "h"(v));
+}
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w));
 }

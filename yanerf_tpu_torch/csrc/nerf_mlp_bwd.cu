@@ -8,8 +8,8 @@
 // accumulation, the bias added in float32, the sigmoid's cotangent rounded
 // to bf16, every g @ W^T rounded to bf16 before the density head's term is
 // added, ReLU masks taken on the bf16 activations, dW = a^T g and
-// db = sum(g) summed in float32. The embedding is K1's (nerf_mlp_fwd.cuh:
-// accurate sinf, cos(t) = sin(t + pi/2), no fast-math).
+// db = sum(g) summed in float32. The embedding is K1's (embed_pairs in
+// nerf_mlp_tile.cuh: accurate sinf, cos(t) = sin(t + pi/2), no fast-math).
 //
 // What bounds it: operations, ~3.5 MFLOP per point against ~32 bytes of
 // input. Two things the TPU kernel keeps on chip do not fit on an SM: ten
@@ -60,46 +60,30 @@
 // intermediate (256) | color layers (128 each). Pass 2 keeps only the
 // columns of a block that its job owns.
 //
-// The wgmma / TMA / mbarrier building blocks are in hopper.cuh. Built with
-// nvcc into a shared library with plain C entry points, loaded with ctypes
-// by ops/kernels/nerf_mlp_bwd.py.
+// The forward's pieces (the weight ring, the wgmma products, the forward
+// epilogue, the embedding, the vector ring, the heads' sums) are the tile
+// engine of nerf_mlp_tile.cuh, which K1 and K2 run too: K3 recomputes the
+// forward that produced K1's output, bit for bit, so its ReLU masks are
+// that forward's. The wgmma / TMA / mbarrier building blocks are in
+// hopper.cuh. Built with nvcc into a shared library with plain C entry
+// points, loaded with ctypes by ops/kernels/nerf_mlp_bwd.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
-#include "nerf_mlp_fwd.cuh"
+#include "nerf_mlp_tile.cuh"
 
 using namespace hopper;
-typedef __nv_bfloat16 bf16;
+using namespace nerf_mlp;
 
 namespace {
 
-constexpr int H = 256;         // xyz hidden width
-constexpr int HD = 128;        // color hidden width
-constexpr int KX_MAX = 64;     // padded xyz-embedding width
-constexpr int KD_MAX = 32;     // padded dir-embedding width
-constexpr int MAXC = 4;        // color channels
-constexpr int MAX_LAYERS = 8;
-constexpr int MAX_EXTRA = 2;   // extra color layers (nerf_paper_v1: n_layers / 4)
-constexpr int MAX_TENSORS = MAX_LAYERS + 4 + MAX_EXTRA;
 constexpr int MAX_JOBS = 32;
 constexpr int JOB_FIELDS = 12;  // weight_grad_jobs' tuple
 
-constexpr int WG = 128;                 // threads of a warp group
-constexpr int CONSUMERS = 2 * WG;       // warp groups 0-1
-constexpr int THREADS = CONSUMERS + WG;  // + the producer warp group
-constexpr int CONSUMER_REGS = 232;
-constexpr int PRODUCER_REGS = 40;
-constexpr int EMPTY_ARRIVALS = CONSUMERS / 32;  // one per consumer warp
-
 // pass 1
-constexpr int TILE = 128;               // points per tile, 64 per consumer warp group
 constexpr int STAGES = 3;
-constexpr int SLAB_BYTES = 64 * H * 2;  // a 64 x 256 bf16 weight slab
-constexpr int CHUNK_BYTES = TILE * 128; // 64 columns x 128 rows of the activation buffer
-constexpr int WG_ROWS_BYTES = 64 * 128; // one warp group's rows of a chunk
 constexpr int MASK_WORDS = MAX_LAYERS * (H / 64) + (1 + MAX_EXTRA) * (HD / 64);  // per consumer thread
 constexpr int VEC = 16;                 // floats per point: pts 3 | dn 3 | g 1+C | gz C | gden
 constexpr int V_PTS = 0, V_DN = 3, V_G = 6, V_GZ = 11, V_GDEN = 15;
@@ -108,7 +92,6 @@ constexpr int OFF_ACT = OFF_RING + STAGES * SLAB_BYTES;
 constexpr int OFF_EMB = OFF_ACT + 4 * CHUNK_BYTES;
 constexpr int OFF_MASK = OFF_EMB + CHUNK_BYTES;
 constexpr int OFF_VEC = OFF_MASK + MASK_WORDS * CONSUMERS * 4;
-constexpr int VEC_FLOATS = H + MAXC;  // a step's vector: a bias (<= 256 floats), or W_last (bf16) and its bias
 constexpr int OFF_VECRING = OFF_VEC + TILE * VEC * 4;
 constexpr int OFF_BAR = OFF_VECRING + 2 * VEC_FLOATS * 4;
 constexpr int SMEM1 = OFF_BAR + (2 * STAGES + 4) * 8 + 1024;  // + alignment of the base to 1024
@@ -145,16 +128,11 @@ struct TileArgs {
   bf16* sa_ptr;         // activation stash (the embeddings and the heads are stored by the threads)
   const bf16* w[MAX_TENSORS];
   const float* b[MAX_TENSORS];
-  int wrow[MAX_TENSORS];  // first row of tensor i in its tensor map's view
+  int wrow[MAX_TENSORS];  // first row of tensor i in its tensor map's view (-1: a head, read by the threads)
   int n_points, pts_per_ray, n_layers, skip_mask, n_extra;
   int nf_xyz, app_xyz, nf_dir, app_dir, color_dim;
   int n_tiles;
 };
-
-// Element (row, col) of a column-blocked stash of n rows.
-__device__ __forceinline__ bf16* stash_at(bf16* base, int n, int row, int col) {
-  return base + ((size_t)(col >> 6) * n + row) * 64 + (col & 63);
-}
 
 struct DwJob {
   int tensor, group, row0, a_col0, rows0, a_col1, rows1, g_stash, g_col, n_mma, shift, n_out;
@@ -175,33 +153,7 @@ __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(_
 // for every product of pass 1, so that no two accumulators are live at once.
 __device__ __forceinline__ float (&acc64(float (&acc)[128]))[64] { return *reinterpret_cast<float(*)[64]>(&acc[0]); }
 
-// ---- the weight ring ------------------------------------------------------
-
-struct Ring {
-  unsigned char* base;  // STAGES slabs
-  uint64_t* full;
-  uint64_t* empty;
-  int stage;
-  uint32_t phase;
-  __device__ __forceinline__ void advance(int stages) {
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// Producer: n_slabs row slabs of W (64 rows x 64 * n_boxes columns, MN-major
-// B of the forward), from row `row0` of the map's view.
-__device__ __forceinline__ void load_rows(Ring& r, const CUtensorMap* map, int row0, int n_slabs, int n_boxes) {
-  for (int i = 0; i < n_slabs; ++i) {
-    mbar_wait(&r.empty[r.stage], r.phase ^ 1);
-    mbar_arrive_expect_tx(&r.full[r.stage], n_boxes * 64 * 128);
-    unsigned char* dst = r.base + r.stage * SLAB_BYTES;
-    for (int j = 0; j < n_boxes; ++j) tma_load_2d(dst + j * 64 * 128, map, 64 * j, row0 + 64 * i, &r.full[r.stage]);
-    r.advance(STAGES);
-  }
-}
+// ---- the weight ring (nerf_mlp_tile.cuh), and the backward's column slabs ----
 
 // Producer: n_slabs column slabs of W (256 rows x 64 columns, the K-major B
 // of g @ W^T), from row `row0` of the map's view.
@@ -214,49 +166,13 @@ __device__ __forceinline__ void load_cols(Ring& r, const CUtensorMap* map, int r
   }
 }
 
-// Consumer warp group: acc = A @ B over n_slabs slabs of the ring, 64 K
-// each. Slab i < n_main takes A from activation chunk i (`a_main` + i
-// chunks), later slabs from `a_tail`. TB = 1: B is the forward's MN-major W;
-// TB = 0: the backward's K-major W^T. Every slab runs its four k16 steps
-// (the same instructions on every path, so that nothing but wgmma defines
-// the accumulator): A's columns past a layer's K are zero, and B's rows
-// there are the next tensor's (finite) or past the end (zero).
-template <int TB, int NACC>
-__device__ __forceinline__ void gemm_tb(float (&acc)[NACC], Ring& r, uint32_t a_main, int n_main, uint32_t a_tail,
-                                        int n_slabs) {
-  const bool signals = (threadIdx.x & 31) == 0;
-  int prev = 0;
-  fence_operand(acc);
-  for (int i = 0; i < n_slabs; ++i) {
-    const uint32_t a = i < n_main ? a_main + i * CHUNK_BYTES : a_tail;
-    const uint32_t b = smem_u32(r.base + r.stage * SLAB_BYTES);
-    mbar_wait(&r.full[r.stage], r.phase);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint64_t db = TB ? mnmajor_desc(b + k * 2048, 64 * 128) : kmajor_desc(b + k * 32);
-      wgmma_k16<0, TB>(acc, kmajor_desc(a + k * 32), db, (i | k) != 0);
-    }
-    wgmma_commit();
-    if (i > 0) {
-      wgmma_wait<1>();
-      if (signals) mbar_arrive(&r.empty[prev]);
-    }
-    prev = r.stage;
-    r.advance(STAGES);
-  }
-  wgmma_wait<0>();
-  fence_operand(acc);
-  if (signals) mbar_arrive(&r.empty[prev]);
-}
-
 template <int NACC>
 __device__ __forceinline__ void gemm(float (&acc)[NACC], Ring& r, bool fwd, uint32_t a_main, int n_main,
                                      uint32_t a_tail, int n_slabs) {
   if (fwd)
-    gemm_tb<1>(acc, r, a_main, n_main, a_tail, n_slabs);
+    gemm_tb<1, STAGES>(acc, r, a_main, n_main, a_tail, n_slabs);
   else
-    gemm_tb<0>(acc, r, a_main, n_main, a_tail, n_slabs);
+    gemm_tb<0, STAGES>(acc, r, a_main, n_main, a_tail, n_slabs);
 }
 
 // ---- epilogues: accumulator -> 128B-swizzled activation buffer -------------
@@ -264,12 +180,6 @@ __device__ __forceinline__ void gemm(float (&acc)[NACC], Ring& r, bool fwd, uint
 // The warp group's rows of the buffer may be overwritten: its stores have read them, its products are done.
 __device__ __forceinline__ void begin_write(int wg) {
   if ((threadIdx.x & (WG - 1)) == 0) bulk_wait_read();
-  named_bar_sync(1 + wg, WG);
-}
-
-// The writes are visible to wgmma and TMA.
-__device__ __forceinline__ void end_write(int wg) {
-  fence_proxy_async();
   named_bar_sync(1 + wg, WG);
 }
 
@@ -282,6 +192,26 @@ __device__ __forceinline__ void stash_rows(const CUtensorMap* map, unsigned char
   }
 }
 
+// Element (row, col) of a column-blocked (width / 64, n, 64) stash.
+__device__ __forceinline__ bf16* stash_at(bf16* base, int n, int row, int col) {
+  return base + ((size_t)(col >> 6) * n + row) * 64 + (col & 63);
+}
+
+// The first `width` columns (a multiple of 8) of the warp group's embedding
+// chunk to columns col.. of the activation stash, for the rows below
+// n_points: 16 bytes a step, read from the swizzled chunk once its writes
+// are visible to the warp group (end_write).
+__device__ __forceinline__ void stash_embedding(const TileArgs& p, const unsigned char* emb_wg, int width, int col,
+                                                int row0g) {
+  const int units = width / 8;
+  for (int u = threadIdx.x & (WG - 1); u < 64 * units; u += WG) {
+    const int r = u / units, cu = u - r * units;
+    if (row0g + r < p.n_points)
+      *reinterpret_cast<uint4*>(stash_at(p.sa_ptr, p.n_points, row0g + r, col + cu * 8)) =
+          *reinterpret_cast<const uint4*>(emb_wg + sw128_offset(r, cu * 8));
+  }
+}
+
 // What a layer's epilogue does with the accumulator.
 struct Epilogue {
   bool fwd;           // FWD, else BWD (or BWD_DENSITY with `add`)
@@ -290,29 +220,26 @@ struct Epilogue {
   uint32_t* mask;     // forward: stores the ReLU bits; backward: applies them; null: none
 };
 
-// The accumulator into the warp group's rows of the activation buffer, in
-// one of three modes fixed at compile time (so that nothing branches per
-// element): FWD, bf16(relu(acc + vec[col])) with the ReLU bits stored;
-// BWD, bf16(acc) times the ReLU bits; BWD_DENSITY, bf16(bf16(acc) +
-// bf16(gden[row] * vec[col])) times the bits. `vec` is the layer's vector in
-// shared memory (the bias, or the density head's weights as float32),
-// `gden` the density cotangents of the warp group's points. The bits are
-// kept one per accumulator element, in the thread's own order
-// (mask[w * CONSUMERS], w < NACC / 32). Pairs of columns go through packed
-// bf16: relu(bf16(x)) = bf16(relu(x)); bf16 x > 0 is its 16-bit pattern
-// read as a positive integer; a masked entry keeps only its sign bit, as
-// x * 0 does for finite x.
-enum EpilogueMode { FWD, BWD, BWD_DENSITY };
+// The accumulator into the warp group's rows of the activation buffer. The
+// forward is nerf_mlp_tile.cuh's epilogue_fwd, bf16(relu(acc + vec[col]))
+// with the ReLU bits stored. The backward takes one of two modes fixed at
+// compile time (so that nothing branches per element): BWD, bf16(acc) times
+// the ReLU bits; BWD_DENSITY, bf16(bf16(acc) + bf16(gden[row] * vec[col]))
+// times the bits. `vec` is the layer's vector in shared memory (the bias,
+// or the density head's weights as float32), `gden` the density cotangents
+// of the warp group's points. The bits are kept one per accumulator element,
+// in the thread's own order (mask[w * CONSUMERS], w < NACC / 32); a masked
+// entry keeps only its sign bit, as x * 0 does for finite x.
+enum EpilogueMode { BWD, BWD_DENSITY };
 
 template <int MODE, int NACC>
-__device__ __forceinline__ void epilogue_mode(float (&acc)[NACC], bool relu, uint32_t* mask, const float* vec,
-                                              const float* gden, unsigned char* act_wg) {
+__device__ __forceinline__ void epilogue_bwd(float (&acc)[NACC], uint32_t* mask, const float* vec, const float* gden,
+                                             unsigned char* act_wg) {
   const int t = threadIdx.x & (WG - 1);
   const uint32_t act_s = smem_u32(act_wg);
-  const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.0f, 0.0f);
   uint32_t bits[NACC / 32];
 #pragma unroll
-  for (int w = 0; w < NACC / 32; ++w) bits[w] = MODE == FWD ? 0u : (mask != nullptr ? mask[w * CONSUMERS] : ~0u);
+  for (int w = 0; w < NACC / 32; ++w) bits[w] = mask != nullptr ? mask[w * CONSUMERS] : ~0u;
   const float gd0 = MODE == BWD_DENSITY ? gden[acc_row(t, 0) * VEC] : 0.f;
   const float gd1 = MODE == BWD_DENSITY ? gden[acc_row(t, 2) * VEC] : 0.f;
 #pragma unroll
@@ -323,10 +250,7 @@ __device__ __forceinline__ void epilogue_mode(float (&acc)[NACC], bool relu, uin
     for (int h = 0; h < 2; ++h) {
       const int row = acc_row(t, 2 * h), j = 4 * i + 2 * h;
       __nv_bfloat162 o;
-      if (MODE == FWD) {
-        o = __floats2bfloat162_rn(__fadd_rn(acc[j], a.x), __fadd_rn(acc[j + 1], a.y));
-        if (relu) o = __hmax2(o, zero2);
-      } else if (MODE == BWD_DENSITY) {
+      if (MODE == BWD_DENSITY) {
         const float gd = h == 0 ? gd0 : gd1;
         o = __floats2bfloat162_rn(__fadd_rn(round_bf16(acc[j]), round_bf16(__fmul_rn(gd, a.x))),
                                   __fadd_rn(round_bf16(acc[j + 1]), round_bf16(__fmul_rn(gd, a.y))));
@@ -334,19 +258,10 @@ __device__ __forceinline__ void epilogue_mode(float (&acc)[NACC], bool relu, uin
         o = __floats2bfloat162_rn(acc[j], acc[j + 1]);
       }
       uint32_t w = *reinterpret_cast<const uint32_t*>(&o);
-      if (MODE == FWD) {
-        bits[j >> 5] |= (uint32_t)((int)(w << 16) > 0) << (j & 31);
-        bits[j >> 5] |= (uint32_t)((int)w >= 0x10000) << ((j + 1) & 31);
-      } else {
-        const uint32_t b2 = bits[j >> 5] >> (j & 31);  // this pair's bits at 0 and 1
-        w &= 0x80008000u | (((b2 & 1u) | ((b2 & 2u) << 15)) * 0x7fffu);
-      }
+      const uint32_t b2 = bits[j >> 5] >> (j & 31);  // this pair's bits at 0 and 1
+      w &= 0x80008000u | (((b2 & 1u) | ((b2 & 2u) << 15)) * 0x7fffu);
       st_shared_b32(act_s + (c >> 6) * CHUNK_BYTES + sw128_offset(row, c & 63), w);
     }
-  }
-  if (MODE == FWD && mask != nullptr) {
-#pragma unroll
-    for (int w = 0; w < NACC / 32; ++w) mask[w * CONSUMERS] = bits[w];
   }
 }
 
@@ -354,43 +269,14 @@ template <int NACC>
 __device__ __forceinline__ void epilogue(float (&acc)[NACC], const Epilogue e, const float* vec, const float* gden,
                                          unsigned char* act_wg) {
   if (e.fwd)
-    epilogue_mode<FWD>(acc, e.relu, e.mask, vec, gden, act_wg);
+    epilogue_fwd(acc, e.relu, e.mask, vec, act_wg);
   else if (e.add)
-    epilogue_mode<BWD_DENSITY>(acc, false, e.mask, vec, gden, act_wg);
+    epilogue_bwd<BWD_DENSITY>(acc, e.mask, vec, gden, act_wg);
   else
-    epilogue_mode<BWD>(acc, false, e.mask, vec, gden, act_wg);
-}
-
-// The bf16 embedding of the warp group's 64 points, embed_value(x, c, nf,
-// app) for c < 64 (zero past the embedding's width), into the swizzled chunk
-// `emb_wg`, and its first `width` columns (a multiple of 8) into the
-// activation stash at column `col`.
-__device__ __forceinline__ void embed_rows(const TileArgs& p, const float* vec_wg, int v_off, int nf, int app,
-                                           int width, unsigned char* emb_wg, int col, int row0g) {
-  const int t = threadIdx.x & (WG - 1);
-  const int units = 8;
-  const uint32_t emb_s = smem_u32(emb_wg);
-  for (int u = t; u < 64 * units; u += WG) {
-    const int r = u / units, cu = u - r * units;
-    const float* x = vec_wg + r * VEC + v_off;
-    uint32_t w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat162 pair = __floats2bfloat162_rn(nerf_mlp::embed_value(x, cu * 8 + 2 * e, nf, app),
-                                                        nerf_mlp::embed_value(x, cu * 8 + 2 * e + 1, nf, app));
-      w[e] = *reinterpret_cast<const uint32_t*>(&pair);
-    }
-    const uint4 packed = make_uint4(w[0], w[1], w[2], w[3]);
-    st_shared_v4(emb_s + sw128_offset(r, cu * 8), packed);
-    if (row0g + r < p.n_points && cu * 8 < width)
-      *reinterpret_cast<uint4*>(stash_at(p.sa_ptr, p.n_points, row0g + r, col + cu * 8)) = packed;
-  }
+    epilogue_bwd<BWD>(acc, e.mask, vec, gden, act_wg);
 }
 
 // ---- pass 1 ---------------------------------------------------------------
-
-// What a step's vector (the layer's buffer of the vector ring) holds.
-enum VecKind { VEC_NONE, VEC_BIAS, VEC_DENSITY, VEC_HEAD };
 
 // Step s of a tile's chain (2 n_layers + 4 + 2 n_extra steps): the product
 // that makes its accumulator, its epilogue, its vector and the stash block
@@ -492,11 +378,7 @@ __device__ __forceinline__ void tile_producer(const TileArgs& p, Ring& r) {
   const int nl = p.n_layers, ne = p.n_extra;
   const int l_int = nl, l_c0 = nl + 2;
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
-    load_rows(r, &p.w256_fwd, p.wrow[0], 1, 4);
-    for (int l = 1; l < nl; ++l) load_rows(r, &p.w256_fwd, p.wrow[l], ((p.skip_mask >> l) & 1) ? 5 : 4, 4);
-    load_rows(r, &p.w256_fwd, p.wrow[l_int], 4, 4);
-    load_rows(r, &p.w128_fwd, p.wrow[l_c0], 5, 2);
-    for (int e = 0; e < ne; ++e) load_rows(r, &p.w128_fwd, p.wrow[l_c0 + 1 + e], 2, 2);
+    load_forward_slabs<STAGES>(r, &p.w256_fwd, &p.w128_fwd, p.wrow, nl, p.skip_mask, ne);
     for (int e = ne - 1; e >= 0; --e) load_cols(r, &p.w128_bwd, p.wrow[l_c0 + 1 + e], 2);
     load_cols(r, &p.w128_bwd, p.wrow[l_c0], 2);
     load_cols(r, &p.w256_bwd, p.wrow[l_int], 4);
@@ -504,24 +386,9 @@ __device__ __forceinline__ void tile_producer(const TileArgs& p, Ring& r) {
   }
 }
 
-// The vector ring: one buffer per step, two buffers, filled by one warp of
-// the producer warp group ahead of the consumers, so that the epilogues read
-// their bias (or the density or color head's weights) from shared memory.
-struct VecRing {
-  float* buf;  // 2 x VEC_FLOATS
-  uint64_t* full;
-  uint64_t* empty;
-  int idx;
-  uint32_t phase;
-  __device__ __forceinline__ void advance() {
-    if (++idx == 2) {
-      idx = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// One warp: every step's vector, in the consumers' order.
+// The vector ring (nerf_mlp_tile.cuh): one warp fills every step's vector,
+// in the consumers' order, so that the epilogues read their bias (or the
+// density or color head's weights) from shared memory.
 __device__ __forceinline__ void vec_producer(const TileArgs& p, VecRing& v) {
   const int lane = threadIdx.x & 31;
   const int n_steps = 2 * p.n_layers + 4 + 2 * p.n_extra;
@@ -529,15 +396,8 @@ __device__ __forceinline__ void vec_producer(const TileArgs& p, VecRing& v) {
     for (int s = 0; s < n_steps; ++s) {
       const Layer L = layer_of(p, s, nullptr);
       mbar_wait(&v.empty[v.idx], v.phase ^ 1);
-      float* dst = v.buf + v.idx * VEC_FLOATS;
-      if (L.vec_kind == VEC_BIAS) {
-        for (int c = lane; c < L.n; c += 32) dst[c] = p.b[L.vec_tensor][c];
-      } else if (L.vec_kind == VEC_DENSITY) {
-        for (int c = lane; c < H; c += 32) dst[c] = __bfloat162float(p.w[L.vec_tensor][c]);
-      } else if (L.vec_kind == VEC_HEAD) {  // W_last (HD x C, bf16), then its bias at float H
-        for (int c = lane; c < HD * p.color_dim; c += 32) reinterpret_cast<bf16*>(dst)[c] = p.w[L.vec_tensor][c];
-        for (int c = lane; c < p.color_dim; c += 32) dst[H + c] = p.b[L.vec_tensor][c];
-      }
+      fill_vec(v.buf + v.idx * VEC_FLOATS, L.vec_kind, L.n, p.w[L.vec_tensor],
+               L.vec_kind == VEC_DENSITY ? nullptr : p.b[L.vec_tensor], p.color_dim, lane);
       mbar_arrive(&v.full[v.idx]);
       v.advance();
     }
@@ -556,22 +416,8 @@ __device__ __forceinline__ void color_head(const TileArgs& p, float (&acc)[64], 
   const bf16* wl = reinterpret_cast<const bf16*>(vec);
   {
     const int rr = t >> 1, half = t & 1;
-    float s[MAXC] = {0.f, 0.f, 0.f, 0.f};
-    for (int u = 0; u < 8; ++u) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(act_wg + half * CHUNK_BYTES + sw128_offset(rr, u * 8));
-      const bf16* a8 = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int k = half * 64 + u * 8 + e;
-        const float a = __bfloat162float(a8[e]);
-#pragma unroll
-        for (int c = 0; c < MAXC; ++c)
-          if (c < C) s[c] = __fmaf_rn(a, __bfloat162float(wl[k * C + c]), s[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c)
-      if (c < C) s[c] = __fadd_rn(s[c], __shfl_xor_sync(0xffffffffu, s[c], 1));
+    float s[MAXC];
+    color_logits(act_wg, wl, C, s);
     if (half == 0) {
       float* v = vec_wg + rr * VEC;
       const float* bl = vec + H;
@@ -582,7 +428,7 @@ __device__ __forceinline__ void color_head(const TileArgs& p, float (&acc)[64], 
       for (int c = 0; c < MAXC; ++c) {
         gz[c] = 0.f;
         if (c < C) {
-          const float col = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-__fadd_rn(s[c], bl[c]))));
+          const float col = sigmoid_rn(s[c], bl[c]);
           gz[c] = round_bf16(__fmul_rn(__fmul_rn(v[V_G + 1 + c], col), __fsub_rn(1.0f, col)));
         }
         v[V_GZ + c] = gz[c];
@@ -628,30 +474,15 @@ __device__ __forceinline__ void tile_consumer(const TileArgs& p, Ring& r, VecRin
     if (t < 64) {
       const int gi = row0g + t;
       float* pv = vec_wg + t * VEC;
-      float x0 = 0.f, x1 = 0.f, x2 = 0.f, d0 = 0.f, d1 = 0.f, d2 = 0.f;
+      load_point(p.points, p.dirs, p.n_points, p.pts_per_ray, gi, pv + V_PTS, pv + V_DN);
       for (int c = 0; c <= MAXC; ++c) pv[V_G + c] = 0.f;
-      if (gi < p.n_points) {
-        x0 = p.points[3 * gi];
-        x1 = p.points[3 * gi + 1];
-        x2 = p.points[3 * gi + 2];
-        const int ray = gi / p.pts_per_ray;
-        d0 = p.dirs[3 * ray];
-        d1 = p.dirs[3 * ray + 1];
-        d2 = p.dirs[3 * ray + 2];
+      if (gi < p.n_points)
         for (int c = 0; c <= p.color_dim; ++c) pv[V_G + c] = p.g[(size_t)gi * (1 + p.color_dim) + c];
-      }
-      const float sq = __fmaf_rn(d2, d2, __fmaf_rn(d0, d0, __fmul_rn(d1, d1)));
-      const float nrm = sqrtf(fmaxf(sq, 1e-24f));
-      pv[V_PTS] = x0;
-      pv[V_PTS + 1] = x1;
-      pv[V_PTS + 2] = x2;
-      pv[V_DN] = __fdiv_rn(d0, nrm);
-      pv[V_DN + 1] = __fdiv_rn(d1, nrm);
-      pv[V_DN + 2] = __fdiv_rn(d2, nrm);
     }
     named_bar_sync(1 + wg, WG);
-    embed_rows(p, vec_wg, V_PTS, p.nf_xyz, p.app_xyz, KX_MAX, emb_wg, a_emb(), row0g);
+    embed_pairs<true, VEC>(vec_wg, V_PTS, 64, p.nf_xyz, p.app_xyz, a_emb_wg, KX_MAX, t, WG);
     end_write(wg);
+    stash_embedding(p, emb_wg, KX_MAX, a_emb(), row0g);
 
     // the recomputed forward, then the backward chain; every layer's output stashed
     for (int s = 0; s < n_steps; ++s) {
@@ -673,18 +504,15 @@ __device__ __forceinline__ void tile_consumer(const TileArgs& p, Ring& r, VecRin
         epilogue(acc64(acc), L.e, lvec, vec_wg + V_GDEN, act_wg);
       }
       // the xyz embedding's last reader is done: the dir embedding takes its place
-      if (L.demb) embed_rows(p, vec_wg, V_DN, p.nf_dir, p.app_dir, KD_MAX, emb_wg, a_demb(p.n_layers), row0g);
+      if (L.demb) embed_pairs<true, VEC>(vec_wg, V_DN, 64, p.nf_dir, p.app_dir, a_emb_wg, KX_MAX, t, WG);
       end_write(wg);
+      if (L.demb) stash_embedding(p, emb_wg, KD_MAX, a_demb(p.n_layers), row0g);
       if ((threadIdx.x & 31) == 0) mbar_arrive(&v.empty[v.idx]);
       v.advance();
       stash_rows(L.stash_g ? &p.sg : &p.sa, act_wg, L.n / 64, L.col, row0g);
     }
   }
   if (t == 0) bulk_wait();
-}
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
 __global__ void __launch_bounds__(THREADS, 1) tile_kernel(const __grid_constant__ TileArgs p) {
@@ -902,7 +730,7 @@ __global__ void __launch_bounds__(THREADS, 1) layer_check_kernel(const __grid_co
   if (threadIdx.x >= CONSUMERS) {
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == CONSUMERS) {
-      load_rows(r, &p.w_fwd, 0, 4, 4);
+      load_rows<STAGES>(r, &p.w_fwd, 0, 4, 4);
       load_cols(r, &p.w_bwd, 0, 4);
     }
   } else {
@@ -919,12 +747,12 @@ __global__ void __launch_bounds__(THREADS, 1) layer_check_kernel(const __grid_co
     end_write(wg);
     named_bar_sync(3, CONSUMERS);  // the zero bias is written
     float acc[128];
-    gemm_tb<1>(acc, r, smem_u32(act_wg), 4, 0, 4);
+    gemm_tb<1, STAGES>(acc, r, smem_u32(act_wg), 4, 0, 4);
     begin_write(wg);
     epilogue(acc, Epilogue{true, false, true, nullptr}, zero_bias, nullptr, act_wg);
     end_write(wg);
     stash_rows(&p.y, act_wg, 4, 0, wg * 64);
-    gemm_tb<0>(acc, r, smem_u32(act_wg), 4, 0, 4);
+    gemm_tb<0, STAGES>(acc, r, smem_u32(act_wg), 4, 0, 4);
     begin_write(wg);
     epilogue(acc, Epilogue{false, false, false, nullptr}, nullptr, nullptr, act_wg);
     end_write(wg);
@@ -940,15 +768,18 @@ int set_smem(const void* kernel, int bytes) {
 }  // namespace
 
 // Launches the three passes on `stream` and returns the first CUDA error (0
-// on success). `w_off`/`b_off` are host arrays of element offsets into the
-// packed bf16 weights and float32 biases, one per tensor in kernel order (xyz
-// layers, intermediate, density, color layers); the gradients come out in
+// on success). `w_off`/`b_off`/`w_rows` are host arrays (int64), one per
+// tensor in kernel order (xyz layers, intermediate, density, color layers):
+// the element offsets into the packed bf16 weights and float32 biases, and
+// the first row of each matrix in its tensor map's view
+// (ops/kernels/nerf_mlp_fwd.py::weight_rows); the gradients come out in
 // the same layout in `out` ([weights | biases], float32). `jobs` is the host
 // array of pass 2's plan, JOB_FIELDS ints per job (weight_grad_jobs). The
 // caller allocates the stashes ((lda / 64, n_points, 64) and (ldg / 64, n_points, 64) bf16) and the
 // zeroed partials (n_split x (w_total + b_total)).
 extern "C" int nerf_mlp_bwd_bf16(const void* points, const void* dirs, const void* g, const void* wbuf,
-                                 const void* bbuf, const void* w_off, const void* b_off, void* stash_a, void* stash_g,
+                                 const void* bbuf, const void* w_off, const void* b_off, const void* w_rows,
+                                 void* stash_a, void* stash_g,
                                  void* partials, void* out, const void* jobs, int n_tensors, int n_points,
                                  int pts_per_ray, int n_layers, int skip_mask, int nf_xyz, int app_xyz, int nf_dir,
                                  int app_dir, int n_extra_color, int color_dim, int lda, int ldg, int w_total,
@@ -965,13 +796,11 @@ extern "C" int nerf_mlp_bwd_bf16(const void* points, const void* dirs, const voi
   if (n_points == 0) return 0;
   const long long* wo = static_cast<const long long*>(w_off);
   const long long* bo = static_cast<const long long*>(b_off);
-  const int l_c0 = n_layers + 2;
+  const long long* rows = static_cast<const long long*>(w_rows);
   for (int i = 0; i < n_tensors; ++i) {
     p.w[i] = static_cast<const bf16*>(wbuf) + wo[i];
     p.b[i] = static_cast<const float*>(bbuf) + bo[i];
-    const int width = (i >= l_c0 && i < l_c0 + 1 + n_extra_color) ? HD : H;
-    if (wo[i] % width != 0) return (int)cudaErrorInvalidValue;
-    p.wrow[i] = (int)(wo[i] / width);
+    p.wrow[i] = (int)rows[i];
   }
   p.points = static_cast<const float*>(points);
   p.dirs = static_cast<const float*>(dirs);

@@ -47,15 +47,12 @@ from .nerf_mlp_fwd import (
 # kernel launches since import (or since a caller reset it)
 launches = 0
 
-KERNEL_MAX_LAYERS = 8
-KERNEL_MAX_EXTRA_COLOR = 2
-KERNEL_MAX_COLOR = 4
 STEP = 64  # points per step of the weight-gradient pass
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.nerf_mlp_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     check = lib.nerf_mlp_bwd_layer_check
     check.argtypes = [ctypes.c_void_p] * 5
@@ -227,16 +224,7 @@ def weight_grad_jobs(packed: PackedNerfMlp) -> List[Tuple[int, ...]]:
 
 
 def _check_bwd_inputs(packed: PackedNerfMlp, points, dirs, pts_per_ray: int, g: torch.Tensor) -> None:
-    _check_cuda_inputs(packed, points, dirs, pts_per_ray)
-    if (
-        not 1 <= packed.n_layers <= KERNEL_MAX_LAYERS
-        or packed.n_extra_color > KERNEL_MAX_EXTRA_COLOR
-        or packed.color_dim > KERNEL_MAX_COLOR
-    ):
-        raise NotImplementedError(
-            f"the CUDA backward takes up to {KERNEL_MAX_LAYERS} xyz layers, {KERNEL_MAX_EXTRA_COLOR} extra color "
-            f"layers and {KERNEL_MAX_COLOR} color channels"
-        )
+    _check_cuda_inputs(packed, points, dirs, pts_per_ray)  # the maxima of K1 are K3's
     if (
         g.dtype != torch.float32
         or tuple(g.shape) != (points.shape[0], 1 + packed.color_dim)
@@ -271,8 +259,7 @@ def nerf_mlp_bwd(
     stash_g = torch.empty((ldg // 64, n, 64), dtype=torch.bfloat16, device=device)
     partials = torch.zeros((n_split, w_total + b_total), dtype=torch.float32, device=device)
     out = torch.zeros(w_total + b_total, dtype=torch.float32, device=device)
-    w_off = (ctypes.c_longlong * len(packed.w_offsets))(*packed.w_offsets)
-    b_off = (ctypes.c_longlong * len(packed.b_offsets))(*packed.b_offsets)
+    w_off, b_off, w_rows = packed.launch_tables
     plan = (ctypes.c_longlong * (len(jobs) * len(jobs[0])))(*(f for job in jobs for f in job))
     skip_mask = sum(1 << s for s in packed.input_skips if 0 < s < packed.n_layers)
     with torch.cuda.device(device):
@@ -280,7 +267,8 @@ def nerf_mlp_bwd(
         rc = LIBRARY.library().nerf_mlp_bwd_bf16(
             points.data_ptr(), dirs.data_ptr(), g.data_ptr(),
             packed.flat.data_ptr(), packed.biases_flat.data_ptr(),
-            ctypes.addressof(w_off), ctypes.addressof(b_off), stash_a.data_ptr(), stash_g.data_ptr(),
+            ctypes.addressof(w_off), ctypes.addressof(b_off), ctypes.addressof(w_rows),
+            stash_a.data_ptr(), stash_g.data_ptr(),
             partials.data_ptr(), out.data_ptr(), ctypes.addressof(plan),
             len(packed.w_offsets), n, pts_per_ray, packed.n_layers, skip_mask,
             packed.n_freq_xyz, int(packed.append_xyz), packed.n_freq_dir, int(packed.append_dir),

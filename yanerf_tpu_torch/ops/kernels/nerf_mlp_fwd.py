@@ -5,17 +5,23 @@ Two kernels of one function, as in the JAX package:
     (``nerf_mlp_forward_pallas``): ``csrc/nerf_mlp_fwd.cu``;
   * K2 replaces its pipelined twin ``_nerf_mlp_kernel_pipelined``
     (``nerf_mlp_forward_pallas(..., pipelined=True)``):
-    ``csrc/nerf_mlp_fwd_pipelined.cu``, whose producer warp group embeds the
-    next tile while the consumer warps run the layer chain of the current one.
-Both take their arithmetic from ``csrc/nerf_mlp_fwd.cuh`` and give the same
-bits. The sources' headers say what bounds them on the card (operations)
-and what the designs do about it. As in the JAX package, no config key or
-model flag reaches K2: it is chosen at this entry only.
+    ``csrc/nerf_mlp_fwd_pipelined.cu``, whose idle producer warps embed the
+    next tile while the consumer warp groups run the layer chain of the
+    current one.
+Both run the forward tile engine of ``csrc/nerf_mlp_tile.cuh`` (a persistent
+CTA per SM, a TMA weight ring, wgmma products with register epilogues),
+which K3's tile pass runs too, and give the same bits. The sources' headers
+say what bounds them on the card (operations) and what the design does
+about it. As in the JAX package, no config key or model flag reaches K2:
+it is chosen at this entry only.
 
 * ``pack_weights`` pads the model's weights in kernel order, with K padded
   to multiples of 16 (63 -> 64 for the xyz embedding, 27 -> 32 for the
   direction embedding, the skip layer's embedding rows likewise), and keeps
   them in one flat buffer of the compute dtype. The biases stay float32.
+* ``weight_rows`` is the plan the kernels' tensor maps read: the first row
+  of each packed matrix in the (rows, 256) or (rows, 128) view of the flat
+  buffer.
 * ``nerf_mlp_fwd_plain`` is the plain PyTorch version of the same function.
   It mirrors the Pallas kernel, not the eager model: float32 bias adds after
   float32 accumulation of bf16 products, and ``cos(t)`` as
@@ -31,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -48,13 +55,16 @@ KERNEL_HIDDEN = 256  # xyz hidden width the CUDA kernel is compiled for
 KERNEL_HIDDEN_DIR = 128  # color hidden width the CUDA kernel is compiled for
 KERNEL_MAX_K_XYZ = 64
 KERNEL_MAX_K_DIR = 32
+KERNEL_MAX_LAYERS = 8  # the maxima of csrc/nerf_mlp_tile.cuh, shared by K1, K2 and K3
+KERNEL_MAX_EXTRA_COLOR = 2
+KERNEL_MAX_COLOR = 4
 _ALIGN = 64  # every packed tensor starts on a 64-element (128-byte) boundary
 
 
 def _binder(entry: str):
     def bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
     return bind
@@ -99,6 +109,12 @@ class PackedNerfMlp:
     def k_dir(self) -> int:
         return _round_up(3 * (2 * self.n_freq_dir + int(self.append_dir)), 16)
 
+    @functools.cached_property
+    def launch_tables(self):
+        """``(w_off, b_off, w_rows)`` as the host int64 arrays the kernels' entry points take, made once."""
+        tables = (self.w_offsets, self.b_offsets, weight_rows(self))
+        return tuple((ctypes.c_longlong * len(t))(*t) for t in tables)
+
 
 def kernel_layers(model) -> List:
     """The NeRFMLP's linear layers in kernel order: xyz layers, intermediate, density, color layers."""
@@ -120,6 +136,28 @@ def _embedding_rows(model, i: int) -> Optional[Tuple[int, int, int]]:
     if i == model.n_layers + 2:
         return h, model.embedding_dim_dir, _round_up(model.embedding_dim_dir, 16)
     return None
+
+
+def weight_rows(packed: PackedNerfMlp) -> Tuple[int, ...]:
+    """First row of each packed tensor (kernel order) in the view of ``packed.flat`` its tensor map reads.
+
+    The kernels read the xyz layers and the intermediate as row slabs of the
+    ``(rows, 256)`` view and the color layers of the ``(rows, 128)`` view of
+    the buffer's whole rows: tensor ``i`` of width ``w`` is rows
+    ``row .. row + K`` of ``packed.flat[: numel // w * w].view(-1, w)``. The
+    two heads (density, color), read by the threads, get -1.
+    """
+    nl, ne = packed.n_layers, packed.n_extra_color
+    rows = []
+    for i, (w, off) in enumerate(zip(packed.weights, packed.w_offsets)):
+        if i in (nl + 1, nl + 3 + ne):
+            rows.append(-1)
+            continue
+        width = w.shape[1]
+        if off % width:
+            raise ValueError(f"packed tensor {i} starts at {off}, not on a row of the ({width}-wide) view")
+        rows.append(off // width)
+    return tuple(rows)
 
 
 def unpad_weight(model, i: int, w: torch.Tensor) -> torch.Tensor:
@@ -269,6 +307,16 @@ def _check_cuda_inputs(packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.
             f"the CUDA kernel takes embeddings up to {KERNEL_MAX_K_XYZ}/{KERNEL_MAX_K_DIR} wide, "
             f"got {packed.k_xyz}/{packed.k_dir}"
         )
+    if (
+        not 1 <= packed.n_layers <= KERNEL_MAX_LAYERS
+        or packed.n_extra_color > KERNEL_MAX_EXTRA_COLOR
+        or not 1 <= packed.color_dim <= KERNEL_MAX_COLOR
+    ):
+        raise NotImplementedError(
+            f"the CUDA kernels take up to {KERNEL_MAX_LAYERS} xyz layers, {KERNEL_MAX_EXTRA_COLOR} extra color "
+            f"layers and {KERNEL_MAX_COLOR} color channels, got {packed.n_layers}, {packed.n_extra_color} and "
+            f"{packed.color_dim}"
+        )
     for name, t in (("points", points), ("dirs", dirs)):
         if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 3 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 (n, 3) tensor, got {tuple(t.shape)} {t.dtype}")
@@ -297,8 +345,7 @@ def nerf_mlp_fwd(
     _check_cuda_inputs(packed, points, dirs, pts_per_ray)
     n = points.shape[0]
     out = torch.empty((n, 1 + packed.color_dim), dtype=torch.float32, device=points.device)
-    w_off = (ctypes.c_longlong * len(packed.w_offsets))(*packed.w_offsets)
-    b_off = (ctypes.c_longlong * len(packed.b_offsets))(*packed.b_offsets)
+    w_off, b_off, w_rows = packed.launch_tables
     skip_mask = sum(1 << s for s in packed.input_skips if 0 < s < packed.n_layers)
     entry = (
         PIPELINED_LIBRARY.library().nerf_mlp_fwd_pipelined_bf16 if pipelined else LIBRARY.library().nerf_mlp_fwd_bf16
@@ -308,10 +355,10 @@ def nerf_mlp_fwd(
         rc = entry(
             points.data_ptr(), dirs.data_ptr(), out.data_ptr(),
             packed.flat.data_ptr(), packed.biases_flat.data_ptr(),
-            ctypes.addressof(w_off), ctypes.addressof(b_off), len(packed.w_offsets),
+            ctypes.addressof(w_off), ctypes.addressof(b_off), ctypes.addressof(w_rows), len(packed.w_offsets),
             n, pts_per_ray, packed.n_layers, skip_mask,
             packed.n_freq_xyz, int(packed.append_xyz), packed.n_freq_dir, int(packed.append_dir),
-            packed.n_extra_color, packed.color_dim, stream,
+            packed.n_extra_color, packed.color_dim, packed.flat.numel(), stream,
         )
     if rc != 0:
         name = "nerf_mlp_fwd_pipelined" if pipelined else "nerf_mlp_fwd"
