@@ -42,11 +42,22 @@ the card's name and power limit:
              and train each configuration on it through
              ``python -m yanerf_tpu_torch.run`` with ``use_pallas_train`` on
              every NeRFMLP (32 proposal steps, 16 classic steps with density
-             noise 0.2 and pixels drawn without replacement): K1 and K3
+             noise 0.2 and pixels drawn without replacement), per step
+             (``steps_per_call=1``): K1 and K3
              launched exactly once per step and NeRFMLP, the objective
              finite at every step, every parameter moved, the final
              checkpoint reloads to the same parameters, Adam state and step;
-  6. step    for each configuration, one train step from the same weights,
+  6. fused   the proposal CLI with ``steps_per_call=20`` on a 40-frame
+             scene with the device cache, 80 steps (two epochs of two whole
+             groups of 20 after the first step's vis): one captured CUDA
+             graph of the whole train step replayed per step, K1 and K3
+             counted once per replay; then the same run twice with
+             ``steps_per_call=1`` from the same start. The fused run must
+             equal the per-step run bit for bit (parameters and Adam
+             state) when the two per-step runs equal each other; both
+             ``step_s``, the capture seconds and the largest parameter
+             differences are printed;
+  7. step    for each configuration, one train step from the same weights,
              batch and draws with the fused kernels and with the eager
              model: the objectives agree within 1e-2 relative and each
              NeRF-MLP's gradients at a cosine >= 0.999 (the two bf16
@@ -98,6 +109,9 @@ K3_REL_ATOL = 5e-2  # of the tensor's largest entry
 TRAIN_FRAMES, TEST_FRAMES = 4, 1  # 800x800 frames of the procedural scene
 TRAIN_STEPS = 32  # proposal: 8 epochs of 4 frames
 CLASSIC_TRAIN_STEPS = 16  # classic: 4 epochs of 4 frames
+FUSED_STEPS_PER_CALL = 20  # lego_proposal.yml's steps_per_call
+FUSED_TRAIN_FRAMES = 40  # an epoch: the vis step, then groups of 20 and 19 (epoch 0) or two of 20
+FUSED_TRAIN_STEPS = 80  # two epochs
 DEVICE = "cuda"
 STEP_OBJECTIVE_RTOL = 1e-2
 STEP_MIN_GRAD_COSINE = 0.999
@@ -448,15 +462,15 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
     steps = TRAIN_STEPS if steps is None else steps
     keys = nerf_mlp_keys(config)
     argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir), "--cfg_options",
-            *(f"{key}.use_pallas_train=True" for key in keys), f"runner.num_iters={steps}",
+            *(f"{key}.use_pallas_train=True" for key in keys), f"runner.num_iters={steps}", "runner.steps_per_call=1",
             *(f"datasets.{i}.base_dir={scene}" for i in range(3))]
     # observe the run: the parameters it starts from and every step's objective
     objectives, initial = [], {}
     make_train_step = runners.make_train_step
 
-    def observed(pipeline, runner_config, seed):
+    def observed(pipeline, runner_config, seed, **kwargs):
         initial.update({k: p.detach().clone() for k, p in pipeline.named_parameters()})
-        step = make_train_step(pipeline, runner_config, seed)
+        step = make_train_step(pipeline, runner_config, seed, **kwargs)
 
         def wrapped(state, batch, draws=None):
             preds = step(state, batch, draws)
@@ -515,43 +529,79 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
     return numbers, launches
 
 
-def step_draws(torch, cfg, n_pixels: int, gen) -> dict:
-    """The random draws of one train step of ``cfg``'s pipeline, from ``gen``, as ``draws`` takes them."""
-    sampler, renderer = cfg.pipeline.ray_sampler, cfg.pipeline.renderer
-    n_rays, n_pts = sampler.n_rays_per_image_sampled_from_mask, sampler.n_pts_per_ray_training
+def fused_train(torch, K1, K3, scene: Path, out_dir: Path):
+    """The proposal CLI with ``steps_per_call=20`` (fused) and twice with 1 (per step), from the same start."""
+    from yanerf_tpu_torch import run
+    from yanerf_tpu_torch.ops.kernels import launch_count
 
-    def rand(n, normal=False):
-        draw = torch.randn if normal else torch.rand
-        return draw(1, n_rays, 1, n, generator=gen, device=DEVICE)
+    def cli(name: str, steps_per_call: int):
+        argv = ["--config", str(CONFIG), "--device", DEVICE, "--output_dir", str(out_dir / name), "--cfg_options",
+                *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(CONFIG)),
+                f"runner.num_iters={FUSED_TRAIN_STEPS}", f"runner.steps_per_call={steps_per_call}",
+                *(f"datasets.{i}.base_dir={scene}" for i in range(3))]
+        sync(torch)
+        K1.launches = K1.pipelined_launches = K3.launches = 0
+        t = time.perf_counter()
+        result = run.main(argv)
+        sync(torch)
+        run_s = time.perf_counter() - t
+        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                    "nerf_mlp_bwd": K3.launches}
+        return result, launches, run_s
 
-    if sampler.get("pixel_replacement", False):
-        pixel_idx = torch.randint(0, n_pixels, (1, n_rays), generator=gen, device=DEVICE)
-    else:
-        pixel_idx = torch.randperm(n_pixels, generator=gen, device=DEVICE)[None, :n_rays]
-    draws = {"pixel_idx": pixel_idx, "strata_u": rand(n_pts)}
-    noisy = renderer.get("density_noise_std_train", 0.0) > 0.0
-    if renderer.type == "MultipassEmissionAbsorpsionRenderer":
-        n_fine = renderer.get("n_pts_per_ray_fine_training", 64)
-        model = cfg.pipeline.model
-        n_passes = cfg.pipeline.num_passes if isinstance(model, dict) else len(model)
-        draws["pdf_u"] = [rand(n_fine) for _ in range(n_passes - 1)]
-        append = renderer.get("append_coarse_samples_to_fine", True)
-        per_pass = [n_pts + k * n_fine if append else (n_fine if k else n_pts) for k in range(n_passes)]
-        if noisy:
-            draws["density_noise"] = [rand(n, normal=True) for n in per_pass]
-    else:
-        finals = [*renderer.n_pts_per_ray_intermediate_training, renderer.n_pts_per_ray_final_training]
-        draws["pdf_u"] = [rand(n) for n in finals]
-        if noisy:
-            draws["density_noise"] = [rand(finals[-1], normal=True)]
-    return draws
+    def gap(a, b):
+        """(bit-equal parameters and Adam moments, largest parameter difference) of two runs' final states."""
+        pa, pb = dict(a["state"].pipeline.named_parameters()), dict(b["state"].pipeline.named_parameters())
+        sa, sb = a["state"].optimizer.state_dict()["state"], b["state"].optimizer.state_dict()["state"]
+        equal = all(torch.equal(pa[k], pb[k]) for k in pa) and all(
+            torch.equal(sa[i][m], sb[i][m]) for i in sa for m in ("exp_avg", "exp_avg_sq"))
+        return equal, max(float((pa[k].detach() - pb[k].detach()).abs().max()) for k in pa)
+
+    fused, fused_launches, fused_run_s = cli("fused", FUSED_STEPS_PER_CALL)
+    trainer = fused["train_step_fused"]
+    torch.cuda.empty_cache()
+    per_step, per_step_launches, per_step_run_s = cli("per_step", 1)
+    torch.cuda.empty_cache()
+    again, _, _ = cli("per_step_again", 1)
+    per_step_equal, per_step_gap = gap(per_step, again)
+    fused_equal, fused_gap = gap(fused, per_step)
+    tally = launch_count.per_replay(trainer.tally) if trainer.tally is not None else {}
+    n_mlps = sum(int(getattr(fn, "use_pallas_train", False)) for fn in fused["state"].pipeline.implicit_functions)
+    step_s = {"fused": [s.get("step_s") for s in fused["train_stats"]],
+              "per_step": [s.get("step_s") for s in per_step["train_stats"]]}
+    on_card = DEVICE == "cuda"
+    checks = {
+        # on the card a captured graph, on the CPU (the tests) the same step uncaptured
+        "fused_path_ran": trainer is not None and (trainer.graph is not None) == on_card
+        and trainer.dispatches >= FUSED_TRAIN_STEPS // FUSED_STEPS_PER_CALL
+        and FUSED_STEPS_PER_CALL in trainer.seen_group_sizes,
+        "steps": fused["state"].step == per_step["state"].step == FUSED_TRAIN_STEPS,
+        "launches_per_replay": tally == {"nerf_mlp_fwd.launches": n_mlps, "nerf_mlp_bwd.launches": n_mlps}
+        if on_card else trainer.tally is None,
+        "k1_k3_per_step": fused_launches["nerf_mlp_fwd"] == fused_launches["nerf_mlp_bwd"]
+        == n_mlps * FUSED_TRAIN_STEPS == per_step_launches["nerf_mlp_fwd"],
+        # bit for bit where the per-step loop itself is; otherwise no further than it is from itself
+        "equal_to_per_step": fused_equal if per_step_equal else fused_gap <= per_step_gap,
+        "test_metrics_finite": all(math.isfinite(v) for v in fused["test_stats"].values()),
+    }
+    numbers = dict(
+        config=CONFIG.name, steps=FUSED_TRAIN_STEPS, steps_per_call=FUSED_STEPS_PER_CALL, train_frames=FUSED_TRAIN_FRAMES,
+        dispatches=trainer.dispatches, fused_steps=trainer.steps, group_sizes=sorted(trainer.seen_group_sizes),
+        capture_s=trainer.capture_s, launches_per_replay=tally, step_s=step_s,
+        fused_ms_per_step=1e3 * step_s["fused"][-1], per_step_ms_per_step=1e3 * step_s["per_step"][-1],
+        run_s={"fused": fused_run_s, "per_step": per_step_run_s}, launches=fused_launches,
+        per_step_runs_bit_equal=per_step_equal, per_step_max_param_diff=per_step_gap,
+        fused_bit_equal_to_per_step=fused_equal, fused_max_param_diff=fused_gap,
+        test_stats=fused["test_stats"], checks=checks,
+    )
+    return numbers, fused_launches
 
 
 def step_equivalence(torch, scene: Path, config=None):
     """One train step with the fused kernels and with the eager model, same weights, batch and draws."""
     from yanerf_tpu_torch.datasets import BlenderDataset
     from yanerf_tpu_torch.pipelines import PIPELINES, set_nerf_mlp_option
-    from yanerf_tpu_torch.runners import TrainState, create_optimizer, make_train_step, prepare_batch
+    from yanerf_tpu_torch.runners import TrainState, create_optimizer, make_step_draws, make_train_step, prepare_batch
     from yanerf_tpu_torch.utils import Config
 
     config = CONFIG if config is None else config
@@ -559,8 +609,8 @@ def step_equivalence(torch, scene: Path, config=None):
     set_nerf_mlp_option(cfg, "use_pallas_train", True)
     dataset = BlenderDataset(scene, "train")
     batch = prepare_batch(tuple(x[None] for x in dataset[0]), dataset.data_wrapper, torch.device(DEVICE))
-    draws = step_draws(torch, cfg, dataset.H * dataset.W, torch.Generator(device=DEVICE).manual_seed(3))
     kernel_pipe = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(5), device=DEVICE)
+    draws = make_step_draws(kernel_pipe, 1, seed=3, step=0)
     eager_pipe = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(5), device=DEVICE)
     eager_pipe.load_state_dict(kernel_pipe.state_dict())
     nerf_mlps = [i for i, fn in enumerate(kernel_pipe.implicit_functions) if getattr(fn, "use_pallas_train", False)]
@@ -680,6 +730,16 @@ def main() -> int:
             if not all(numbers["checks"].values()):
                 raise SystemExit(f"{name} train phase failed: {numbers['checks']}")
             torch.cuda.empty_cache()
+            if name == "proposal":
+                t = time.perf_counter()
+                fused_scene = write_scene(Path(tmp) / "fused_scene", hw=800, n_train=FUSED_TRAIN_FRAMES, n_val=1,
+                                          n_test=TEST_FRAMES, seed=1)
+                fused_numbers, train_launches["proposal_fused"] = fused_train(torch, K1, K3, fused_scene,
+                                                                              Path(tmp) / "results_fused")
+                say(card_line, "fused", scene_write_s=time.perf_counter() - t, **fused_numbers)
+                if not all(fused_numbers["checks"].values()):
+                    raise SystemExit(f"fused phase failed: {fused_numbers['checks']}")
+                torch.cuda.empty_cache()
             step = step_equivalence(torch, scene, config)
             say(card_line, "step", **step)
             if not all(step["checks"].values()):
@@ -698,7 +758,9 @@ def main() -> int:
     def by_path(kernel):
         paths = {f"{name}_serve": launches[kernel] for name, launches in serve_launches.items()}
         paths["classic_frame"] = classic_frame_launches.get(kernel, 0)
-        paths.update({f"{name}_train": launches[kernel] for name, launches in train_launches.items()})
+        paths.update({f"{name}_train": launches[kernel] for name, launches in train_launches.items()
+                      if name != "proposal_fused"})
+        paths["proposal_train_fused"] = train_launches["proposal_fused"][kernel]
         return paths
 
     record = {

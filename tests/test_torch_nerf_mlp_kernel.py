@@ -122,12 +122,15 @@ def test_model_switch_routes_cpu_tensors_to_the_plain_version():
 def test_packed_weights_are_cached_until_a_parameter_changes():
     model = MODELS.build(dict(_small_cfg(), use_pallas=True))
     first = model.packed_weights()
+    flat = first.flat.clone()
     assert model.packed_weights() is first
     with torch.no_grad():
         model.density_layer.b.add_(1.0)
     second = model.packed_weights()
-    assert second is not first
+    # repacked in place: the same buffers, at the same addresses, with the new values
+    assert second is first and second.biases_flat.data_ptr() == first.biases_flat.data_ptr()
     assert float(second.biases[model.n_layers + 1][0]) == float(model.density_layer.b.detach()[0])
+    assert torch.equal(second.flat, flat)
 
 
 def test_build_cache_key_covers_included_headers(tmp_path):

@@ -112,6 +112,8 @@ def test_training_mode_is_the_next_slice():
     with pytest.raises(NotImplementedError, match="mask"):
         pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING,
                  mask_crop=torch.ones(1, HW, HW))
-    with pytest.raises(NotImplementedError, match="scatter_rays_to_image"):
-        pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING,
-                 output_rasterized_mc=True)
+    # the training vis's rasterization is ported: the Monte-Carlo samples land on the image grid
+    preds = pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING,
+                     output_rasterized_mc=True, generator=torch.Generator().manual_seed(0))
+    assert tuple(preds["rendered_images"].shape) == (1, HW, HW, 3)
+    assert tuple(preds["rendered_depths"].shape) == (1, HW, HW, 1)

@@ -148,6 +148,10 @@ def test_cuda_without_a_gpu_raises():
 
 
 def test_render_service_rejects_non_npz_checkpoints(tmp_path):
+    """Besides an .npz, only a checkpoint of the port's runner is read (tests/test_torch_runner.py)."""
     cfg = Config({"pipeline": PIPELINE_CFG})
-    with pytest.raises(ValueError, match="npz"):
+    with pytest.raises(FileNotFoundError):
         service_from_config(cfg, checkpoint=str(tmp_path / "ckpts_-001"), device="cpu")
+    torch.save({"model": {}}, tmp_path / "other.pth")
+    with pytest.raises(KeyError, match="params"):
+        service_from_config(cfg, checkpoint=str(tmp_path / "other.pth"), device="cpu")

@@ -420,7 +420,10 @@ def test_run_trains_checkpoints_and_resumes_on_the_cpu(tmp_path):
     assert "test_loss_rgb_psnr" in json.loads((out / "test_stats.json").read_text())
     state = result["state"]
     assert state.step == 8
-    assert "fused K-step dispatch is not ported yet" in (out / "run.log").read_text()
+    # steps_per_call=4 on the device cache: the fused dispatch, groups 1-3 after each epoch's vis step
+    assert result["train_step_fused"].dispatches == 2 and result["train_step_fused"].steps == 6
+    assert "fused path is ineligible" not in (out / "run.log").read_text()
+    assert sorted(p.name for p in (out / "visualization" / "train" / "rendered_images").iterdir()) == ["00000", "00001"]
 
     fresh = PIPELINES.build(Config.fromfile(str(out / "config.yml")).pipeline, device="cpu")
     fresh_state = TrainState(pipeline=fresh, optimizer=create_optimizer(RUNNER, fresh), step=0)
@@ -472,3 +475,26 @@ def test_chip_smoke_train_and_step_phases_run_on_the_cpu(tmp_path, monkeypatch):
     assert launches == {"nerf_mlp_fwd": 8, "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 8}
     step = chip_smoke.step_equivalence(torch, tmp_path / "data")
     assert all(step["checks"].values()), step
+
+
+def test_chip_smoke_fused_phase_runs_on_the_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's fused phase at a tiny size: steps_per_call=3 against two per-step runs, 8 steps."""
+    import chip_smoke
+
+    cfg_path = _write_drive(tmp_path)
+    for name, value in (("DEVICE", "cpu"), ("CONFIG", cfg_path), ("FUSED_TRAIN_STEPS", 8),
+                        ("FUSED_STEPS_PER_CALL", 3)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    # CPU tensors take the plain versions, which count no launch: count the calls instead
+    for module, name in ((K1, "nerf_mlp_fwd"), (K3, "nerf_mlp_bwd")):
+
+        def counting(*args, _module=module, _plain=getattr(module, name), **kwargs):
+            _module.launches += 1
+            return _plain(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, counting)
+    numbers, launches = chip_smoke.fused_train(torch, K1, K3, tmp_path / "data", tmp_path / "fused")
+    assert all(numbers["checks"].values()), numbers["checks"]
+    assert numbers["fused_bit_equal_to_per_step"] and numbers["per_step_runs_bit_equal"]
+    assert numbers["dispatches"] == 2 and numbers["group_sizes"] == [3]
+    assert launches == {"nerf_mlp_fwd": 8, "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 8}

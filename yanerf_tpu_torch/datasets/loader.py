@@ -5,21 +5,28 @@ Counterpart of ``yanerf_tpu/datasets/loader.py`` for one process:
     shuffle seeded by ``seed + epoch``, wraparound padding to equal shards)
     with ``world_size`` 1 and ``rank`` 0 unless told otherwise;
   * ``DataLoader`` stacks items into numpy batches (``stack_batch``), on a
-    thread pool when ``num_workers > 1``; the background prefetch queue of
-    the JAX package is not ported;
+    thread pool when ``num_workers > 1``, and with ``num_workers > 0`` on a
+    background thread that keeps ``prefetch_depth`` batches ready, in
+    order; an exception there reaches the consumer;
   * ``DeviceCachedLoader`` stacks the whole dataset once, moves it to the
     GPU and yields per-batch gathers there. With ``quantize_images`` an
     image field is kept as uint8 when that is lossless (every value k/255)
     and decoded through a table of the exact float32 values k/255, so the
     decode reproduces the loaders' ``astype(float32) / 255`` bit for bit.
+    The table is made once per device, so a decode copies nothing from the
+    host (a captured train step gathers and decodes on the card).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Callable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from ..utils import device_constant
 
 _U8_DECODE_TABLE = np.arange(256, dtype=np.float32) / 255.0  # exact k/255 values
 
@@ -83,6 +90,7 @@ class DataLoader:
         is_train: bool,
         num_workers: int = 0,
         collate_fn: Optional[Callable] = None,
+        prefetch_depth: int = 2,
     ) -> None:
         self.dataset = dataset
         self.sampler = sampler
@@ -90,6 +98,7 @@ class DataLoader:
         self.drop_last = bool(is_train)
         self.is_train = is_train
         self.num_workers = max(0, num_workers)
+        self.prefetch_depth = max(1, prefetch_depth)
         self.collate_fn = collate_fn or stack_batch
         self._pool = None
 
@@ -124,23 +133,61 @@ class DataLoader:
         return self.collate_fn(items)
 
     def __iter__(self) -> Iterator[tuple]:
-        for chunk in self._chunks():
-            yield self._load_batch(chunk)
+        chunks = self._chunks()
+        if self.num_workers == 0:
+            for chunk in chunks:
+                yield self._load_batch(chunk)
+            return
+
+        ready: "queue.Queue" = queue.Queue(maxsize=self.prefetch_depth)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # a consumer that stops iterating sets ``stop``: poll, never block on a full queue
+            while not stop.is_set():
+                try:
+                    ready.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce() -> None:
+            try:
+                for chunk in chunks:
+                    if not put(("batch", self._load_batch(chunk))):
+                        return
+                put(("done", None))
+            except Exception as exc:  # handed to the consumer
+                put(("error", exc))
+
+        threading.Thread(target=produce, daemon=True, name="loader-prefetch").start()
+        try:
+            while True:
+                kind, payload = ready.get()
+                if kind == "done":
+                    return
+                if kind == "error":
+                    raise payload
+                yield payload
+        finally:
+            stop.set()
 
 
 def create_sampler(dataset, shuffle: bool, world_size: int = 1, rank: int = 0, seed: int = 0) -> ShardedEpochSampler:
     return ShardedEpochSampler(len(dataset), shuffle=shuffle, world_size=world_size, rank=rank, seed=seed)
 
 
-def create_loader(dataset, sampler, batch_size: int, num_workers: int, is_train: bool, collate_fn=None, **_) -> DataLoader:
+def create_loader(dataset, sampler, batch_size: int, num_workers: int, is_train: bool, collate_fn=None,
+                  prefetch_depth: int = 2, **_) -> DataLoader:
     return DataLoader(dataset, sampler, batch_size=batch_size, is_train=is_train, num_workers=num_workers,
-                      collate_fn=collate_fn)
+                      collate_fn=collate_fn, prefetch_depth=prefetch_depth)
 
 
 def decode_cached_field(a):
     """A uint8 cache field back to float32 k/255 through the exact table; anything else passes through."""
     if isinstance(a, torch.Tensor) and a.dtype == torch.uint8:
-        return torch.as_tensor(_U8_DECODE_TABLE, device=a.device)[a.long()]
+        return device_constant("u8_decode", lambda: _U8_DECODE_TABLE, torch.float32, a.device)[a.long()]
     if isinstance(a, np.ndarray) and a.dtype == np.uint8:
         return _U8_DECODE_TABLE[a]
     return a

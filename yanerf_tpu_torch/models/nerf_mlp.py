@@ -111,16 +111,29 @@ class NeRFMLP(nn.Module):
         self._packed = None  # (key, PackedNerfMlp) of the kernel's weights
 
     # -- the fused kernel's weights -------------------------------------------
-    def packed_weights(self) -> fused.PackedNerfMlp:
-        """The kernel-order, padded weights, packed once per set of parameters.
+    def packed_weights(self, refresh: bool = False) -> fused.PackedNerfMlp:
+        """The kernel-order, padded weights: packed once, then rewritten in place.
 
-        Repacked only when a parameter was replaced or written to in place
-        (``_version``), or the module moved device.
+        The buffers keep their addresses for the module's life on one
+        device: the kernels cache their tensor maps by address, and a
+        captured CUDA graph reads the buffers it was captured with. They are
+        rewritten (``repack_weights_``) when ``refresh`` is set (the
+        training forward, which repacks unconditionally, also inside a
+        captured step where no Python runs) or when a parameter was
+        replaced or written to in place since (``_version``), or after
+        :meth:`params_changed`. A move to another device packs anew.
         """
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._packed is None or self._packed[0] != key:
+        if self._packed is None or self._packed[1].flat.device != self.density_layer.w.device:
             self._packed = (key, fused.pack_weights(self))
+        elif refresh or self._packed[0] != key:
+            self._packed = (key, fused.repack_weights_(self._packed[1], self))
         return self._packed[1]
+
+    def params_changed(self) -> None:
+        """The parameters changed where ``_version`` cannot see it (a graph replay): repack at the next use."""
+        if self._packed is not None:
+            self._packed = (None, self._packed[1])
 
     # -- forward ----------------------------------------------------------------
     def _get_colors(self, features: torch.Tensor, rays_directions: torch.Tensor) -> torch.Tensor:

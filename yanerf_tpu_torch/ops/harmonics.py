@@ -12,6 +12,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import device_constant
+
 
 @lru_cache(maxsize=16)
 def harmonic_frequencies(n_harmonic_functions: int, omega_0: float = 1.0, logspace: bool = True) -> np.ndarray:
@@ -30,7 +32,8 @@ def harmonic_embedding(
     append_input: bool = True,
 ) -> torch.Tensor:
     """Embed ``x (..., D)`` to ``(..., D * (2 * n_harmonic_functions + append))``."""
-    freqs = torch.as_tensor(harmonic_frequencies(n_harmonic_functions, omega_0, logspace), dtype=x.dtype, device=x.device)
+    freqs = device_constant(("harmonics", n_harmonic_functions, omega_0, logspace),
+                            lambda: harmonic_frequencies(n_harmonic_functions, omega_0, logspace), x.dtype, x.device)
     embed = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
     parts = (torch.sin(embed), torch.cos(embed), x) if append_input else (torch.sin(embed), torch.cos(embed))
     return torch.cat(parts, dim=-1)

@@ -4,8 +4,9 @@ Counterpart of ``yanerf_tpu/ops/pallas/nerf_mlp_bwd.py::make_fused_mlp``,
 the ``jax.custom_vjp`` that joins the Pallas forward and backward. The
 Function takes the NeRFMLP's own parameter tensors as inputs, so that
 autograd delivers their gradients; it packs them through the model's
-``packed_weights()`` cache (repacked once after each in-place optimizer
-step) and slices the packed gradients back to each parameter's shape.
+``packed_weights()``, repacked in place at every call that needs
+gradients (a train step, captured or not) and only after a change
+otherwise, and slices the packed gradients back to each parameter's shape.
 
 As in the JAX package, the gradients for the points and directions are
 not computed: ray geometry never depends on the parameters where the
@@ -31,7 +32,7 @@ def kernel_order_params(model) -> List[torch.nn.Parameter]:
 class FusedNerfMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, model, points, dirs, pts_per_ray, *params):
-        packed = model.packed_weights()
+        packed = model.packed_weights(refresh=any(ctx.needs_input_grad[4:]))
         out = nerf_mlp_fwd.nerf_mlp_fwd(packed, points, dirs, pts_per_ray)
         ctx.save_for_backward(points, dirs)
         ctx.model, ctx.packed, ctx.pts_per_ray = model, packed, pts_per_ray

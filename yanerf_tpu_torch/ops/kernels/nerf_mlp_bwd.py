@@ -16,7 +16,10 @@ stay resident and the activations that do not fit on chip.
 * ``nerf_mlp_bwd`` launches the kernel for CUDA tensors and takes the plain
   version only for CPU tensors. It never falls back on the card.
 * ``launches`` counts the kernel's launches (one per call: the three
-  kernels of ``csrc/nerf_mlp_bwd.cu`` run as one launch of K3).
+  kernels of ``csrc/nerf_mlp_bwd.cu`` run as one launch of K3), each
+  launch of a replayed CUDA graph too (``launch_count.py``). Under capture
+  the stashes and partial sums are allocations of the graph's pool, so a
+  replay finds them at the addresses its tensor maps were encoded for.
 * ``weight_grad_jobs`` is the plan of the kernel's weight-gradient pass,
   made here and handed to the kernel; ``layer_check`` runs one layer of the
   first pass's building blocks (the card tests hold it to a plain product).
@@ -31,11 +34,13 @@ exactly zero.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from . import launch_count
 from ._build import CudaLibrary
 from .nerf_mlp_fwd import (
     PackedNerfMlp,
@@ -242,7 +247,6 @@ def nerf_mlp_bwd(
     CPU tensors go through the plain version; CUDA tensors launch the kernel
     or raise.
     """
-    global launches
     if points.device.type == "cpu":
         return nerf_mlp_bwd_plain(packed, points, dirs, pts_per_ray, g)
     if points.device.type != "cuda":
@@ -276,7 +280,7 @@ def nerf_mlp_bwd(
         )
     if rc != 0:
         raise RuntimeError(f"nerf_mlp_bwd kernel launch failed with CUDA error {rc}")
-    launches += 1
+    launch_count.count(sys.modules[__name__], "launches")
     return out[:w_total], out[w_total:]
 
 

@@ -29,7 +29,11 @@ it is chosen at this entry only.
 * ``nerf_mlp_fwd`` launches K1 (or K2 with ``pipelined=True``) for CUDA
   tensors and takes the plain version only for CPU tensors. It never falls
   back on the card.
-* ``launches`` counts K1's launches, ``pipelined_launches`` K2's.
+* ``repack_weights_`` writes the model's current weights into an earlier
+  pack's buffers, at the same addresses (the kernels' tensor maps are
+  cached by address, and a captured CUDA graph reads the buffers it saw).
+* ``launches`` counts K1's launches, ``pipelined_launches`` K2's, each
+  launch of a replayed CUDA graph too (``launch_count.py``).
 """
 
 from __future__ import annotations
@@ -39,12 +43,14 @@ import ctypes
 import dataclasses
 import functools
 import math
+import sys
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..harmonics import harmonic_frequencies
+from . import launch_count
 from ._build import CudaLibrary
 
 # kernel launches since import (or since a caller reset them): K1, K2
@@ -230,6 +236,19 @@ def pack_weights(model) -> PackedNerfMlp:
     )
 
 
+def repack_weights_(packed: PackedNerfMlp, model) -> PackedNerfMlp:
+    """Write ``model``'s weights into ``packed``'s buffers in place: the bits of a fresh ``pack_weights``.
+
+    Only the parameters' own rows are written: the padding rows and the
+    alignment gaps keep the zeros of the first pack.
+    """
+    with torch.no_grad():
+        for layer, wv, bv in zip(kernel_layers(model), packed.weights, packed.biases):
+            wv[: layer.w.shape[0]].copy_(layer.w)
+            bv.copy_(layer.b)
+    return packed
+
+
 @contextlib.contextmanager
 def no_tf32():
     """Full float32 matrix products on the card for the duration of the block."""
@@ -337,7 +356,6 @@ def nerf_mlp_fwd(
     one function); CUDA tensors launch K1, or K2 with ``pipelined``, or
     raise.
     """
-    global launches, pipelined_launches
     if points.device.type == "cpu":
         return nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray)
     if points.device.type != "cuda":
@@ -363,10 +381,7 @@ def nerf_mlp_fwd(
     if rc != 0:
         name = "nerf_mlp_fwd_pipelined" if pipelined else "nerf_mlp_fwd"
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
-    if pipelined:
-        pipelined_launches += 1
-    else:
-        launches += 1
+    launch_count.count(sys.modules[__name__], "pipelined_launches" if pipelined else "launches")
     return out
 
 

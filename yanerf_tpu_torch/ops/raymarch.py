@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import device_constant
+
 
 def _capping_function(name: str):
     if name == "exponential":
@@ -156,7 +158,8 @@ def emission_absorption(
 
     n_channels = rays_features.shape[-1]
     if bg_color is None:
-        bg = torch.as_tensor(default_bg_color, dtype=dtype, device=rays_features.device)
+        bg = device_constant(("bg_color", tuple(default_bg_color)), lambda: default_bg_color, dtype,
+                             rays_features.device)
         bg_color = bg.expand(*rays_features.shape[:-2], bg.shape[-1])
     if bg_color.shape[-1] not in (1, n_channels):
         raise ValueError(f"Background color has {bg_color.shape[-1]} channels, features have {n_channels}.")

@@ -15,6 +15,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..utils import device_constant
 from .structures import RayBundle
 
 
@@ -30,7 +31,15 @@ def _xy_grid_np(image_height: int, image_width: int) -> np.ndarray:
 
 def get_xy_grid(image_height: int, image_width: int, device: Union[str, torch.device] = "cuda") -> torch.Tensor:
     """Pixel-coordinate grid of shape ``(H, W, 2)``; ``[..., 0]`` is x (column)."""
-    return torch.as_tensor(_xy_grid_np(image_height, image_width), device=device)
+    return device_constant(("xy_grid", image_height, image_width), lambda: _xy_grid_np(image_height, image_width),
+                           torch.float32, device)
+
+
+def _bound(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """A depth bound as a tensor on ``device``: a batch's tensor as it is, a number as a cached constant."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=dtype, device=device)
+    return device_constant(("depth_bound", float(value)), lambda: value, dtype, device)
 
 
 def linspace01(n: int, dtype: torch.dtype = torch.float32, device: Union[str, torch.device] = "cuda") -> torch.Tensor:
@@ -53,12 +62,15 @@ def jiggle_within_stratas(
 
     Each value ``z`` becomes a draw on ``[z - d-, z + d+]``, the deltas the
     half-distances to the neighbouring centers (zero at the ends). ``u``
-    (the shape of ``bin_centers``, on [0, 1)) replaces the generator's draws.
+    (the shape of ``bin_centers``, on [0, 1)) replaces the generator's draws;
+    with neither the call raises.
     """
     mids = 0.5 * (bin_centers[..., 1:] + bin_centers[..., :-1])
     upper = torch.cat([mids, bin_centers[..., -1:]], dim=-1)
     lower = torch.cat([bin_centers[..., :1], mids], dim=-1)
     if u is None:
+        if generator is None:
+            raise ValueError("stratified depths require a generator or fed-in strata_u")
         u = torch.rand(lower.shape, generator=generator, dtype=lower.dtype, device=lower.device)
     return lower + (upper - lower) * u
 
@@ -122,8 +134,8 @@ def xy_to_ray_bundle(
     directions = torch.sum(rot * dirs_cam[..., None, :], dim=-1)
 
     if n_pts_per_ray > 0:
-        lo = torch.mean(torch.as_tensor(min_depth, dtype=dtype, device=device))
-        hi = torch.mean(torch.as_tensor(max_depth, dtype=dtype, device=device))
+        lo = torch.mean(_bound(min_depth, dtype, device))
+        hi = torch.mean(_bound(max_depth, dtype, device))
         t = linspace01(n_pts_per_ray, dtype=dtype, device=device)
         depths = t * (hi - lo) + lo
         rays_zs = depths.expand(batch_size, *spatial_size, n_pts_per_ray)

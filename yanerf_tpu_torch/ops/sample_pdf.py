@@ -32,7 +32,7 @@ def sample_pdf(
         weights: ``(..., n_bins)`` non-negative per-bin masses.
         n_samples: number of samples per distribution.
         generator: source of the uniform draws when ``det=False`` and no
-            ``u`` is given.
+            ``u`` is given; with neither the call raises.
         det: deterministic (uniformly spaced u) vs random sampling.
         stratified: with ``det=False``, stratify the draws,
             ``u_i = (i + xi_i) / n``.
@@ -53,6 +53,8 @@ def sample_pdf(
         u = linspace01(n_samples, dtype=dtype, device=bins.device).expand(*cdf.shape[:-1], n_samples)
     else:
         if u is None:
+            if generator is None:
+                raise ValueError("random sample_pdf requires a generator or fed-in pdf_u")
             u = torch.rand(
                 (*cdf.shape[:-1], n_samples), generator=generator, dtype=dtype, device=bins.device
             )

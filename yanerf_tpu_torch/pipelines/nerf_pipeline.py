@@ -8,22 +8,74 @@ chunks with the reference's arithmetic, ``n_chunks = ceil(n_rays * P /
 chunk_size_grid)``, edge-padded to equal size; a Python loop over the
 chunks replaces ``lax.map``. In TRAINING the rays are Monte-Carlo samples,
 rendered in one call, and the NeRF-MLP's kernel switch is
-``use_pallas_train`` (as ``_bind_model`` does in the JAX package).
+``use_pallas_train`` (as ``_bind_model`` does in the JAX package); with
+``output_rasterized_mc`` the Monte-Carlo samples are also splatted back
+onto the image (``scatter_rays_to_image``) for the training vis.
+
+``training_draws`` lists what one TRAINING call draws, in the order it
+draws it, and ``make_draws`` makes those draws from a generator, into
+given buffers if asked: the train loops make a step's draws ahead and feed
+them in through ``draws``. It is the one place that decides a TRAINING
+call's draws: the stages below get no generator in TRAINING, so a draw it
+does not list raises.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from ..models import MODELS
 from ..ops.metrics import sample_grid, view_metrics
+from ..ops.sampling import scatter_rays_to_image, uniform_sample_with_replacement, weighted_sample_without_replacement
 from ..ops.structures import EvaluationMode, RendererOutput, RenderSamplingMode
 from ..utils import resolve_device
 from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS
+
+
+class Draw(NamedTuple):
+    """One random draw of a TRAINING call: ``draws[key]`` (or its next list entry when ``listed``)."""
+
+    key: str
+    shape: Tuple[int, ...]
+    kind: str  # "uniform", "normal", "pixels" (randint below ``high``), "pixels_without_replacement"
+    listed: bool = False
+    high: int = 0
+    approx: bool = False
+
+
+def make_draws(
+    specs: Sequence[Draw], generator: torch.Generator, device: torch.device, out: Optional[Dict[str, Any]] = None
+) -> Dict[str, Any]:
+    """The draws of ``specs``, in their order, from ``generator``: the ``draws`` a TRAINING call takes.
+
+    With ``out`` (a dict of the same structure), each draw is written into
+    its tensor there, with the same calls and so the same values.
+    """
+    draws: Dict[str, Any] = {}
+    for spec in specs:
+        target = None
+        if out is not None:
+            target = out[spec.key][len(draws.get(spec.key, []))] if spec.listed else out[spec.key]
+        if spec.kind == "uniform":
+            value = torch.rand(spec.shape, generator=generator, device=device, out=target)
+        elif spec.kind == "normal":
+            value = torch.randn(spec.shape, generator=generator, device=device, out=target)
+        elif spec.kind == "pixels":
+            value = uniform_sample_with_replacement(spec.shape[0], spec.high, spec.shape[1], generator, device)
+        else:
+            weights = torch.ones((spec.shape[0], spec.high), dtype=torch.float32, device=device)
+            value = weighted_sample_without_replacement(weights, spec.shape[1], generator, approx=spec.approx)
+        if target is not None and value is not target:
+            value = target.copy_(value)
+        if spec.listed:
+            draws.setdefault(spec.key, []).append(value)
+        else:
+            draws[spec.key] = value
+    return draws
 
 
 @PIPELINES.register_module()
@@ -101,28 +153,30 @@ class NeRFPipeline(nn.Module):
     ) -> Dict[str, Any]:
         """Render one batch; returns ``rendered_*`` tensors, per-sample ``loss_*`` and ``objective``.
 
-        ``draws`` optionally replaces the random draws of a TRAINING call:
+        ``draws`` holds the random draws of a TRAINING call (``training_draws``):
         ``pixel_idx`` ``(B, n_rays)``, ``strata_u`` ``(B, n_rays, 1, P)``,
         ``pdf_u``, one ``(B, n_rays, 1, n_pts)`` tensor of uniform draws per
         refinement (per proposal pass, or per coarse -> fine step), and
         ``density_noise``, the ``(B, n_rays, 1, P_k)`` standard normal draws
         of the density noise of each compositing pass (the multipass
-        renderer's passes; the proposal renderer's main pass); whatever is
-        missing comes from ``generator``.
+        renderer's passes; the proposal renderer's main pass). Without
+        ``draws`` a TRAINING call makes them from ``generator``
+        (``make_draws``); EVALUATION draws from ``generator`` where it draws.
         """
         training = evaluation_mode == EvaluationMode.TRAINING
         sampling_mode = self.sampling_mode_training if training else self.sampling_mode_evaluation
-        draws = draws or {}
         if (mask_crop is not None and sampling_mode == RenderSamplingMode.MASK_SAMPLE) or (
             sampling_prob_mask is not None and training
         ):
             raise NotImplementedError("sampling masks (mask_crop, sampling_prob_mask) are not ported yet")
+        if training:
+            if draws is None:
+                if generator is None:
+                    raise ValueError("a TRAINING call takes its draws, or a generator to make them from")
+                draws = make_draws(self.training_draws(poses.shape[0]), generator, poses.device)
+            generator = None  # every draw of a TRAINING call is one of training_draws
+        draws = draws or {}
         rasterize_mc = self.output_rasterized_mc if output_rasterized_mc is None else output_rasterized_mc
-        if sampling_mode == RenderSamplingMode.MASK_SAMPLE and rasterize_mc:
-            raise NotImplementedError(
-                "rasterizing Monte-Carlo samples (scatter_rays_to_image, the training vis) is not ported yet: "
-                "pass output_rasterized_mc=False"
-            )
 
         ray_bundle = self.ray_sampler(
             poses,
@@ -166,15 +220,40 @@ class NeRFPipeline(nn.Module):
         for k, v in rendered.aux.items():
             if k.startswith("loss_"):
                 preds[k] = v.reshape(v.shape[0], -1).mean(dim=-1)
-        if sampling_mode == RenderSamplingMode.FULL_GRID:
+        if sampling_mode == RenderSamplingMode.FULL_GRID or rasterize_mc:
             preds["rendered_images"] = rendered.features
             preds["rendered_depths"] = rendered.depths
             preds["rendered_alpha_masks"] = rendered.alpha_masks
+        if sampling_mode == RenderSamplingMode.MASK_SAMPLE and rasterize_mc:
+            if image_height is None or image_width is None:
+                image_height, image_width = self.render_image_height, self.render_image_width
+            for key in ("rendered_images", "rendered_depths", "rendered_alpha_masks"):
+                preds[key] = scatter_rays_to_image(preds[key], xys, image_height, image_width)
 
         objective = self._get_objective(preds)
         if objective is not None:
             preds["objective"] = objective
         return preds
+
+    def training_draws(self, batch_size: int) -> List[Draw]:
+        """What one TRAINING call of ``batch_size`` images draws, in the order it draws it from a generator.
+
+        The ray sampler's pixels and depth jitter, then the renderer's
+        (``training_draw_shapes``). Images are the ray sampler's size.
+        """
+        sampler = self.ray_sampler.sampler(EvaluationMode.TRAINING)
+        if sampler.n_rays_per_image is None:
+            raise NotImplementedError("draws are made ahead for Monte-Carlo (mask_sample) training only")
+        n_rays, n_pixels = sampler.n_rays_per_image, self.render_image_height * self.render_image_width
+        lead = (batch_size, n_rays, 1)
+        replacement = sampler.pixel_replacement
+        specs = [Draw("pixel_idx", (batch_size, n_rays), "pixels" if replacement else "pixels_without_replacement",
+                      high=n_pixels, approx=sampler.approx_top_k)]
+        if sampler.stratified_sampling:
+            specs.append(Draw("strata_u", (*lead, sampler.n_pts_per_ray), "uniform"))
+        for key, n in self.renderer.training_draw_shapes(sampler.n_pts_per_ray, len(self.implicit_functions)):
+            specs.append(Draw(key, (*lead, n), "normal" if key == "density_noise" else "uniform", listed=True))
+        return specs
 
     @staticmethod
     def _bind_model(fn: nn.Module, extracted_features: Dict[str, Any], training: bool) -> Callable[..., Dict[str, Any]]:

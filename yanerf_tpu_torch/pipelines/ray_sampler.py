@@ -165,6 +165,10 @@ class RaySampler:
     def sampling_mode(self, evaluation_mode: EvaluationMode) -> RenderSamplingMode:
         return self._sampling_mode[evaluation_mode]
 
+    def sampler(self, evaluation_mode: EvaluationMode) -> _RaySampler:
+        """The sampling configuration of ``evaluation_mode`` (rays per image, points, jitter, pixel draws)."""
+        return self._raysamplers[evaluation_mode]
+
     def __call__(
         self,
         poses: torch.Tensor,

@@ -19,7 +19,7 @@ The eval-compositing dtype experiment is not ported.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -112,6 +112,19 @@ class MultipassEmissionAbsorpsionRenderer:
             hard_background=hard_background,
             surface_thickness=surface_thickness,
         )
+
+    def training_draw_shapes(self, n_pts: int, n_passes: int) -> List[Tuple[str, int]]:
+        """``(key, points)`` of each TRAINING draw per ray, in draw order: per pass, the refinement's u's
+        (from the second pass on) and then the pass's density noise."""
+        n_fine, random_sampling = self._refiner_cfg[EvaluationMode.TRAINING]
+        shapes = []
+        for k in range(n_passes):
+            if k > 0 and random_sampling:
+                shapes.append(("pdf_u", n_fine))
+            if self.density_noise_std_train > 0.0:
+                pts = n_pts + k * n_fine if self.append_coarse_samples_to_fine else (n_fine if k else n_pts)
+                shapes.append(("density_noise", pts))
+        return shapes
 
     def __call__(
         self,
@@ -230,6 +243,16 @@ class ProposalEmissionAbsorpsionRenderer:
             hard_background=hard_background,
             **self.weights_kwargs,
         )
+
+    def training_draw_shapes(self, n_pts: int, n_passes: int) -> List[Tuple[str, int]]:
+        """``(key, points)`` of each TRAINING draw per ray, in draw order: each proposal pass's u's (when
+        sampling at random), then the main pass's density noise."""
+        n_final, random_sampling = self._final_cfg[EvaluationMode.TRAINING]
+        schedule = list(self._intermediate_cfg[EvaluationMode.TRAINING]) + [n_final]
+        shapes = [("pdf_u", n) for n in schedule] if random_sampling else []
+        if self.density_noise_std_train > 0.0:
+            shapes.append(("density_noise", n_final))
+        return shapes
 
     def __call__(
         self,

@@ -7,14 +7,21 @@
 Counterpart of ``scripts/run.py`` over the same configs and
 ``--cfg_options``: a versioned output directory (``version_N``) with
 ``config.yml`` and ``run.log``; the iteration-based runner converted to
-epochs over the loader; per-step training with Adam and the configured
-schedule; ``{train,val,test}_stats.json``; checkpoints ``ckpts_{epoch:04d}``
-(periodic and final) and ``ckpts_-001`` (best ``loss_rgb_psnr`` at
-validation); and the test metrics at the end. ``--device cuda`` is the
-default and raises without a GPU; ``--device cpu`` runs the kernels' plain
-versions. ``--checkpoint`` resumes from a checkpoint of this runner.
-Distributed training, hooks, visualization dumps, preemption handling and
-the fused K-step dispatch are not ported yet.
+epochs over the loader; training with Adam and the configured schedule,
+per step or, with ``runner.steps_per_call > 1`` and the device dataset
+cache, in fused dispatches of K steps (one captured CUDA graph replayed K
+times on the card; ``runners/apis.py``); the hooks of ``runner.hooks``;
+the periodic training vis (``runner.train_vis``, on by default) and the
+eval frames as PNGs under ``visualization/``; a ``torch.profiler`` trace
+with ``runner.profile_dir``; ``{train,val,test}_stats.json``; checkpoints
+``ckpts_{epoch:04d}`` (periodic and final) and ``ckpts_-001`` (best
+``loss_rgb_psnr`` at validation); and the test metrics at the end.
+SIGTERM / SIGINT stop training between steps (dispatches) and write the
+resumable ``ckpts_preempt``; ``--auto_resume`` continues from the newest
+checkpoint of the output directory, where the run stopped. ``--device
+cuda`` is the default and raises without a GPU; ``--device cpu`` runs the
+kernels' plain versions. ``--checkpoint`` resumes from a checkpoint of this
+runner. Distributed training is not ported yet.
 """
 
 from __future__ import annotations
@@ -92,7 +99,12 @@ def _append_json(path: Path, record: Dict[str, Any]) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Run the CLI; returns ``{"output_dir", "state", "train_stats", "val_stats", "test_stats"}``."""
+    """Run the CLI; returns ``{"output_dir", "state", "train_stats", "val_stats", "test_stats"}``.
+
+    Training runs also return ``"checkpoint"`` (the final one) and
+    ``"train_step_fused"`` (the fused trainer, or None); a preempted run
+    returns ``"preempted"`` (its emergency checkpoint) and skips the test.
+    """
     args = parse_args(argv)
     config = Config.fromfile(args.config)
     if args.cfg_options is not None:
@@ -103,13 +115,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     from .datasets import DATASETS, DeviceCachedLoader, create_loader, create_sampler
     from .pipelines import PIPELINES
     from .runners import (
+        HOOKS,
+        PreemptionGuard,
+        RunType,
         TrainState,
         create_lr_schedule,
         create_optimizer,
         eval_one_epoch,
         find_best_checkpoint,
+        find_latest_checkpoint,
         load_checkpoint,
         make_train_step,
+        make_train_step_fused,
         save_checkpoint,
         train_one_epoch,
     )
@@ -127,7 +144,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         config.runner.output_dir = args.output_dir
     output_dir = Path(config.runner.output_dir)
     if not args.test_only:
-        output_dir = setup_output_dir_for_training(output_dir)
+        resumed = find_latest_checkpoint(output_dir) if args.auto_resume and args.checkpoint is None else None
+        if resumed is not None:
+            output_dir, checkpoint = resumed
+            args.checkpoint = str(checkpoint)
+        else:
+            output_dir = setup_output_dir_for_training(output_dir)
         config.runner.output_dir = str(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     config.dump(str(output_dir / "config.yml"))
@@ -161,36 +183,63 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     state = TrainState(pipeline=pipeline, optimizer=optimizer, step=0)
     lr_schedule = create_lr_schedule(config.runner)
 
-    start_epoch = 0
+    start_epoch = skip_iters = 0
     if args.checkpoint:
         start_epoch = load_checkpoint(args.checkpoint, state)["epoch"] + 1
-        logger.info(f"Resumed checkpoint from: {args.checkpoint} (epoch {start_epoch - 1})")
+        done = state.step - start_epoch * len(dataloaders[0])
+        if done > 0:  # an emergency checkpoint, saved mid-epoch: go on from the step it reached
+            start_epoch, skip_iters = start_epoch + done // len(dataloaders[0]), done % len(dataloaders[0])
+        logger.info(f"Resumed checkpoint from: {args.checkpoint} (epoch {start_epoch - 1}, step {state.step})")
 
-    result: Dict[str, Any] = {"output_dir": output_dir, "state": state, "train_stats": [], "val_stats": []}
     runner = config.runner
+    runner["hooks"] = [HOOKS.build(dict(hook_cfg)) for hook_cfg in (runner.get("hooks", []) or [])]
+    logger.info(f"Hooks: {[type(h).__name__ for h in runner['hooks']]}")
+    result: Dict[str, Any] = {"output_dir": output_dir, "state": state, "train_stats": [], "val_stats": []}
     if not args.test_only:
         train_step = make_train_step(pipeline, runner, seed)
+        train_step_vis = make_train_step(pipeline, runner, seed, rasterize_mc=True) if runner.get("train_vis", True) else None
+        train_step_fused = None
+        if int(runner.get("steps_per_call", 1) or 1) > 1:
+            train_step_fused = make_train_step_fused(pipeline, runner, seed, dataloaders[0].data_wrapper)
+        result["train_step_fused"] = train_step_fused
         logger.info(f"Start Training. Epoch range: {start_epoch} -> {runner['num_epochs']}")
         best_metric = -1e10
         t0 = time.perf_counter()
-        for epoch in range(start_epoch, runner["num_epochs"]):
-            state, train_stats = train_one_epoch("train", runner, epoch, state, dataloaders[0], train_step, lr_schedule)
-            result["train_stats"].append(train_stats)
-            _append_json(output_dir / "train_stats.json", {"epoch": epoch, **{f"train_{k}": v for k, v in train_stats.items()}})
-            if (epoch + 1) % runner["val_per_epoch"] == 0:
-                logger.info(f"Start val at epoch: {epoch}")
-                val_stats = eval_one_epoch("val", runner, epoch, pipeline, dataloaders[1], seed)
-                result["val_stats"].append(val_stats)
-                _append_json(output_dir / "val_stats.json", {"epoch": epoch, **{f"val_{k}": v for k, v in val_stats.items()}})
-                current = val_stats.get(MONITOR_METRIC_NAME)
-                if current is not None and current > best_metric:
-                    logger.info(f"Monitor Metric: {best_metric} -> {current}.")
-                    best_metric = current
-                    save_checkpoint(output_dir, state, epoch=-1)
-                    logger.info("Save Best Model to Epoch: -1")
-            if (epoch + 1) % runner["save_per_epoch"] == 0:
-                save_checkpoint(output_dir, state, epoch=epoch)
-                logger.info(f"Save Model at Epoch: {epoch}")
+        guard = PreemptionGuard().install()
+        try:
+            for epoch in range(start_epoch, runner["num_epochs"]):
+                state, train_stats = train_one_epoch(
+                    RunType.TRAIN, runner, epoch, state, dataloaders[0], train_step, lr_schedule,
+                    train_step_vis=train_step_vis, preemption_guard=guard, train_step_fused=train_step_fused,
+                    skip_iters=skip_iters if epoch == start_epoch else 0,
+                )
+                if guard.preempted:
+                    # saved as the epoch before, so a resume re-enters this epoch at the step it reached
+                    path = save_checkpoint(output_dir, state, epoch=epoch - 1, name="ckpts_preempt")
+                    logger.info(f"Preemption: saved emergency checkpoint to {path} (mid-epoch {epoch}, step "
+                                f"{state.step}); re-run the same command with --auto_resume to continue")
+                    result["preempted"] = path
+                    return result
+                result["train_stats"].append(train_stats)
+                _append_json(output_dir / "train_stats.json",
+                             {"epoch": epoch, **{f"train_{k}": v for k, v in train_stats.items()}})
+                if (epoch + 1) % runner["val_per_epoch"] == 0:
+                    logger.info(f"Start val at epoch: {epoch}")
+                    val_stats = eval_one_epoch(RunType.VAL, runner, epoch, pipeline, dataloaders[1], seed)
+                    result["val_stats"].append(val_stats)
+                    _append_json(output_dir / "val_stats.json",
+                                 {"epoch": epoch, **{f"val_{k}": v for k, v in val_stats.items()}})
+                    current = val_stats.get(MONITOR_METRIC_NAME)
+                    if current is not None and current > best_metric:
+                        logger.info(f"Monitor Metric: {best_metric} -> {current}.")
+                        best_metric = current
+                        save_checkpoint(output_dir, state, epoch=-1)
+                        logger.info("Save Best Model to Epoch: -1")
+                if (epoch + 1) % runner["save_per_epoch"] == 0:
+                    save_checkpoint(output_dir, state, epoch=epoch)
+                    logger.info(f"Save Model at Epoch: {epoch}")
+        finally:
+            guard.uninstall()
         logger.info(f"Training time: {datetime.timedelta(seconds=int(time.perf_counter() - t0))}")
         result["checkpoint"] = save_checkpoint(output_dir, state, epoch=runner["num_epochs"] - 1)
         if runner.get("eval_last_epoch_model", True) is False:
@@ -202,7 +251,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             logger.info("eval last epoch model")
 
     logger.info("Start Testing.")
-    test_stats = eval_one_epoch("test", runner, -1, pipeline, dataloaders[2], seed)
+    test_stats = eval_one_epoch(RunType.TEST, runner, -1, pipeline, dataloaders[2], seed)
     _append_json(output_dir / "test_stats.json", {f"test_{k}": v for k, v in test_stats.items()})
     result["test_stats"] = test_stats
     return result
@@ -213,6 +262,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--config", default="./configs/nerf/lego.yml")
     parser.add_argument("--output_dir", type=str, default=None)
     parser.add_argument("--checkpoint", type=str, default=None, help="a checkpoint of this runner to resume from")
+    parser.add_argument("--auto_resume", action="store_true",
+                        help="resume from the newest checkpoint under output_dir (after a preemption)")
     parser.add_argument("--test_only", action="store_true")
     parser.add_argument("--device", default="cuda", help="torch device; cuda without a GPU raises")
     parser.add_argument("--seed", default=None, type=int)

@@ -25,9 +25,10 @@ Usage:
       --cfg_options pipeline.model.2.use_pallas=True [--checkpoint params.npz]
   curl 'localhost:8765/render?theta=30&phi=-25&radius=4' > frame.png
 
-``--checkpoint`` takes an ``.npz`` of the JAX param tree flattened to
-dotted keys (``convert.flatten_tree``); without one the weights are random,
-drawn from ``--seed``.
+``--checkpoint`` takes a checkpoint of the port's runner (a run's
+``ckpts/ckpts_-001``, the best model, or any ``ckpts_NNNN``) or an ``.npz``
+of the JAX param tree flattened to dotted keys (``convert.flatten_tree``);
+without one the weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -278,11 +279,13 @@ def service_from_config(
     generator = torch.Generator().manual_seed(seed)
     pipeline = PIPELINES.build(cfg.pipeline, generator=generator, device=device)
     pipeline.eval()
-    if checkpoint:
-        if not str(checkpoint).endswith(".npz"):
-            raise ValueError("the port reads .npz checkpoints of the flattened JAX param tree (convert.py)")
+    if checkpoint and str(checkpoint).endswith(".npz"):
         with np.load(checkpoint) as ckpt:
             load_jax_params(pipeline, {k: ckpt[k] for k in ckpt.files})
+    elif checkpoint:
+        from .runners.checkpoints import checkpoint_params_tree
+
+        load_jax_params(pipeline, checkpoint_params_tree(checkpoint))
 
     rs = cfg.pipeline.ray_sampler
     default_focal, focal_source = _default_focal(cfg)
@@ -296,7 +299,8 @@ def service_from_config(
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", required=True)
-    parser.add_argument("--checkpoint", default=None, help=".npz of the flattened JAX param tree")
+    parser.add_argument("--checkpoint", default=None,
+                        help="a checkpoint of the port's runner (<run>/ckpts/ckpts_-001) or an .npz of the JAX param tree")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--device", default="cuda", help="torch device; cuda without a GPU raises")

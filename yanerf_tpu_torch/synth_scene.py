@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -76,24 +78,35 @@ def render(c2w_blender, hw: int, focal: float, centers, radii, albedos, bg: floa
 
 def write_scene(out_dir, hw: int = 800, n_train: int = 100, n_val: int = 8, n_test: int = 8, n_spheres: int = 6,
                 radius: float = 4.0, seed: int = 0, bg: float = 0.0) -> Path:
-    """Write the scene's three splits under ``out_dir``; returns it."""
+    """Write the scene's three splits under ``out_dir``; returns it.
+
+    The cameras are drawn in order from one generator, then the frames are
+    rendered and encoded on a thread pool (numpy and zlib release the
+    interpreter lock): the files do not depend on the pool.
+    """
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(seed)
     centers, radii, albedos = make_scene(rng, n_spheres)
     focal = 0.5 * hw / np.tan(0.5 * CAMERA_ANGLE_X)
+    frames = {}
     for split, count in (("train", n_train), ("val", n_val), ("test", n_test)):
-        frames = []
         for i in range(count):
             u = rng.uniform(0, 2 * np.pi)
             elev = rng.uniform(np.deg2rad(15), np.deg2rad(70))
             position = radius * np.array([np.cos(u) * np.cos(elev), np.sin(u) * np.cos(elev), np.sin(elev)])
-            c2w = look_at_blender(position, np.array([0.0, 0.0, 0.3]))
-            img = render(c2w, hw, focal, centers, radii, albedos, bg=bg)
-            name = f"r_{split}_{i}"
-            (out / f"{name}.png").write_bytes(png_bytes((img * 255).astype(np.uint8)))
-            frames.append({"file_path": f"./{name}", "transform_matrix": c2w.tolist()})
-        (out / f"transforms_{split}.json").write_text(json.dumps({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}))
+            frames.setdefault(split, []).append((f"r_{split}_{i}", look_at_blender(position, np.array([0.0, 0.0, 0.3]))))
+
+    def write(name: str, c2w: np.ndarray) -> None:
+        img = render(c2w, hw, focal, centers, radii, albedos, bg=bg)
+        (out / f"{name}.png").write_bytes(png_bytes((img * 255).astype(np.uint8)))
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for done in [pool.submit(write, name, c2w) for split in frames.values() for name, c2w in split]:
+            done.result()
+    for split in ("train", "val", "test"):
+        entries = [{"file_path": f"./{name}", "transform_matrix": c2w.tolist()} for name, c2w in frames.get(split, [])]
+        (out / f"transforms_{split}.json").write_text(json.dumps({"camera_angle_x": CAMERA_ANGLE_X, "frames": entries}))
     return out
 
 
