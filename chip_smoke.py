@@ -2,12 +2,16 @@
 
     python3 chip_smoke.py
 
-Two configurations at their published widths, random weights from a seed:
+Four configurations at their published widths, random weights from a seed:
 configs/nerf/lego_proposal.yml ("proposal": two 4x128 ProposalMLPs and one
-8x256 NeRFMLP at 48 points per ray) and configs/nerf/lego.yml ("classic":
+8x256 NeRFMLP at 48 points per ray), configs/nerf/lego.yml ("classic":
 two 8x256 NeRFMLPs, coarse at 64 points per ray, fine at 64 + 128 merged
-and sorted). Phases, each printing its numbers on a line of its own with
-the card's name and power limit:
+and sorted), and the two families with no NeRF-MLP kernel on lego.yml's
+multipass renderer: configs/nerf/synth800_mip.yml ("mip": two 8x256
+MipNeRFMLPs on the integrated positional encoding, softplus densities) and
+configs/nerf/lego_ngp.yml ("ngp": two HashGridNeRFs, 16 levels of 2^19
+rows, 64-wide MLPs, 8192 rays per step). Phases, each printing its numbers
+on a line of its own with the card's name and power limit:
   1. build   compile every kernel of the serving and training paths from
              the sources in this checkout, one nvcc per source, all started
              together: the NeRF-MLP forward (K1), its pipelined twin (K2)
@@ -37,16 +41,21 @@ the card's name and power limit:
   4. frame   for each configuration, one frame with K1 and again with its
              plain version: PSNR >= 40 dB; the classic frame also with K2
              at the kernel entry, which must equal the K1 frame bit for bit
-             (626 K2 launches, the path K2 runs on);
+             (626 K2 launches, the path K2 runs on); one frame each of
+             ngp (also over HTTP, as in "serve") and mip: RGB finite and in
+             [0, 1], no launch of K1, K2 or K3, the frame seconds;
   5. train   write a procedural 800x800 Blender-format scene from a seed
              and train each configuration on it through
              ``python -m yanerf_tpu_torch.run`` with ``use_pallas_train`` on
              every NeRFMLP (32 proposal steps, 16 classic steps with density
-             noise 0.2 and pixels drawn without replacement), per step
+             noise 0.2 and pixels drawn without replacement), and ngp (16
+             steps at 8192 rays on the uint8 device cache), per step
              (``steps_per_call=1``): K1 and K3
-             launched exactly once per step and NeRFMLP, the objective
-             finite at every step, every parameter moved, the final
-             checkpoint reloads to the same parameters, Adam state and step;
+             launched exactly once per step and NeRFMLP (never for ngp),
+             the objective finite at every step, every parameter (every
+             table) moved, the final checkpoint reloads to the same
+             parameters, Adam state and step; ``step_s``, rays/s and the
+             peak device memory of the run;
   6. fused   the proposal CLI with ``steps_per_call=20`` on a 40-frame
              scene with the device cache, 80 steps (two epochs of two whole
              groups of 20 after the first step's vis): one captured CUDA
@@ -56,15 +65,23 @@ the card's name and power limit:
              equal the per-step run bit for bit (parameters and Adam
              state) when the two per-step runs equal each other; both
              ``step_s``, the capture seconds and the largest parameter
-             differences are printed;
-  7. step    for each configuration, one train step from the same weights,
+             differences are printed; then the same for mip with
+             ``steps_per_call=8`` on that scene, one epoch of 40 steps (the
+             vis step, groups of 8, 8, 8, 8 and 7), no kernel launched;
+  7. step    for proposal and classic, one train step from the same weights,
              batch and draws with the fused kernels and with the eager
              model: the objectives agree within 1e-2 relative and each
              NeRF-MLP's gradients at a cosine >= 0.999 (the two bf16
              policies differ: the kernels add the bias in float32, the
              eager model in bf16; each kernel is held tensor by tensor to
              its plain version in phase 2); the peak device memory of each
-             step.
+             step;
+  8. family  for mip and ngp, in float32 (TF32 off) from the same weights,
+             batch and draws, one eval chunk (2045 rays, both passes) and one
+             train step at 512 rays on the card and on the CPU: the chunk's
+             outputs within 1e-4, the objectives within 1e-4 relative, each
+             parameter tensor's gradient (every table) at a cosine >= 0.9999;
+             the card's step twice, whether its gradients are bit-equal.
 
 Any failure exits non-zero. Imports nothing of JAX or of yanerf_tpu. The
 last three lines are the kernels' JSON record, the card's name and power
@@ -89,6 +106,8 @@ from unittest import mock
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "nerf" / "lego_proposal.yml"
 CLASSIC_CONFIG = REPO / "configs" / "nerf" / "lego.yml"
+MIP_CONFIG = REPO / "configs" / "nerf" / "synth800_mip.yml"
+NGP_CONFIG = REPO / "configs" / "nerf" / "lego_ngp.yml"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FRAMES_PER_RUN = 2  # frames rendered in the serve phase (GET and POST /render)
@@ -115,6 +134,15 @@ FUSED_TRAIN_STEPS = 80  # two epochs
 DEVICE = "cuda"
 STEP_OBJECTIVE_RTOL = 1e-2
 STEP_MIN_GRAD_COSINE = 0.999
+NGP_TRAIN_STEPS = 16  # lego_ngp: 4 epochs of 4 frames at 8192 rays, per step
+MIP_STEPS_PER_CALL = 8  # synth800_mip.yml's steps_per_call
+MIP_FUSED_TRAIN_STEPS = FUSED_TRAIN_FRAMES  # one epoch: the vis step, then groups of 8, 8, 8, 8 and 7
+FAMILY_EVAL_RAYS = 2045  # one eval chunk of an 800x800 frame (313 chunks)
+FAMILY_TRAIN_RAYS = 512
+FAMILY_ATOL = 1e-4  # card against CPU in float32, TF32 off: sums in another order
+FAMILY_OBJECTIVE_RTOL = 1e-4
+FAMILY_MIN_GRAD_COSINE = 0.9999
+NO_LAUNCHES = {"nerf_mlp_fwd": 0, "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0}
 
 
 def card() -> str:
@@ -452,7 +480,11 @@ def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool):
 
 
 def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
-    """Train ``config`` on ``scene`` through ``yanerf_tpu_torch.run``; returns its checks and numbers."""
+    """Train ``config`` on ``scene`` through ``yanerf_tpu_torch.run``; returns its checks and numbers.
+
+    Every NeRFMLP of the config trains on K1 and K3 (once per step each); a
+    config with none (the mip-NeRF and hash-grid families) launches neither.
+    """
     import yanerf_tpu_torch.runners as runners
     from yanerf_tpu_torch import run
     from yanerf_tpu_torch.pipelines import PIPELINES
@@ -480,6 +512,8 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
         return wrapped
 
     with mock.patch.object(runners, "make_train_step", observed):
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         K1.launches = K1.pipelined_launches = K3.launches = 0
         t = time.perf_counter()
         result = run.main(argv)
@@ -487,6 +521,7 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
         run_s = time.perf_counter() - t
         launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
                     "nerf_mlp_bwd": K3.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
 
     state = result["state"]
     n_steps = state.step
@@ -509,11 +544,12 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
     n_mlps = sum(int(getattr(fn, "use_pallas_train", False)) for fn in state.pipeline.implicit_functions)
     checks = {
         "steps": n_steps == steps == len(objectives),
-        # once per step and NeRFMLP; the test frame at the end renders with
-        # the eager model: the run turns the kernels on for training only
-        # (use_pallas_train)
-        "k3_per_nerf_mlp_per_step": launches["nerf_mlp_bwd"] == n_mlps * n_steps > 0,
-        "k1_per_nerf_mlp_per_step": launches["nerf_mlp_fwd"] == n_mlps * n_steps > 0,
+        # once per step and NeRFMLP (none without one); the test frame at the
+        # end renders with the eager model: the run turns the kernels on for
+        # training only (use_pallas_train)
+        "k3_per_nerf_mlp_per_step": launches["nerf_mlp_bwd"] == n_mlps * n_steps and (n_mlps > 0) == bool(keys),
+        "k1_per_nerf_mlp_per_step": launches["nerf_mlp_fwd"] == n_mlps * n_steps
+        and launches["nerf_mlp_fwd_pipelined"] == 0 and (n_mlps > 0) == bool(keys),
         "objective_finite": bool(torch.isfinite(objective).all()),
         "params_moved": moved == len(initial),
         "checkpoint_reloads": same_params and same_adam and reloaded.step == n_steps,
@@ -522,22 +558,32 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
     numbers = dict(
         config=Path(config).name, nerf_mlps_on_kernels=n_mlps, steps=n_steps, run_s=run_s, ms_per_step=ms_per_step,
         step_s_per_epoch=step_s,
-        train_rays_per_s=n_rays / ms_per_step * 1e3, launches=launches,
+        train_rays_per_s=n_rays / ms_per_step * 1e3, rays_per_step=n_rays, peak_memory_gb=peak_gb, launches=launches,
         objective_first=float(objective[0]), objective_last=float(objective[-1]),
         params_moved=f"{moved}/{len(initial)}", test_stats=result["test_stats"], checks=checks,
     )
     return numbers, launches
 
 
-def fused_train(torch, K1, K3, scene: Path, out_dir: Path):
-    """The proposal CLI with ``steps_per_call=20`` (fused) and twice with 1 (per step), from the same start."""
+def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, steps_per_call=None):
+    """The CLI of ``config`` with ``steps_per_call`` (fused) and twice with 1 (per step), from the same start.
+
+    On the device cache, as both configs ship: lego_proposal.yml (the
+    default) with ``use_pallas_train`` on its NeRFMLP, K1 and K3 once per
+    replay; synth800_mip.yml, which has no NeRFMLP and launches neither.
+    """
     from yanerf_tpu_torch import run
     from yanerf_tpu_torch.ops.kernels import launch_count
 
-    def cli(name: str, steps_per_call: int):
-        argv = ["--config", str(CONFIG), "--device", DEVICE, "--output_dir", str(out_dir / name), "--cfg_options",
-                *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(CONFIG)),
-                f"runner.num_iters={FUSED_TRAIN_STEPS}", f"runner.steps_per_call={steps_per_call}",
+    config = CONFIG if config is None else config
+    steps = FUSED_TRAIN_STEPS if steps is None else steps
+    steps_per_call = FUSED_STEPS_PER_CALL if steps_per_call is None else steps_per_call
+    keys = nerf_mlp_keys(config)
+
+    def cli(name: str, per_call: int):
+        argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir / name), "--cfg_options",
+                *(f"{key}.use_pallas_train=True" for key in keys),
+                f"runner.num_iters={steps}", f"runner.steps_per_call={per_call}",
                 *(f"datasets.{i}.base_dir={scene}" for i in range(3))]
         sync(torch)
         K1.launches = K1.pipelined_launches = K3.launches = 0
@@ -557,7 +603,7 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path):
             torch.equal(sa[i][m], sb[i][m]) for i in sa for m in ("exp_avg", "exp_avg_sq"))
         return equal, max(float((pa[k].detach() - pb[k].detach()).abs().max()) for k in pa)
 
-    fused, fused_launches, fused_run_s = cli("fused", FUSED_STEPS_PER_CALL)
+    fused, fused_launches, fused_run_s = cli("fused", steps_per_call)
     trainer = fused["train_step_fused"]
     torch.cuda.empty_cache()
     per_step, per_step_launches, per_step_run_s = cli("per_step", 1)
@@ -570,31 +616,131 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path):
     step_s = {"fused": [s.get("step_s") for s in fused["train_stats"]],
               "per_step": [s.get("step_s") for s in per_step["train_stats"]]}
     on_card = DEVICE == "cuda"
+    per_replay = {"nerf_mlp_fwd.launches": n_mlps, "nerf_mlp_bwd.launches": n_mlps} if n_mlps else {}
     checks = {
         # on the card a captured graph, on the CPU (the tests) the same step uncaptured
         "fused_path_ran": trainer is not None and (trainer.graph is not None) == on_card
-        and trainer.dispatches >= FUSED_TRAIN_STEPS // FUSED_STEPS_PER_CALL
-        and FUSED_STEPS_PER_CALL in trainer.seen_group_sizes,
-        "steps": fused["state"].step == per_step["state"].step == FUSED_TRAIN_STEPS,
-        "launches_per_replay": tally == {"nerf_mlp_fwd.launches": n_mlps, "nerf_mlp_bwd.launches": n_mlps}
-        if on_card else trainer.tally is None,
+        and trainer.dispatches >= steps // steps_per_call
+        and steps_per_call in trainer.seen_group_sizes,
+        "steps": fused["state"].step == per_step["state"].step == steps,
+        "launches_per_replay": tally == per_replay if on_card else trainer.tally is None,
         "k1_k3_per_step": fused_launches["nerf_mlp_fwd"] == fused_launches["nerf_mlp_bwd"]
-        == n_mlps * FUSED_TRAIN_STEPS == per_step_launches["nerf_mlp_fwd"],
+        == n_mlps * steps == per_step_launches["nerf_mlp_fwd"] == per_step_launches["nerf_mlp_bwd"]
+        and fused_launches["nerf_mlp_fwd_pipelined"] == 0 and (n_mlps > 0) == bool(keys),
         # bit for bit where the per-step loop itself is; otherwise no further than it is from itself
         "equal_to_per_step": fused_equal if per_step_equal else fused_gap <= per_step_gap,
         "test_metrics_finite": all(math.isfinite(v) for v in fused["test_stats"].values()),
     }
     numbers = dict(
-        config=CONFIG.name, steps=FUSED_TRAIN_STEPS, steps_per_call=FUSED_STEPS_PER_CALL, train_frames=FUSED_TRAIN_FRAMES,
+        config=Path(config).name, steps=steps, steps_per_call=steps_per_call, train_frames=FUSED_TRAIN_FRAMES,
         dispatches=trainer.dispatches, fused_steps=trainer.steps, group_sizes=sorted(trainer.seen_group_sizes),
         capture_s=trainer.capture_s, launches_per_replay=tally, step_s=step_s,
         fused_ms_per_step=1e3 * step_s["fused"][-1], per_step_ms_per_step=1e3 * step_s["per_step"][-1],
         run_s={"fused": fused_run_s, "per_step": per_step_run_s}, launches=fused_launches,
+        per_step_launches=per_step_launches,
         per_step_runs_bit_equal=per_step_equal, per_step_max_param_diff=per_step_gap,
         fused_bit_equal_to_per_step=fused_equal, fused_max_param_diff=fused_gap,
         test_stats=fused["test_stats"], checks=checks,
     )
     return numbers, fused_launches
+
+
+def family_frame(torch, K1, K3, service, card_line: str, config_name: str):
+    """One frame of a family with no NeRF-MLP kernel: RGB finite and in [0, 1], no launch of K1, K2 or K3."""
+    import numpy as np
+
+    from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose
+
+    pose_world = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
+    K1.launches = K1.pipelined_launches = K3.launches = 0
+    t = time.perf_counter()
+    rgb, depth = service.render(pose_world, service.default_focal)
+    frame_s = time.perf_counter() - t
+    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                "nerf_mlp_bwd": K3.launches}
+    checks = {
+        "finite": bool(np.isfinite(rgb).all() and np.isfinite(depth).all()),
+        "rgb_in_0_1": bool(rgb.min() >= 0.0 and rgb.max() <= 1.0),
+        "shape": rgb.shape == (*service.image_hw, 3),
+        "no_nerf_mlp_kernel": launches == NO_LAUNCHES,
+    }
+    say(card_line, "frame", config=config_name, frame_s=frame_s, launches=launches, mean_rgb=float(rgb.mean()),
+        checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"{config_name} frame phase failed: {checks}")
+    return launches
+
+
+def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, train_rays: int = FAMILY_TRAIN_RAYS):
+    """The card against the CPU for a family with no kernel: one eval chunk and one train step, in float32.
+
+    The same weights, batch and draws on both (``compute_dtype`` overridden
+    to float32, TF32 off): the chunk's outputs (both passes) within
+    FAMILY_ATOL, the objectives within FAMILY_OBJECTIVE_RTOL relative and
+    each parameter tensor's gradient at a cosine >= FAMILY_MIN_GRAD_COSINE.
+    The train step runs twice on the card; whether the two runs' gradients
+    are bit-equal is printed (the hash grid's scatter-add backward).
+    """
+    from yanerf_tpu_torch.datasets import BlenderDataset
+    from yanerf_tpu_torch.ops.structures import EvaluationMode
+    from yanerf_tpu_torch.pipelines import PIPELINES
+    from yanerf_tpu_torch.runners import TrainState, create_optimizer, make_step_draws, make_train_step, prepare_batch
+    from yanerf_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(str(config))
+    cfg.merge_from_dict({"pipeline.model.compute_dtype": "float32",
+                         "pipeline.ray_sampler.n_rays_per_image_sampled_from_mask": train_rays})
+    cpu = torch.device("cpu")
+    pipes = {"cpu": PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(7), device=cpu)}
+    for name in ("card", "card_again"):
+        pipes[name] = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(7), device=DEVICE)
+        pipes[name].load_state_dict(pipes["cpu"].state_dict())
+    dataset = BlenderDataset(scene, "train")
+    data = tuple(x[None] for x in dataset[0])
+
+    def eval_chunk(pipe):
+        """The eval chunk of ``eval_rays`` rays from the middle row of the frame on, through both passes."""
+        batch = prepare_batch(data, dataset.data_wrapper, pipe.device)
+        with torch.no_grad():
+            bundle = pipe.ray_sampler(batch["poses"], batch["focal_lengths"], EvaluationMode.EVALUATION)
+            start = (bundle.origins.shape[1] // 2) * bundle.origins.shape[2]
+            o, d, l, xys = (t.reshape(1, -1, 1, t.shape[-1])[:, start:start + eval_rays] for t in bundle)
+            out = pipe.renderer(o, d, l, xys, None, evaluation_mode=EvaluationMode.EVALUATION,
+                                implicit_functions=[pipe._bind_model(fn, {}, False) for fn in pipe.implicit_functions])
+        stages = []
+        while out is not None:
+            stages.append({k: getattr(out, k).cpu() for k in ("features", "depths", "alpha_masks")})
+            out = out.prev_stage
+        return stages
+
+    chunks = {name: eval_chunk(pipes[name]) for name in ("cpu", "card")}
+    chunk_err = max(float((a[k] - b[k]).abs().max()) for a, b in zip(chunks["cpu"], chunks["card"]) for k in a)
+
+    draws = make_step_draws(pipes["cpu"], 1, seed=3, step=0)
+    out = {}
+    for name, pipe in pipes.items():
+        batch = prepare_batch(data, dataset.data_wrapper, pipe.device)
+        moved = {k: [t.to(pipe.device) for t in v] if isinstance(v, list) else v.to(pipe.device)
+                 for k, v in draws.items()}
+        state = TrainState(pipeline=pipe, optimizer=create_optimizer(cfg.runner, pipe), step=0)
+        preds = make_train_step(pipe, cfg.runner, 0)(state, batch, moved)
+        sync(torch)
+        out[name] = (float(preds["objective"].mean()), {k: p.grad.cpu() for k, p in pipe.named_parameters()})
+    (obj_cpu, grads_cpu), (obj_card, grads_card), (_, grads_again) = out["cpu"], out["card"], out["card_again"]
+    grad_cos = {k: cosine(torch, grads_card[k], g) for k, g in grads_cpu.items()}
+    worst = min(grad_cos, key=grad_cos.get)
+    bit_equal_twice = all(torch.equal(grads_card[k], grads_again[k]) for k in grads_card)
+    checks = {
+        "eval_chunk": chunk_err <= FAMILY_ATOL,
+        "objective": abs(obj_card - obj_cpu) <= FAMILY_OBJECTIVE_RTOL * abs(obj_cpu) and math.isfinite(obj_card),
+        "grad_cosine": grad_cos[worst] >= FAMILY_MIN_GRAD_COSINE,
+        "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads_card.values()),
+    }
+    return dict(config=Path(config).name, eval_rays=eval_rays, train_rays=train_rays, eval_chunk_max_abs_err=chunk_err,
+                atol=FAMILY_ATOL, objective_card=obj_card, objective_cpu=obj_cpu, objective_rtol=FAMILY_OBJECTIVE_RTOL,
+                worst_grad_cosine=grad_cos[worst], worst_grad_tensor=worst, min_grad_cosine=FAMILY_MIN_GRAD_COSINE,
+                tables_grad_cosine=[c for k, c in grad_cos.items() if ".tables." in k],
+                card_step_bit_equal_twice=bit_equal_twice, checks=checks)
 
 
 def step_equivalence(torch, scene: Path, config=None):
@@ -649,6 +795,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
+    from yanerf_tpu_torch.models import NeRFMLP
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
     from yanerf_tpu_torch.pipelines import set_nerf_mlp_option
@@ -674,7 +821,8 @@ def main() -> int:
         cfg = Config.fromfile(str(config))
         set_nerf_mlp_option(cfg, "use_pallas", True)
         service = service_from_config(cfg, checkpoint=None, device="cuda", seed=0)
-        nerf_mlps = [fn for fn in service._pipeline.implicit_functions if hasattr(fn, "use_pallas")]
+        # by type: MipNeRFMLP subclasses NeRFMLP but has no kernel
+        nerf_mlps = [fn for fn in service._pipeline.implicit_functions if type(fn) is NeRFMLP]
         if not nerf_mlps or not all(fn.use_pallas for fn in nerf_mlps):
             raise SystemExit(f"the config override did not turn the NeRF-MLP kernel on in {config}")
         return service, nerf_mlps
@@ -717,6 +865,16 @@ def main() -> int:
     del service, nerf_mlps
     torch.cuda.empty_cache()
 
+    # the families with no NeRF-MLP kernel: a frame of each, lego_ngp.yml also over HTTP
+    new_paths = {}
+    for name, config in (("ngp", NGP_CONFIG), ("mip", MIP_CONFIG)):
+        service = service_from_config(Config.fromfile(str(config)), checkpoint=None, device="cuda", seed=0)
+        if name == "ngp":
+            new_paths["ngp_serve"] = serve(torch, K1, K3, service, card_line, config.name, 0)
+        new_paths[f"{name}_frame"] = family_frame(torch, K1, K3, service, card_line, config.name)
+        del service
+        torch.cuda.empty_cache()
+
     # 5. train and 6. step equivalence, on a scene written from a seed
     train_launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -746,6 +904,29 @@ def main() -> int:
                 raise SystemExit(f"{name} step equivalence failed: {step['checks']}")
             torch.cuda.empty_cache()
 
+        # the hash grid per step at 8192 rays, the mip-NeRF family fused (steps_per_call 8) and per step
+        numbers, new_paths["ngp_train"] = train(torch, K1, K3, scene, Path(tmp) / "results_ngp", NGP_CONFIG,
+                                                NGP_TRAIN_STEPS)
+        say(card_line, "train", scene_write_s=scene_s, **numbers)
+        if not all(numbers["checks"].values()):
+            raise SystemExit(f"ngp train phase failed: {numbers['checks']}")
+        torch.cuda.empty_cache()
+        mip_numbers, new_paths["mip_train_fused"] = fused_train(torch, K1, K3, fused_scene, Path(tmp) / "results_mip",
+                                                                MIP_CONFIG, MIP_FUSED_TRAIN_STEPS, MIP_STEPS_PER_CALL)
+        new_paths["mip_train_per_step"] = mip_numbers["per_step_launches"]
+        say(card_line, "fused", **mip_numbers)
+        if not all(mip_numbers["checks"].values()):
+            raise SystemExit(f"mip fused phase failed: {mip_numbers['checks']}")
+        torch.cuda.empty_cache()
+
+        # the card against the CPU for both families
+        for config in (MIP_CONFIG, NGP_CONFIG):
+            family = family_check(torch, scene, config)
+            say(card_line, "family", **family)
+            if not all(family["checks"].values()):
+                raise SystemExit(f"{config.name} family phase failed: {family['checks']}")
+            torch.cuda.empty_cache()
+
     def entry(name, source, replaces, numbers, launches_by_path):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -761,6 +942,7 @@ def main() -> int:
         paths.update({f"{name}_train": launches[kernel] for name, launches in train_launches.items()
                       if name != "proposal_fused"})
         paths["proposal_train_fused"] = train_launches["proposal_fused"][kernel]
+        paths.update({name: launches[kernel] for name, launches in new_paths.items()})
         return paths
 
     record = {
@@ -776,6 +958,9 @@ def main() -> int:
     missing = [k["name"] for k in record["kernels"] if k["launches"] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on their paths: {missing}")
+    refused = {name: launches for name, launches in new_paths.items() if launches != NO_LAUNCHES}
+    if refused:
+        raise SystemExit(f"a NeRF-MLP kernel ran on a path whose models refuse it: {refused}")
     say(card_line, "total", seconds=time.perf_counter() - t_start)
     print(json.dumps(record))
     print(card_line)

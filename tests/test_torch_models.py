@@ -114,5 +114,5 @@ def test_torch_inits_have_the_reference_bounds():
 def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError):
         MODELS.build(dict(NERF_CFG, latent_dim=4))
-    with pytest.raises(NotImplementedError):
-        MODELS.build(dict(type="MipNeRFMLP"))
+    with pytest.raises(NotImplementedError, match="contract_coords"):
+        MODELS.build(dict(type="HashGridNeRF", contract_coords=True, scene_bound=2.0))

@@ -42,10 +42,10 @@ def test_registry_builds_and_reports_unported_components():
     assert reg.build({"type": "Thing", "size": 3}).size == 3
     with pytest.raises(KeyError):
         reg.build({"type": "Other"})
-    from yanerf_tpu_torch.models import MODELS
+    from yanerf_tpu_torch.datasets import DATASETS
 
-    with pytest.raises(NotImplementedError, match="MipNeRFMLP"):
-        MODELS.build({"type": "MipNeRFMLP"})
+    with pytest.raises(NotImplementedError, match="LLFFDataset"):
+        DATASETS.build({"type": "LLFFDataset"})
 
 
 def test_png_and_gif_encoders_round_trip_through_pil():

@@ -1,12 +1,11 @@
-"""Implicit-function models of the port (``nn.Module``s)."""
+"""Implicit-function models of the port (``nn.Module``s): every model of the JAX package's registry."""
 
 from __future__ import annotations
 
-from ..utils.registry import register_not_ported
 from .builder import MODELS
-from .nerf_mlp import NeRFMLP
+from .hash_grid import HashGridNeRF
+from .mip_nerf import MipNeRFMLP
+from .nerf_mlp import NeRFMLP, ZeroOutputer
 from .proposal_mlp import ProposalMLP
 
-register_not_ported(MODELS, ("MipNeRFMLP", "HashGridNeRF", "ZeroOutputer"))
-
-__all__ = ["MODELS", "NeRFMLP", "ProposalMLP"]
+__all__ = ["MODELS", "HashGridNeRF", "MipNeRFMLP", "NeRFMLP", "ProposalMLP", "ZeroOutputer"]

@@ -13,6 +13,9 @@ so both packages read the same configs; in TRAINING the pipeline passes
   * the fused kernels (``ops/kernels/fused_mlp.py``): forward K1
     (``nerf_mlp_fwd``) and, under autograd, backward K3 (``nerf_mlp_bwd``),
     the CUDA kernels on the card, their plain versions on the CPU.
+The eager path is the point embedding (``_embed_points``) and the rest
+(``_from_embedding``), so that ``MipNeRFMLP`` replaces only the embedding.
+``ZeroOutputer`` is the reference's analytic test model.
 
 Latent conditioning and contracted coordinates are not ported yet.
 """
@@ -154,6 +157,20 @@ class NeRFMLP(nn.Module):
             color = F.relu(linear(layer, color, cd))
         return torch.sigmoid(linear(self.color_layer[-1], color, cd).to(torch.float32))
 
+    def _embed_points(self, origins: torch.Tensor, directions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """The harmonic embedding of the ray points ``(B, *spatial, P, embedding_dim_xyz)``; subclasses replace it."""
+        points = ray_bundle_to_ray_points(origins, directions, lengths)
+        return harmonic_embedding(
+            points, self.n_harmonic_functions_xyz, append_input=self.harmonic_functions_xyz_append_intput
+        )
+
+    def _from_embedding(self, embeds: torch.Tensor, directions: torch.Tensor) -> Dict[str, Any]:
+        """The eager path after the embedding: ``xyz_encoder``, the density head and the color head."""
+        features = self.xyz_encoder(embeds)
+        raw_densities = linear(self.density_layer, features, self.compute_dtype).to(torch.float32)
+        rays_colors = self._get_colors(features, directions)
+        return dict(rays_densities=raw_densities, rays_features=rays_colors, aux={})
+
     def forward(
         self,
         origins: torch.Tensor,
@@ -166,9 +183,9 @@ class NeRFMLP(nn.Module):
         """Densities ``(B, *spatial, P, 1)`` and colors ``(B, *spatial, P, C)`` at all ray points."""
         if global_codes is not None:
             raise ValueError(f"global_codes given but latent_dim is {self.latent_dim}")
-        points = ray_bundle_to_ray_points(origins, directions, lengths)
         use_pallas = self.use_pallas if use_pallas is None else use_pallas
         if use_pallas:
+            points = ray_bundle_to_ray_points(origins, directions, lengths)
             *lead, n_pts, _ = points.shape
             out = fused_nerf_mlp(
                 self, points.reshape(-1, 3).contiguous(), directions.reshape(-1, 3).contiguous(), n_pts
@@ -178,11 +195,26 @@ class NeRFMLP(nn.Module):
                 rays_features=out[:, 1:].reshape(*lead, n_pts, self.color_dim),
                 aux={},
             )
+        return self._from_embedding(self._embed_points(origins, directions, lengths), directions)
 
-        embeds = harmonic_embedding(
-            points, self.n_harmonic_functions_xyz, append_input=self.harmonic_functions_xyz_append_intput
-        )
-        features = self.xyz_encoder(embeds)
-        raw_densities = linear(self.density_layer, features, self.compute_dtype).to(torch.float32)
-        rays_colors = self._get_colors(features, directions)
-        return dict(rays_densities=raw_densities, rays_features=rays_colors, aux={})
+
+@MODELS.register_module()
+class ZeroOutputer(nn.Module):
+    """Zero densities and colors at every ray point, for analytic tests (``yanerf_tpu``'s ``ZeroOutputer``).
+
+    Its one parameter, ``dummy``, keeps the optimizer and the weight bridge
+    uniform; the outputs depend on it only through ``dummy * 0``.
+    """
+
+    def __init__(self, generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.dummy = nn.Parameter(torch.zeros(1))
+
+    def forward(self, origins: torch.Tensor, directions: torch.Tensor, lengths: torch.Tensor,
+                global_codes: Optional[torch.Tensor] = None, **kwargs) -> Dict[str, Any]:
+        batch, *spatial, _ = origins.shape
+        n_pts = lengths.shape[-1]
+        zero = self.dummy[0] * 0.0
+        densities = torch.zeros((batch, *spatial, n_pts, 1), dtype=origins.dtype, device=origins.device) + zero
+        colors = torch.zeros((batch, *spatial, n_pts, 3), dtype=origins.dtype, device=origins.device) + zero
+        return dict(rays_densities=densities, rays_features=colors, aux={})

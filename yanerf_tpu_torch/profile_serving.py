@@ -4,7 +4,9 @@
 
 Builds the service of ``--config`` (``configs/nerf/lego_proposal.yml`` by
 default) with the NeRF-MLP kernel on for every NeRFMLP of the config
-(seeded random weights), renders one warm-up frame, times
+(seeded random weights; a config with no NeRFMLP, such as
+``synth800_mip.yml`` or ``lego_ngp.yml``, runs its models' own eager
+paths and prints ``"kernels": []``), renders one warm-up frame, times
 ``--frames`` frames on the host clock, then profiles one more and prints
 one JSON line: frame seconds, device busy time, the device's idle share,
 kernel launches per frame and the device time of the top kernels. Needs a
@@ -29,6 +31,12 @@ CONFIG = "configs/nerf/lego_proposal.yml"
 TOP_KERNELS = 12
 
 
+def serving_config(path: str):
+    """The config of ``path`` with the NeRF-MLP kernel on, and the kernels the frame launches (none without a NeRFMLP)."""
+    cfg = Config.fromfile(path)
+    return cfg, ["nerf_mlp_fwd"] if set_nerf_mlp_option(cfg, "use_pallas", True) else []
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", default=CONFIG)
@@ -39,8 +47,7 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    cfg = Config.fromfile(args.config)
-    set_nerf_mlp_option(cfg, "use_pallas", True)
+    cfg, nerf_mlp_kernels = serving_config(args.config)
     service = service_from_config(cfg, device="cuda", seed=0)
     pose = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
     service.render(pose, service.default_focal)
@@ -69,6 +76,7 @@ def main(argv=None) -> None:
             {
                 "card": card,
                 "config": args.config,
+                "kernels": nerf_mlp_kernels,
                 "frame_s": frame_s,
                 "profiled_frame_s": profiled_s,
                 "device_busy_s": busy_us / 1e6,

@@ -5,7 +5,9 @@
 
 Builds the pipeline of ``--config`` (``configs/nerf/lego_proposal.yml`` by
 default) with the fused NeRF-MLP kernels on for training on every NeRFMLP
-of the config (``use_pallas_train``; ``--eager`` turns them off), seeded
+of the config (``use_pallas_train``; ``--eager`` turns them off; a config
+with no NeRFMLP, such as ``synth800_mip.yml`` or ``lego_ngp.yml``, runs its
+models' own eager paths and prints ``"kernels": []``), seeded
 random weights, Adam with the config's schedule, and one
 random 800x800 image as the batch. It takes three warm-up steps, times
 ``--steps`` steps on the host clock (ending in a synchronize), then profiles
@@ -42,6 +44,14 @@ CONFIG = "configs/nerf/lego_proposal.yml"
 TOP_KERNELS = 12
 
 
+def training_config(path: str, eager: bool = False):
+    """The config of ``path`` with the fused NeRF-MLP kernels on (off with ``eager``), and the kernels a step
+    launches (none without a NeRFMLP)."""
+    cfg = Config.fromfile(path)
+    keys = set_nerf_mlp_option(cfg, "use_pallas_train", not eager)
+    return cfg, ["nerf_mlp_fwd", "nerf_mlp_bwd"] if keys and not eager else []
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", default=CONFIG)
@@ -55,8 +65,7 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    cfg = Config.fromfile(args.config)
-    set_nerf_mlp_option(cfg, "use_pallas_train", not args.eager)
+    cfg, nerf_mlp_kernels = training_config(args.config, args.eager)
     device = torch.device("cuda")
     pipeline = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(0), device=device)
     state = TrainState(pipeline=pipeline, optimizer=create_optimizer(cfg.runner, pipeline), step=0)
@@ -114,7 +123,7 @@ def main(argv=None) -> None:
             {
                 "card": card,
                 "config": args.config,
-                "nerf_mlp": "eager" if args.eager else "fused kernels (K1 forward, K3 backward)",
+                "kernels": nerf_mlp_kernels,
                 "steps_per_call": per_call,
                 "capture_s": capture_s,
                 "ms_per_step": step_s * 1e3,
