@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Four configurations at their published widths, random weights from a seed:
+Eight configurations at their published widths, random weights from a seed:
 configs/nerf/lego_proposal.yml ("proposal": two 4x128 ProposalMLPs and one
 8x256 NeRFMLP at 48 points per ray), configs/nerf/lego.yml ("classic":
 two 8x256 NeRFMLPs, coarse at 64 points per ray, fine at 64 + 128 merged
@@ -10,8 +10,14 @@ and sorted), and the two families with no NeRF-MLP kernel on lego.yml's
 multipass renderer: configs/nerf/synth800_mip.yml ("mip": two 8x256
 MipNeRFMLPs on the integrated positional encoding, softplus densities) and
 configs/nerf/lego_ngp.yml ("ngp": two HashGridNeRFs, 16 levels of 2^19
-rows, 64-wide MLPs, 8192 rays per step). Phases, each printing its numbers
-on a line of its own with the card's name and power limit:
+rows, 64-wide MLPs, 8192 rays per step); then LLFF captures, NDC rays and
+unbounded scenes: configs/nerf/fern_ndc_proposal.yml ("ndc": the proposal
+estimator on NDC rays), synth_llff_360_unbounded.yml ("unbounded": all
+three models on contracted points, disparity spacing, per-image bounds),
+synth_llff.yml (the classic pair on per-image metric bounds) and
+synth800_proposal.yml (the proposal estimator with its eval-only content
+box). Phases, each printing its numbers on a line of its own with the
+card's name and power limit:
   1. build   compile every kernel of the serving and training paths from
              the sources in this checkout, one nvcc per source, all started
              together: the NeRF-MLP forward (K1), its pipelined twin (K2)
@@ -32,7 +38,11 @@ on a line of its own with the card's name and power limit:
              step's coarse (4096 x 64) and fine (4096 x 192) shapes; each
              K3 line also gives the device time of each of K3's passes and
              its yardstick, the eager NeRFMLP's forward + autograd backward
-             (eager_ms), timed in turns with K1 + K3 (k1_k3_ms);
+             (eager_ms), timed in turns with K1 + K3 (k1_k3_ms); K1 and K3
+             again on NDC points (inside [-1, 1]^3) and on contracted
+             points (|x| < 2) at the LLFF train step (1024 x 48) and
+             fern_ndc_proposal's eval chunk (2027 x 32), K1 also at
+             synth_llff_360_unbounded's (15876 x 32);
   3. serve   for each configuration, the HTTP server on 127.0.0.1 with the
              NeRF-MLP kernel switched on answers GET /render, POST /render
              and GET /health at 800x800; K1 is launched exactly once per
@@ -81,9 +91,21 @@ on a line of its own with the card's name and power limit:
              train step at 512 rays on the card and on the CPU: the chunk's
              outputs within 1e-4, the objectives within 1e-4 relative, each
              parameter tensor's gradient (every table) at a cosine >= 0.9999;
-             the card's step twice, whether its gradients are bit-equal.
+             the card's step twice, whether its gradients are bit-equal;
+  9. llff    write two 504x378 LLFF scenes of 24 views from a seed
+             (``yanerf_tpu_torch.synth_llff``: forward-facing, and an orbit
+             with 16 spheres 80-200 units away); a test view of ndc and of
+             unbounded, and an 800x800 synth800_proposal frame, each with K1
+             (once per chunk and NeRFMLP) and with its plain version, PSNR
+             >= 40 dB; ndc and unbounded trained fused (steps_per_call 20,
+             two epochs of 21 steps) against two per-step runs, K1 and K3
+             once per replay, the objective finite at every step, every
+             parameter moved; synth_llff.yml one epoch per step through the
+             host DataLoader; and "family" for ndc and unbounded.
 
-Any failure exits non-zero. Imports nothing of JAX or of yanerf_tpu. The
+Any failure exits non-zero, and so does a run in which K1 or K3 did not
+launch on an LLFF training path or K1 on an LLFF frame. Imports nothing of
+JAX or of yanerf_tpu. The
 last three lines are the kernels' JSON record, the card's name and power
 limit, and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -108,6 +130,10 @@ CONFIG = REPO / "configs" / "nerf" / "lego_proposal.yml"
 CLASSIC_CONFIG = REPO / "configs" / "nerf" / "lego.yml"
 MIP_CONFIG = REPO / "configs" / "nerf" / "synth800_mip.yml"
 NGP_CONFIG = REPO / "configs" / "nerf" / "lego_ngp.yml"
+NDC_CONFIG = REPO / "configs" / "nerf" / "fern_ndc_proposal.yml"
+UNBOUNDED_CONFIG = REPO / "configs" / "nerf" / "synth_llff_360_unbounded.yml"
+LLFF_CLASSIC_CONFIG = REPO / "configs" / "nerf" / "synth_llff.yml"
+AABB_CONFIG = REPO / "configs" / "nerf" / "synth800_proposal.yml"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FRAMES_PER_RUN = 2  # frames rendered in the serve phase (GET and POST /render)
@@ -143,6 +169,14 @@ FAMILY_ATOL = 1e-4  # card against CPU in float32, TF32 off: sums in another ord
 FAMILY_OBJECTIVE_RTOL = 1e-4
 FAMILY_MIN_GRAD_COSINE = 0.9999
 NO_LAUNCHES = {"nerf_mlp_fwd": 0, "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0}
+LLFF_HW = (378, 504)  # the LLFF configs' size (fern's 4032x3024 at factor 8)
+# 3 holdout views at test_skip 8 and 21 train views: an epoch holds the vis step and a whole group of 20;
+# the fused runs take two epochs (42 steps), synth_llff.yml per step one (21)
+LLFF_IMAGES = 24
+LLFF_TRAIN_RAYS = 1024  # fern.yml's n_rays_per_image_sampled_from_mask, all four LLFF configs
+NDC_EVAL_CHUNK = (2027, 32)  # fern_ndc_proposal: 94 chunks of 378*504 rays at 64 points, 32 final points
+UNBOUNDED_EVAL_CHUNK = (15876, 32)  # synth_llff_360_unbounded (chunk_size_grid 2^20): 12 chunks
+UNBOUNDED_FAR = (80.0, 200.0)  # the config's scene: --distant_spheres 16 --distant_min 80 --distant_max 200
 
 
 def card() -> str:
@@ -207,14 +241,14 @@ def k1_bound(K1, packed, points, dirs):
     return flops, bound(flops, points.numel() * 4 + dirs.numel() * 4 + out_bytes + K1.weight_bytes(packed))
 
 
-def check_k1(torch, K1, nerf_mlp, packed, n_rays: int, pts_per_ray: int, gen):
-    """K1 against its plain version at ``n_rays`` x ``pts_per_ray`` ray points; returns its numbers.
+def check_k1(torch, K1, nerf_mlp, packed, n_rays: int, pts_per_ray: int, gen, kind: str = "world"):
+    """K1 against its plain version at ``n_rays`` x ``pts_per_ray`` ray points of ``kind``; returns its numbers.
 
     Times: K1 and its plain version (CUDA events), and the yardstick K1 wins
     or loses against: the eager NeRFMLP's bf16 forward under
     ``torch.no_grad()`` on the same rays (``eager_ms``), in turns with K1.
     """
-    origins, ray_dirs, lengths, points = ray_inputs(torch, n_rays, pts_per_ray, gen)
+    origins, ray_dirs, lengths, points = ray_inputs(torch, n_rays, pts_per_ray, gen, kind)
     dirs = ray_dirs.reshape(-1, 3).contiguous()
     out = K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray)
     torch.cuda.synchronize()
@@ -227,7 +261,7 @@ def check_k1(torch, K1, nerf_mlp, packed, n_rays: int, pts_per_ray: int, gen):
     k1 = lambda: K1.nerf_mlp_fwd(packed, points, dirs, pts_per_ray)  # noqa: E731
 
     def eager():
-        with torch.no_grad():
+        with torch.no_grad(), contracting(nerf_mlp, kind == "contracted"):
             nerf_mlp(origins, ray_dirs, lengths, use_pallas=False)
 
     k1_turns = [time_ms(torch, k1)]
@@ -236,8 +270,9 @@ def check_k1(torch, K1, nerf_mlp, packed, n_rays: int, pts_per_ray: int, gen):
     kernel_ms = sum(k1_turns) / 2
     plain_ms = time_ms(torch, lambda: K1.nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray), iters=5)
     flops, (bound_ms, bound_by) = k1_bound(K1, packed, points, dirs)
-    return dict(points=points.shape[0], max_abs_err=max_abs_err, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=kernel_ms,
-                ms_turns=k1_turns, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+    return dict(points=points.shape[0], **input_range(points), max_abs_err=max_abs_err, atol=KERNEL_ATOL,
+                rtol=KERNEL_RTOL, ms=kernel_ms, ms_turns=k1_turns, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, gflop=flops / 1e9,
                 achieved_tflops=flops / kernel_ms / 1e9, eager_ms=sum(eager_turns) / 2, eager_ms_turns=eager_turns)
 
 
@@ -270,14 +305,63 @@ def check_k2(torch, K1, packed, n_rays: int, pts_per_ray: int, gen, timed: bool)
     return numbers
 
 
-def ray_inputs(torch, n_rays: int, pts_per_ray: int, gen):
-    """A ray bundle ((1, R, 3) origins and directions, (1, R, P) sorted lengths) and its (R * P, 3) points."""
-    from yanerf_tpu_torch.ops.rays import ray_bundle_to_ray_points
+def ray_inputs(torch, n_rays: int, pts_per_ray: int, gen, kind: str = "world"):
+    """A ray bundle ((1, R, 3) origins and directions, (1, R, P) sorted lengths) and its (R * P, 3) points.
 
-    origins = (torch.rand(1, n_rays, 3, generator=gen) * 2.0 - 1.0).cuda()
-    dirs = torch.randn(1, n_rays, 3, generator=gen).cuda()
-    lengths = torch.sort(torch.rand(1, n_rays, pts_per_ray, generator=gen) * 2.0 + 0.5, dim=-1).values.cuda()
-    return origins, dirs, lengths, ray_bundle_to_ray_points(origins, dirs, lengths).reshape(-1, 3).contiguous()
+    ``kind``: ``world``, rays through [-1, 1]^3 at depths in [0.5, 2.5]
+    (points within ~[-1.5, 1.5]^3 and beyond); ``ndc``, the pixels of a
+    504x378 camera looking down -z (an LLFF capture's average view) warped
+    into NDC, lengths in [0, 1], the points inside [-1, 1]^3; ``contracted``,
+    rays from inside the unit ball with disparity-spaced lengths out to 200
+    (the unbounded scene's far spheres), the points those the model's
+    contraction gives the kernel (|x| < 2). The points are what
+    ``NeRFMLP._points`` hands the kernel for this bundle.
+    """
+    from yanerf_tpu_torch.ops.rays import contract_points, ndc_ray_bundle, ray_bundle_to_ray_points
+    from yanerf_tpu_torch.ops.structures import RayBundle
+
+    rand = lambda *shape: torch.rand(*shape, generator=gen)  # noqa: E731
+    if kind == "ndc":
+        h, w = LLFF_HW
+        focal = 0.5 * w / math.tan(0.5 * 0.6911112070083618)
+        xy = rand(1, n_rays, 2) * torch.tensor([w, h])
+        cam = torch.stack([(xy[..., 0] - w * 0.5) / focal, (xy[..., 1] - h * 0.5) / focal, torch.ones(1, n_rays)], -1)
+        dirs = cam * torch.tensor([1.0, -1.0, -1.0])
+        origins = (rand(1, n_rays, 3) - 0.5) * torch.tensor([0.2, 0.2, 0.0])
+        bundle = ndc_ray_bundle(RayBundle(origins, dirs, rand(1, n_rays, 1), xy), w, h, torch.tensor([[focal]]))
+        origins, dirs = bundle.origins, bundle.directions
+        lengths = torch.sort(rand(1, n_rays, pts_per_ray), dim=-1).values
+    elif kind == "contracted":
+        origins = rand(1, n_rays, 3) - 0.5
+        dirs = torch.randn(1, n_rays, 3, generator=gen)
+        dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+        near, far = 0.2, UNBOUNDED_FAR[1]
+        lengths = torch.sort(1.0 / (1.0 / far + rand(1, n_rays, pts_per_ray) * (1.0 / near - 1.0 / far)), dim=-1).values
+    else:
+        origins = rand(1, n_rays, 3) * 2.0 - 1.0
+        dirs = torch.randn(1, n_rays, 3, generator=gen)
+        lengths = torch.sort(rand(1, n_rays, pts_per_ray) * 2.0 + 0.5, dim=-1).values
+    points = ray_bundle_to_ray_points(origins, dirs, lengths)
+    if kind == "contracted":
+        points = contract_points(points)
+    return origins.cuda(), dirs.cuda(), lengths.cuda(), points.reshape(-1, 3).contiguous().cuda()
+
+
+class contracting:
+    """``nerf_mlp.contract_coords`` set to ``on`` inside the block: the eager yardstick does the model's work."""
+
+    def __init__(self, nerf_mlp, on: bool):
+        self.nerf_mlp, self.on = nerf_mlp, on
+
+    def __enter__(self):
+        self.was, self.nerf_mlp.contract_coords = self.nerf_mlp.contract_coords, self.on
+
+    def __exit__(self, *exc):
+        self.nerf_mlp.contract_coords = self.was
+
+
+def input_range(points) -> dict:
+    return dict(points_max_abs=float(points.abs().max()), points_max_norm=float(points.norm(dim=-1).max()))
 
 
 def kernel_ms(torch, fn) -> dict:
@@ -298,7 +382,8 @@ def kernel_ms(torch, fn) -> dict:
     return out
 
 
-def check_k3(torch, K1, K3, nerf_mlp, packed, gen, n_rays: int = TRAIN_RAYS, pts_per_ray: int = TRAIN_PTS):
+def check_k3(torch, K1, K3, nerf_mlp, packed, gen, n_rays: int = TRAIN_RAYS, pts_per_ray: int = TRAIN_PTS,
+             kind: str = "world"):
     """K3 against its plain version at ``n_rays`` x ``pts_per_ray`` (a train step's shapes); returns its numbers.
 
     Per gradient tensor: cosine >= K3_MIN_COSINE, max abs error within
@@ -310,7 +395,7 @@ def check_k3(torch, K1, K3, nerf_mlp, packed, gen, n_rays: int = TRAIN_RAYS, pts
     on the same ray points and cotangents.
     """
     n_pts = n_rays * pts_per_ray
-    origins, ray_dirs, lengths, points = ray_inputs(torch, n_rays, pts_per_ray, gen)
+    origins, ray_dirs, lengths, points = ray_inputs(torch, n_rays, pts_per_ray, gen, kind)
     dirs = ray_dirs.reshape(-1, 3).contiguous()
     cot = (torch.randn(n_pts, 1 + packed.color_dim, generator=gen) / n_pts).cuda()
     gw, gb = K3.nerf_mlp_bwd(packed, points, dirs, pts_per_ray, cot)
@@ -350,7 +435,8 @@ def check_k3(torch, K1, K3, nerf_mlp, packed, gen, n_rays: int = TRAIN_RAYS, pts
         K3.nerf_mlp_bwd(packed, points, dirs, pts_per_ray, cot)
 
     def eager():
-        res = nerf_mlp(origins, ray_dirs, lengths, use_pallas=False)
+        with contracting(nerf_mlp, kind == "contracted"):
+            res = nerf_mlp(origins, ray_dirs, lengths, use_pallas=False)
         outs = (res["rays_densities"], res["rays_features"])
         torch.autograd.grad(outs, params, (cot[:, :1].reshape(outs[0].shape), cot[:, 1:].reshape(outs[1].shape)))
 
@@ -359,7 +445,8 @@ def check_k3(torch, K1, K3, nerf_mlp, packed, gen, n_rays: int = TRAIN_RAYS, pts
     k1_k3_turns.append(time_ms(torch, k1_k3, iters=10))
     flops = K3.flops_per_point(packed) * n_pts
     bound_ms, bound_by = bound(flops, K3.io_bytes(packed, n_pts, n_rays))
-    return dict(points=n_pts, max_abs_err=max_abs_err, worst_cosine=worst_cos, min_cosine=K3_MIN_COSINE,
+    return dict(points=n_pts, **input_range(points), max_abs_err=max_abs_err, worst_cosine=worst_cos,
+                min_cosine=K3_MIN_COSINE,
                 rel_atol=K3_REL_ATOL, padded_rows_zero=padded_zero, deterministic=deterministic, ms=k3_ms,
                 pass_ms=pass_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
                 achieved_tflops=flops / k3_ms / 1e9, k1_k3_ms=sum(k1_k3_turns) / 2, k1_k3_ms_turns=k1_k3_turns,
@@ -440,26 +527,37 @@ def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame
     return launches
 
 
-def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool):
-    """One frame with K1, [with K2 at the kernel entry,] and with the plain version; returns the launches."""
+def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool, view=None, k1_per_frame=None):
+    """One frame with K1, [with K2 at the kernel entry,] and with the plain version; returns the launches.
+
+    ``view`` is ``(pose 3x4, focal, min_depth, max_depth)`` (an LLFF test
+    view), else an orbit camera at the service's defaults; with
+    ``k1_per_frame`` K1 must run exactly that often (once per chunk and
+    NeRFMLP).
+    """
     import numpy as np
 
     from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose
 
-    pose_world = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
+    if view is None:
+        view = ((orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32), service.default_focal,
+                None, None)
+    pose_world, focal, lo, hi = view
     numbers, launches = {}, {}
     K1.launches = K1.pipelined_launches = 0
     t = time.perf_counter()
-    rgb_kernel, depth_kernel = service.render(pose_world, service.default_focal)
+    rgb_kernel, depth_kernel = service.render(pose_world, focal, lo, hi)
     numbers["kernel_frame_s"] = time.perf_counter() - t
     launches["nerf_mlp_fwd"] = K1.launches
     checks = {"finite": bool(np.isfinite(rgb_kernel).all())}
+    if k1_per_frame is not None:
+        checks["k1_once_per_chunk_and_nerf_mlp"] = launches["nerf_mlp_fwd"] == k1_per_frame > 0
     if with_k2:
         k1_entry = K1.nerf_mlp_fwd
         K1.launches = K1.pipelined_launches = 0
         with mock.patch.object(K1, "nerf_mlp_fwd", lambda *args, **kw: k1_entry(*args, pipelined=True, **kw)):
             t = time.perf_counter()
-            rgb_k2, depth_k2 = service.render(pose_world, service.default_focal)
+            rgb_k2, depth_k2 = service.render(pose_world, focal, lo, hi)
             numbers["k2_frame_s"] = time.perf_counter() - t
         launches["nerf_mlp_fwd_pipelined"] = K1.pipelined_launches
         checks["k2_frame_equals_k1_frame"] = bool(np.array_equal(rgb_k2, rgb_kernel) and
@@ -467,19 +565,74 @@ def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool):
         checks["k2_launches"] = K1.launches == 0 and K1.pipelined_launches == launches["nerf_mlp_fwd"] > 0
     with mock.patch.object(K1, "nerf_mlp_fwd", K1.nerf_mlp_fwd_plain):
         t = time.perf_counter()
-        rgb_plain, _ = service.render(pose_world, service.default_focal)
+        rgb_plain, _ = service.render(pose_world, focal, lo, hi)
         numbers["plain_frame_s"] = time.perf_counter() - t
     mse = float(np.mean((rgb_kernel.astype(np.float64) - rgb_plain) ** 2))
     numbers["psnr_db"] = -10.0 * math.log10(max(mse, 1e-20))
     checks["psnr"] = numbers["psnr_db"] >= MIN_FRAME_PSNR
     say(card_line, "frame", config=config_name, min_psnr_db=MIN_FRAME_PSNR, launches=launches,
-        mean_rgb=float(rgb_kernel.mean()), checks=checks, **numbers)
+        frame_hw=list(rgb_kernel.shape[:2]), mean_rgb=float(rgb_kernel.mean()), checks=checks, **numbers)
     if not all(checks.values()):
         raise SystemExit(f"{config_name} frame phase failed: {checks}")
     return launches
 
 
-def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
+class observe_run:
+    """Inside the block, record what ``yanerf_tpu_torch.run`` trains: the parameters it starts from and the
+    objective of every step, per step (``make_train_step``) and per fused dispatch (``FusedTrainStep``)."""
+
+    def __init__(self, torch):
+        import yanerf_tpu_torch.runners as runners
+        from yanerf_tpu_torch.runners import apis
+
+        self.torch = torch
+        self.initial, self.objectives = {}, []
+        make_step, dispatch = runners.make_train_step, apis.FusedTrainStep.__call__
+
+        def observed_step(pipeline, runner_config, seed, **kwargs):
+            self._start(pipeline)
+            step = make_step(pipeline, runner_config, seed, **kwargs)
+
+            def wrapped(state, batch, draws=None):
+                preds = step(state, batch, draws)
+                self.objectives.append(preds["objective"].flatten())
+                return preds
+
+            return wrapped
+
+        def observed_dispatch(trainer, state, arrays, idx):
+            self._start(trainer.pipeline)
+            hist = dispatch(trainer, state, arrays, idx)
+            self.objectives.append(hist["objective"].flatten())
+            return hist
+
+        self.patches = [mock.patch.object(runners, "make_train_step", observed_step),
+                        mock.patch.object(apis.FusedTrainStep, "__call__", observed_dispatch)]
+
+    def _start(self, pipeline):
+        if not self.initial:
+            self.initial.update({k: p.detach().clone() for k, p in pipeline.named_parameters()})
+
+    def __enter__(self):
+        for patch in self.patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self.patches:
+            patch.stop()
+
+    def moved(self, pipeline) -> int:
+        """How many parameter tensors of ``pipeline`` differ from where the run started."""
+        final = dict(pipeline.named_parameters())
+        return sum(int(not self.torch.equal(final[k].detach(), v)) for k, v in self.initial.items())
+
+    def objective(self):
+        """Every step's objective, in order, on the host."""
+        return self.torch.cat([o.float().cpu() for o in self.objectives])
+
+
+def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, extra_options=()):
     """Train ``config`` on ``scene`` through ``yanerf_tpu_torch.run``; returns its checks and numbers.
 
     Every NeRFMLP of the config trains on K1 and K3 (once per step each); a
@@ -495,23 +648,8 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
     keys = nerf_mlp_keys(config)
     argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir), "--cfg_options",
             *(f"{key}.use_pallas_train=True" for key in keys), f"runner.num_iters={steps}", "runner.steps_per_call=1",
-            *(f"datasets.{i}.base_dir={scene}" for i in range(3))]
-    # observe the run: the parameters it starts from and every step's objective
-    objectives, initial = [], {}
-    make_train_step = runners.make_train_step
-
-    def observed(pipeline, runner_config, seed, **kwargs):
-        initial.update({k: p.detach().clone() for k, p in pipeline.named_parameters()})
-        step = make_train_step(pipeline, runner_config, seed, **kwargs)
-
-        def wrapped(state, batch, draws=None):
-            preds = step(state, batch, draws)
-            objectives.append(preds["objective"])
-            return preds
-
-        return wrapped
-
-    with mock.patch.object(runners, "make_train_step", observed):
+            *(f"datasets.{i}.base_dir={scene}" for i in range(3)), *extra_options]
+    with observe_run(torch) as seen:
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
         K1.launches = K1.pipelined_launches = K3.launches = 0
@@ -522,12 +660,13 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
         launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
                     "nerf_mlp_bwd": K3.launches}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
+    initial, objectives = seen.initial, seen.objectives
 
     state = result["state"]
     n_steps = state.step
     final = dict(state.pipeline.named_parameters())
-    moved = sum(int(not torch.equal(final[k].detach(), v)) for k, v in initial.items())
-    objective = torch.cat([o.flatten() for o in objectives]).float().cpu()
+    moved = seen.moved(state.pipeline)
+    objective = seen.objective()
 
     cfg = Config.fromfile(str(result["output_dir"] / "config.yml"))
     fresh = PIPELINES.build(cfg.pipeline, device=DEVICE)
@@ -565,12 +704,16 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None):
     return numbers, launches
 
 
-def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, steps_per_call=None):
+def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, steps_per_call=None,
+                extra_options=(), train_frames=FUSED_TRAIN_FRAMES):
     """The CLI of ``config`` with ``steps_per_call`` (fused) and twice with 1 (per step), from the same start.
 
-    On the device cache, as both configs ship: lego_proposal.yml (the
-    default) with ``use_pallas_train`` on its NeRFMLP, K1 and K3 once per
-    replay; synth800_mip.yml, which has no NeRFMLP and launches neither.
+    On the device cache, as the configs ship: lego_proposal.yml (the
+    default), fern_ndc_proposal.yml and synth_llff_360_unbounded.yml with
+    ``use_pallas_train`` on their NeRFMLP, K1 and K3 once per replay;
+    synth800_mip.yml, which has no NeRFMLP and launches neither. The fused
+    run's objective must be finite at every step and every parameter must
+    move.
     """
     from yanerf_tpu_torch import run
     from yanerf_tpu_torch.ops.kernels import launch_count
@@ -584,16 +727,22 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir / name), "--cfg_options",
                 *(f"{key}.use_pallas_train=True" for key in keys),
                 f"runner.num_iters={steps}", f"runner.steps_per_call={per_call}",
-                *(f"datasets.{i}.base_dir={scene}" for i in range(3))]
+                *(f"datasets.{i}.base_dir={scene}" for i in range(3)), *extra_options]
         sync(torch)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         K1.launches = K1.pipelined_launches = K3.launches = 0
         t = time.perf_counter()
-        result = run.main(argv)
+        with observe_run(torch) as seen:
+            result = run.main(argv)
         sync(torch)
-        run_s = time.perf_counter() - t
+        result["run_s"] = time.perf_counter() - t
+        result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
+        result["objective"], result["params_moved"] = seen.objective(), (seen.moved(result["state"].pipeline),
+                                                                          len(seen.initial))
         launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
                     "nerf_mlp_bwd": K3.launches}
-        return result, launches, run_s
+        return result, launches, result["run_s"]
 
     def gap(a, b):
         """(bit-equal parameters and Adam moments, largest parameter difference) of two runs' final states."""
@@ -629,14 +778,21 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         and fused_launches["nerf_mlp_fwd_pipelined"] == 0 and (n_mlps > 0) == bool(keys),
         # bit for bit where the per-step loop itself is; otherwise no further than it is from itself
         "equal_to_per_step": fused_equal if per_step_equal else fused_gap <= per_step_gap,
+        "objective_finite_every_step": fused["objective"].numel() == steps
+        and bool(torch.isfinite(fused["objective"]).all()),
+        "params_moved": fused["params_moved"][0] == fused["params_moved"][1] > 0,
         "test_metrics_finite": all(math.isfinite(v) for v in fused["test_stats"].values()),
     }
     numbers = dict(
-        config=Path(config).name, steps=steps, steps_per_call=steps_per_call, train_frames=FUSED_TRAIN_FRAMES,
+        config=Path(config).name, steps=steps, steps_per_call=steps_per_call,
+        train_frames=train_frames,
         dispatches=trainer.dispatches, fused_steps=trainer.steps, group_sizes=sorted(trainer.seen_group_sizes),
         capture_s=trainer.capture_s, launches_per_replay=tally, step_s=step_s,
         fused_ms_per_step=1e3 * step_s["fused"][-1], per_step_ms_per_step=1e3 * step_s["per_step"][-1],
-        run_s={"fused": fused_run_s, "per_step": per_step_run_s}, launches=fused_launches,
+        run_s={"fused": fused_run_s, "per_step": per_step_run_s},
+        peak_memory_gb={"fused": fused["peak_memory_gb"], "per_step": per_step["peak_memory_gb"]},
+        objective_first=float(fused["objective"][0]), objective_last=float(fused["objective"][-1]),
+        params_moved="{}/{}".format(*fused["params_moved"]), launches=fused_launches,
         per_step_launches=per_step_launches,
         per_step_runs_bit_equal=per_step_equal, per_step_max_param_diff=per_step_gap,
         fused_bit_equal_to_per_step=fused_equal, fused_max_param_diff=fused_gap,
@@ -671,38 +827,55 @@ def family_frame(torch, K1, K3, service, card_line: str, config_name: str):
     return launches
 
 
-def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, train_rays: int = FAMILY_TRAIN_RAYS):
-    """The card against the CPU for a family with no kernel: one eval chunk and one train step, in float32.
+def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, train_rays: int = FAMILY_TRAIN_RAYS,
+                 options=None, density_bias: float = 0.0):
+    """The card against the CPU for a family's eager path: one eval chunk and one train step, in float32.
 
     The same weights, batch and draws on both (``compute_dtype`` overridden
     to float32, TF32 off): the chunk's outputs (both passes) within
     FAMILY_ATOL, the objectives within FAMILY_OBJECTIVE_RTOL relative and
     each parameter tensor's gradient at a cosine >= FAMILY_MIN_GRAD_COSINE.
     The train step runs twice on the card; whether the two runs' gradients
-    are bit-equal is printed (the hash grid's scatter-add backward).
+    are bit-equal is printed (the hash grid's scatter-add backward). The
+    batch is the first item of the config's train dataset on ``scene``
+    (``options``: more config overrides), its per-image bounds included.
+    ``density_bias`` is added to every model's density bias first, the same
+    on both sides, so that every ray carries mass: with the init's densities
+    the proposal estimator on LLFF rays is ill-conditioned (on the CPU a
+    1e-7 relative change of the ray directions moves the eval chunk's
+    depths by 0.075 in NDC and by 23.9 on the unbounded scene; with +1 on
+    the biases by 5e-6 and 1.8e-5), the empty-ray note of ROADMAP.md Queue 3.
     """
-    from yanerf_tpu_torch.datasets import BlenderDataset
+    from yanerf_tpu_torch.datasets import DATASETS
     from yanerf_tpu_torch.ops.structures import EvaluationMode
     from yanerf_tpu_torch.pipelines import PIPELINES
     from yanerf_tpu_torch.runners import TrainState, create_optimizer, make_step_draws, make_train_step, prepare_batch
     from yanerf_tpu_torch.utils import Config
 
     cfg = Config.fromfile(str(config))
-    cfg.merge_from_dict({"pipeline.model.compute_dtype": "float32",
-                         "pipeline.ray_sampler.n_rays_per_image_sampled_from_mask": train_rays})
+    models = cfg.pipeline.model
+    dtype_keys = (["pipeline.model.compute_dtype"] if not isinstance(models, (list, tuple))
+                  else [f"pipeline.model.{i}.compute_dtype" for i in range(len(models))])
+    cfg.merge_from_dict({**{key: "float32" for key in dtype_keys},
+                         "pipeline.ray_sampler.n_rays_per_image_sampled_from_mask": train_rays, **(options or {})})
     cpu = torch.device("cpu")
     pipes = {"cpu": PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(7), device=cpu)}
+    if density_bias:
+        with torch.no_grad():
+            for fn in pipes["cpu"].implicit_functions:
+                fn.density_layer.b.add_(density_bias)
     for name in ("card", "card_again"):
         pipes[name] = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(7), device=DEVICE)
         pipes[name].load_state_dict(pipes["cpu"].state_dict())
-    dataset = BlenderDataset(scene, "train")
+    dataset = DATASETS.build(dict(cfg.datasets[0], base_dir=str(scene)))
     data = tuple(x[None] for x in dataset[0])
 
     def eval_chunk(pipe):
-        """The eval chunk of ``eval_rays`` rays from the middle row of the frame on, through both passes."""
+        """The eval chunk of ``eval_rays`` rays from the middle row of the frame on, through every pass."""
         batch = prepare_batch(data, dataset.data_wrapper, pipe.device)
         with torch.no_grad():
-            bundle = pipe.ray_sampler(batch["poses"], batch["focal_lengths"], EvaluationMode.EVALUATION)
+            bundle = pipe.ray_sampler(batch["poses"], batch["focal_lengths"], EvaluationMode.EVALUATION,
+                                      min_depth=batch.get("min_depth"), max_depth=batch.get("max_depth"))
             start = (bundle.origins.shape[1] // 2) * bundle.origins.shape[2]
             o, d, l, xys = (t.reshape(1, -1, 1, t.shape[-1])[:, start:start + eval_rays] for t in bundle)
             out = pipe.renderer(o, d, l, xys, None, evaluation_mode=EvaluationMode.EVALUATION,
@@ -736,7 +909,8 @@ def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, 
         "grad_cosine": grad_cos[worst] >= FAMILY_MIN_GRAD_COSINE,
         "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads_card.values()),
     }
-    return dict(config=Path(config).name, eval_rays=eval_rays, train_rays=train_rays, eval_chunk_max_abs_err=chunk_err,
+    return dict(config=Path(config).name, eval_rays=eval_rays, train_rays=train_rays, density_bias=density_bias,
+                eval_chunk_max_abs_err=chunk_err,
                 atol=FAMILY_ATOL, objective_card=obj_card, objective_cpu=obj_cpu, objective_rtol=FAMILY_OBJECTIVE_RTOL,
                 worst_grad_cosine=grad_cos[worst], worst_grad_tensor=worst, min_grad_cosine=FAMILY_MIN_GRAD_COSINE,
                 tables_grad_cosine=[c for k, c in grad_cos.items() if ".tables." in k],
@@ -787,6 +961,127 @@ def step_equivalence(torch, scene: Path, config=None):
                 peak_memory_gb_kernels=peak_k, peak_memory_gb_eager=peak_e, checks=checks)
 
 
+def build_service(config):
+    """The port's render service for ``config`` on DEVICE, the NeRF-MLP kernel switched on; and its NeRFMLPs."""
+    from yanerf_tpu_torch.models import NeRFMLP
+    from yanerf_tpu_torch.pipelines import set_nerf_mlp_option
+    from yanerf_tpu_torch.serve import service_from_config
+    from yanerf_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(str(config))
+    set_nerf_mlp_option(cfg, "use_pallas", True)
+    service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
+    # by type: MipNeRFMLP subclasses NeRFMLP but has no kernel
+    nerf_mlps = [fn for fn in service._pipeline.implicit_functions if type(fn) is NeRFMLP]
+    if not nerf_mlps or not all(fn.use_pallas for fn in nerf_mlps):
+        raise SystemExit(f"the config override did not turn the NeRF-MLP kernel on in {config}")
+    return service, nerf_mlps
+
+
+def check_llff_ranges(torch, K1, K3, nerf_mlp, packed, gen, card_line):
+    """K1 and K3 against their plain versions, timed, on NDC points and on contracted points (|x| < 2).
+
+    At the LLFF configs' train step (1024 rays x 48 points) and at
+    fern_ndc_proposal's eval chunk; contracted points also at
+    synth_llff_360_unbounded's own eval chunk. The harmonic embedding's
+    phase reaches |x| * 2^9 rad there: the kernels are built without
+    ``--use_fast_math`` and must keep the tolerances they hold elsewhere.
+    """
+    train, ndc_eval = (LLFF_TRAIN_RAYS, TRAIN_PTS, "LLFF train step"), (*NDC_EVAL_CHUNK, "fern_ndc_proposal eval chunk")
+    runs = [("ndc", *train, True), ("ndc", *ndc_eval, True), ("contracted", *train, True),
+            ("contracted", *ndc_eval, True),
+            ("contracted", *UNBOUNDED_EVAL_CHUNK, "synth_llff_360_unbounded eval chunk", False)]  # K1 only: eval
+    for kind, n_rays, pts_per_ray, where, with_k3 in runs:
+        shape = f"{kind} points, {where}, {n_rays} rays x {pts_per_ray} points"
+        say(card_line, "kernel", name="nerf_mlp_fwd", shape=shape,
+            **check_k1(torch, K1, nerf_mlp, packed, n_rays, pts_per_ray, gen, kind))
+        if with_k3:
+            say(card_line, "kernel", name="nerf_mlp_bwd", shape=shape,
+                **check_k3(torch, K1, K3, nerf_mlp, packed, gen, n_rays, pts_per_ray, kind))
+        torch.cuda.empty_cache()
+
+
+def llff_options(config) -> list:
+    """The LLFF configs on the procedural scenes: written at the configs' 504x378 (factor 1); one val view and
+    one test view (``test_skip`` 24 of 24), the train split held out at ``test_skip`` 8 as the configs ship."""
+    return [*(f"datasets.{i}.factor=1" for i in range(3)), "datasets.0.test_skip=8",
+            *(f"datasets.{i}.test_skip={LLFF_IMAGES}" for i in (1, 2))]
+
+
+def frame_chunks(cfg) -> int:
+    """Chunks of one eval frame: ceil(H * W * points per ray / chunk_size_grid), the pipeline's arithmetic."""
+    rs = cfg.pipeline.ray_sampler
+    return -(-rs.image_height * rs.image_width * rs.n_pts_per_ray_evaluation // cfg.pipeline.chunk_size_grid)
+
+
+def llff_phases(torch, K1, K3, card_line: str, tmp: Path) -> dict:
+    """The LLFF family: scenes, frames, fused and per-step training, the card against the CPU.
+
+    Returns the kernels' launches on each of its paths.
+    """
+    from yanerf_tpu_torch.datasets import DATASETS
+    from yanerf_tpu_torch.synth_llff import write_llff_scene
+    from yanerf_tpu_torch.utils import Config
+
+    h, w = LLFF_HW
+    train_views = LLFF_IMAGES - len(range(0, LLFF_IMAGES, 8))  # held out at the configs' test_skip 8
+    t = time.perf_counter()
+    scenes = {"forward": write_llff_scene(tmp / "llff_forward", h, w, LLFF_IMAGES, seed=0),
+              "orbit": write_llff_scene(tmp / "llff_orbit", h, w, LLFF_IMAGES, mode="orbit", distant_spheres=16,
+                                        distant_min=UNBOUNDED_FAR[0], distant_max=UNBOUNDED_FAR[1], seed=0)}
+    say(card_line, "llff scene", seconds=time.perf_counter() - t, images=LLFF_IMAGES, hw=[h, w],
+        scenes={k: str(v.name) for k, v in scenes.items()})
+    paths = {}
+
+    # frames: a test view of each LLFF config, synth800_proposal.yml at 800x800 with its eval-only box
+    for name, config, scene in (("ndc", NDC_CONFIG, scenes["forward"]), ("unbounded", UNBOUNDED_CONFIG,
+                                                                         scenes["orbit"])):
+        service, nerf_mlps = build_service(config)
+        cfg = Config.fromfile(str(config))
+        test = DATASETS.build(dict(cfg.datasets[2], base_dir=str(scene), factor=1))
+        pose, focal, _, lo, hi = test[0]
+        view = (pose[:3, :4], float(focal[0]), float(lo[0]), float(hi[0]))
+        paths[f"{name}_frame"] = frame(torch, K1, service, card_line, config.name, with_k2=False, view=view,
+                                       k1_per_frame=frame_chunks(cfg) * len(nerf_mlps))
+        del service, nerf_mlps
+        torch.cuda.empty_cache()
+    service, nerf_mlps = build_service(AABB_CONFIG)
+    paths["synth800_proposal_frame"] = frame(torch, K1, service, card_line, AABB_CONFIG.name, with_k2=False,
+                                             k1_per_frame=frame_chunks(Config.fromfile(str(AABB_CONFIG))))
+    del service, nerf_mlps
+    torch.cuda.empty_cache()
+
+    # fused: both LLFF proposal configs at steps_per_call 20 against two per-step runs
+    for name, config, scene in (("ndc", NDC_CONFIG, scenes["forward"]), ("unbounded", UNBOUNDED_CONFIG,
+                                                                         scenes["orbit"])):
+        numbers, paths[f"{name}_train_fused"] = fused_train(
+            torch, K1, K3, scene, tmp / f"results_{name}_fused", config, 2 * train_views, FUSED_STEPS_PER_CALL,
+            extra_options=llff_options(config), train_frames=train_views)
+        say(card_line, "fused", **numbers)
+        if not all(numbers["checks"].values()):
+            raise SystemExit(f"{config.name} fused phase failed: {numbers['checks']}")
+        torch.cuda.empty_cache()
+
+    # train: the classic synth_llff.yml per step through the host DataLoader, per-image metric bounds
+    numbers, paths["synth_llff_train"] = train(
+        torch, K1, K3, scenes["forward"], tmp / "results_synth_llff", LLFF_CLASSIC_CONFIG, train_views,
+        extra_options=[*llff_options(LLFF_CLASSIC_CONFIG), "runner.cache_dataset_on_device=False"])
+    say(card_line, "train", **numbers)
+    if not all(numbers["checks"].values()):
+        raise SystemExit(f"synth_llff train phase failed: {numbers['checks']}")
+    torch.cuda.empty_cache()
+
+    # the card against the CPU in float32: NDC and contraction
+    for config, scene in ((NDC_CONFIG, scenes["forward"]), (UNBOUNDED_CONFIG, scenes["orbit"])):
+        family = family_check(torch, scene, config, FAMILY_EVAL_RAYS, FAMILY_TRAIN_RAYS, {"datasets.0.factor": 1},
+                              density_bias=1.0)
+        say(card_line, "family", **family)
+        if not all(family["checks"].values()):
+            raise SystemExit(f"{config.name} family phase failed: {family['checks']}")
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -795,10 +1090,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
-    from yanerf_tpu_torch.models import NeRFMLP
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
-    from yanerf_tpu_torch.pipelines import set_nerf_mlp_option
     from yanerf_tpu_torch.serve import service_from_config
     from yanerf_tpu_torch.synth_scene import write_scene
     from yanerf_tpu_torch.utils import Config
@@ -816,16 +1109,6 @@ def main() -> int:
         build_s = dict(zip(libraries, pool.map(lambda lib: lib.load(), libraries.values())))
     say(card_line, "build", seconds=time.perf_counter() - t0, per_kernel_s=build_s,
         ptxas={name: lib.build_report() for name, lib in libraries.items()})
-
-    def build_service(config):
-        cfg = Config.fromfile(str(config))
-        set_nerf_mlp_option(cfg, "use_pallas", True)
-        service = service_from_config(cfg, checkpoint=None, device="cuda", seed=0)
-        # by type: MipNeRFMLP subclasses NeRFMLP but has no kernel
-        nerf_mlps = [fn for fn in service._pipeline.implicit_functions if type(fn) is NeRFMLP]
-        if not nerf_mlps or not all(fn.use_pallas for fn in nerf_mlps):
-            raise SystemExit(f"the config override did not turn the NeRF-MLP kernel on in {config}")
-        return service, nerf_mlps
 
     service, nerf_mlps = build_service(CONFIG)
     nerf_mlp = nerf_mlps[-1]
@@ -852,6 +1135,7 @@ def main() -> int:
         say(card_line, "kernel", name="nerf_mlp_fwd_pipelined", shape=f"ragged, {n_rays} rays x {pts_per_ray} points",
             **check_k2(torch, K1, packed, n_rays, pts_per_ray, gen, timed=False))
     check_classic_train_shapes(torch, K1, K3, nerf_mlp, packed, gen, card_line)
+    check_llff_ranges(torch, K1, K3, nerf_mlp, packed, gen, card_line)
     torch.cuda.empty_cache()
 
     # 3. serve and 4. frame, proposal then classic
@@ -927,6 +1211,9 @@ def main() -> int:
                 raise SystemExit(f"{config.name} family phase failed: {family['checks']}")
             torch.cuda.empty_cache()
 
+        # LLFF captures, NDC rays and unbounded scenes
+        llff_paths = llff_phases(torch, K1, K3, card_line, Path(tmp))
+
     def entry(name, source, replaces, numbers, launches_by_path):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -943,6 +1230,7 @@ def main() -> int:
                       if name != "proposal_fused"})
         paths["proposal_train_fused"] = train_launches["proposal_fused"][kernel]
         paths.update({name: launches[kernel] for name, launches in new_paths.items()})
+        paths.update({name: launches.get(kernel, 0) for name, launches in llff_paths.items()})
         return paths
 
     record = {
@@ -961,6 +1249,14 @@ def main() -> int:
     refused = {name: launches for name, launches in new_paths.items() if launches != NO_LAUNCHES}
     if refused:
         raise SystemExit(f"a NeRF-MLP kernel ran on a path whose models refuse it: {refused}")
+    def kernels_missing(name, launches):
+        """K1 on every LLFF path; K3 on every training path and on no frame."""
+        trains = not name.endswith("_frame")
+        return launches.get("nerf_mlp_fwd", 0) == 0 or (launches.get("nerf_mlp_bwd", 0) > 0) != trains
+
+    idle = {name: launches for name, launches in llff_paths.items() if kernels_missing(name, launches)}
+    if idle:
+        raise SystemExit(f"a NeRF-MLP kernel did not run on an LLFF path: {idle}")
     say(card_line, "total", seconds=time.perf_counter() - t_start)
     print(json.dumps(record))
     print(card_line)

@@ -192,8 +192,9 @@ def test_hash_grid_parameters_init_and_refusals():
     assert float(w.abs().max()) <= 1.0 / np.sqrt(32)  # torch default U(1/sqrt(fan_in))
     again = MODELS.build(dict(SHIPPED, generator=torch.Generator().manual_seed(0)))
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
-    with pytest.raises(NotImplementedError, match="unbounded scenes"):
-        MODELS.build(dict(SMALL, contract_coords=True, scene_bound=2.0))
+    assert MODELS.build(dict(SMALL, contract_coords=True, scene_bound=2.0)).contract_coords
+    with pytest.raises(ValueError, match="scene_bound >= 2.0"):
+        MODELS.build(dict(SMALL, contract_coords=True))
     o, d, l = map(torch.from_numpy, _inputs())
     with pytest.raises(ValueError, match="no fused kernel"):
         model(o, d, l, use_pallas=True)

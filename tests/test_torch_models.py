@@ -114,5 +114,8 @@ def test_torch_inits_have_the_reference_bounds():
 def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError):
         MODELS.build(dict(NERF_CFG, latent_dim=4))
-    with pytest.raises(NotImplementedError, match="contract_coords"):
-        MODELS.build(dict(type="HashGridNeRF", contract_coords=True, scene_bound=2.0))
+    with pytest.raises(NotImplementedError):
+        MODELS.build(dict(PROPOSAL_CFG, latent_dim=4))
+    # contracted coordinates are ported: the models build (tests/test_torch_unbounded.py holds them to JAX)
+    for cfg in (NERF_CFG, PROPOSAL_CFG, dict(type="HashGridNeRF", scene_bound=2.0)):
+        assert MODELS.build(dict(cfg, contract_coords=True)).contract_coords

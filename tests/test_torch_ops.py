@@ -70,11 +70,19 @@ def test_linspace_matches_jnp(n):
 
 
 def test_ray_bundle_unported_options_raise():
+    """Occupancy-grid bounds still raise (the tools slice); disparity spacing and ``scene_aabb`` match JAX."""
     grid = torch.zeros(1, 2, 2, 2)
-    with pytest.raises(NotImplementedError):
-        trays.xy_to_ray_bundle(torch.eye(4)[None], 2, 2, torch.ones(1), grid, 1.0, 2.0, 4, sample_in_disparity=True)
-    with pytest.raises(NotImplementedError):
-        trays.xy_to_ray_bundle(torch.eye(4)[None], 2, 2, torch.ones(1), grid, 1.0, 2.0, 4, scene_aabb=[0] * 6)
+    with pytest.raises(NotImplementedError, match="tools slice"):
+        trays.xy_to_ray_bundle(torch.eye(4)[None], 2, 2, torch.ones(1), grid, 1.0, 2.0, 4, occupancy=object())
+    pose = np.eye(4, dtype=np.float32)[None, :3]
+    pose[0, :, 3] = (0.1, -0.2, -2.0)
+    xy = np.broadcast_to(trays._xy_grid_np(3, 4), (1, 3, 4, 2)).copy()
+    for options in (dict(sample_in_disparity=True), dict(scene_aabb=[-0.5, -0.5, -0.5, 0.5, 0.5, 0.5])):
+        ref = jrays.xy_to_ray_bundle(jnp.asarray(pose), 4, 3, jnp.asarray([[3.0]]), jnp.asarray(xy), 0.5, 4.0, 5,
+                                     **{k: jnp.asarray(v) if k == "scene_aabb" else v for k, v in options.items()})
+        got = trays.xy_to_ray_bundle(torch.from_numpy(pose), 4, 3, torch.tensor([[3.0]]), torch.from_numpy(xy), 0.5,
+                                     4.0, 5, **options)
+        _close(got.lengths, ref.lengths)
 
 
 def _ray_inputs(seed=2, n_rays=6, n_pts=9, channels=3):

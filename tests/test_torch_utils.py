@@ -44,8 +44,8 @@ def test_registry_builds_and_reports_unported_components():
         reg.build({"type": "Other"})
     from yanerf_tpu_torch.datasets import DATASETS
 
-    with pytest.raises(NotImplementedError, match="LLFFDataset"):
-        DATASETS.build({"type": "LLFFDataset"})
+    with pytest.raises(NotImplementedError, match="MultiSceneBlenderDataset"):
+        DATASETS.build({"type": "MultiSceneBlenderDataset"})
 
 
 def test_png_and_gif_encoders_round_trip_through_pil():

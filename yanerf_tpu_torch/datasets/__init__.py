@@ -3,6 +3,7 @@
 from ..utils.registry import register_not_ported
 from .blender import CAM_CALIBRATION, BlenderDataset, BlenderDatasetWrapper
 from .builder import DATASETS
+from .llff import LLFFDataset, LLFFDatasetWrapper
 from .loader import (
     DataLoader,
     DeviceCachedLoader,
@@ -13,7 +14,7 @@ from .loader import (
     stack_batch,
 )
 
-register_not_ported(DATASETS, ("LLFFDataset", "MultiSceneBlenderDataset"))
+register_not_ported(DATASETS, ("MultiSceneBlenderDataset",))
 
 __all__ = [
     "CAM_CALIBRATION",
@@ -22,6 +23,8 @@ __all__ = [
     "BlenderDatasetWrapper",
     "DataLoader",
     "DeviceCachedLoader",
+    "LLFFDataset",
+    "LLFFDatasetWrapper",
     "ShardedEpochSampler",
     "create_loader",
     "create_sampler",

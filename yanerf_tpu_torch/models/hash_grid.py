@@ -21,7 +21,9 @@ tree's dotted paths, so ``convert.py`` loads it as it is.
 
 ``encode_chunk`` is taken for the configs' sake and changes nothing: in the
 JAX package it bounded the size of one XLA scatter's lowering. The port
-encodes every point in one pass. ``contract_coords`` is not ported.
+encodes every point in one pass. With ``contract_coords`` the points are
+contracted into the radius-2 ball (``ops/rays.py::contract_points``) before
+the encoding, which needs ``scene_bound >= 2``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.harmonics import harmonic_embedding, harmonic_embedding_dim
-from ..ops.rays import ray_bundle_to_ray_points
+from ..ops.rays import contract_points, ray_bundle_to_ray_points
 from ..utils import device_constant
 from .builder import MODELS
 from .layers import Linear, _uniform, init_linear_default, linear
@@ -110,11 +112,11 @@ class HashGridNeRF(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if contract_coords:
-            raise NotImplementedError(
-                'HashGridNeRF(contract_coords=True) is not ported yet (ROADMAP.md Queue 1, "LLFF, NDC and '
-                'unbounded scenes")'
-            )
+        # the contraction's codomain is |x| < 2: a smaller box would clip the whole background onto its faces
+        if contract_coords and float(scene_bound) < 2.0:
+            raise ValueError(f"contract_coords=True requires scene_bound >= 2.0 (the contraction's codomain is "
+                             f"|x| < 2), got {float(scene_bound)}")
+        self.contract_coords = contract_coords
         self.n_levels = n_levels
         self.table_size = 1 << table_size_log2
         self.n_features_per_level = n_features_per_level
@@ -201,6 +203,8 @@ class HashGridNeRF(nn.Module):
             raise ValueError("HashGridNeRF does not support latent conditioning")
         cd = self.compute_dtype
         points = ray_bundle_to_ray_points(origins, directions, lengths)
+        if self.contract_coords:
+            points = contract_points(points)
         enc = self.encode(list(self.tables), points).to(cd)
         h = F.relu(linear(self.density_mlp[0], enc, cd))
         geo = linear(self.density_mlp[1], h, cd).to(torch.float32)

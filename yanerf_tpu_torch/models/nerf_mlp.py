@@ -17,7 +17,11 @@ The eager path is the point embedding (``_embed_points``) and the rest
 (``_from_embedding``), so that ``MipNeRFMLP`` replaces only the embedding.
 ``ZeroOutputer`` is the reference's analytic test model.
 
-Latent conditioning and contracted coordinates are not ported yet.
+With ``contract_coords`` (unbounded scenes) the ray points go through the
+mip-NeRF 360 contraction (``ops/rays.py::contract_points``) before either
+path: the eager embedding and the kernels both see the contracted points,
+as ``make_fused_mlp`` gets them in the JAX package. Latent conditioning is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 from ..ops.harmonics import harmonic_embedding, harmonic_embedding_dim
 from ..ops.kernels import nerf_mlp_fwd as fused
 from ..ops.kernels.fused_mlp import fused_nerf_mlp
-from ..ops.rays import ray_bundle_to_ray_points
+from ..ops.rays import contract_points, ray_bundle_to_ray_points
 from .builder import MODELS
 from .layers import Linear, init_linear_default, init_linear_xavier, linear, linear_with_repeat
 from .mlp import MLPWithInputSkips
@@ -66,9 +70,10 @@ class NeRFMLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if latent_dim != 0 or not input_xyz or contract_coords:
+        if latent_dim != 0 or not input_xyz:
             raise NotImplementedError(
-                "latent conditioning, input_xyz=False and contract_coords are not ported yet (ROADMAP.md Queue 1)"
+                "latent conditioning and input_xyz=False are not ported yet "
+                '(ROADMAP.md Queue 1, "Multi-scene latent conditioning")'
             )
         self.n_layers = n_layers
         self.input_skips = tuple(input_skips)
@@ -85,6 +90,7 @@ class NeRFMLP(nn.Module):
         self.compute_dtype = as_torch_dtype(compute_dtype)
         self.use_pallas = use_pallas
         self.use_pallas_train = use_pallas_train
+        self.contract_coords = contract_coords
 
         self.embedding_dim_xyz = harmonic_embedding_dim(3, n_harmonic_functions_xyz, harmonic_functions_xyz_append_intput)
         self.embedding_dim_dir = harmonic_embedding_dim(3, n_harmonic_functions_dir, harmonic_functions_dir_append_intput)
@@ -157,9 +163,14 @@ class NeRFMLP(nn.Module):
             color = F.relu(linear(layer, color, cd))
         return torch.sigmoid(linear(self.color_layer[-1], color, cd).to(torch.float32))
 
+    def _points(self, origins: torch.Tensor, directions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """The ray points ``(B, *spatial, P, 3)``, contracted with ``contract_coords``."""
+        points = ray_bundle_to_ray_points(origins, directions, lengths)
+        return contract_points(points) if self.contract_coords else points
+
     def _embed_points(self, origins: torch.Tensor, directions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """The harmonic embedding of the ray points ``(B, *spatial, P, embedding_dim_xyz)``; subclasses replace it."""
-        points = ray_bundle_to_ray_points(origins, directions, lengths)
+        points = self._points(origins, directions, lengths)
         return harmonic_embedding(
             points, self.n_harmonic_functions_xyz, append_input=self.harmonic_functions_xyz_append_intput
         )
@@ -185,7 +196,7 @@ class NeRFMLP(nn.Module):
             raise ValueError(f"global_codes given but latent_dim is {self.latent_dim}")
         use_pallas = self.use_pallas if use_pallas is None else use_pallas
         if use_pallas:
-            points = ray_bundle_to_ray_points(origins, directions, lengths)
+            points = self._points(origins, directions, lengths)
             *lead, n_pts, _ = points.shape
             out = fused_nerf_mlp(
                 self, points.reshape(-1, 3).contiguous(), directions.reshape(-1, 3).contiguous(), n_pts

@@ -2,8 +2,9 @@
 
 Counterpart of ``yanerf_tpu/models/proposal_mlp.py::ProposalMLP``:
 harmonic embedding -> ``n_layers`` x ``hidden_dim`` Linear+ReLU -> raw
-density. ``rays_features`` is a zero placeholder. Latent conditioning and
-contracted coordinates are not ported yet.
+density. ``rays_features`` is a zero placeholder. With ``contract_coords``
+the points are contracted (``ops/rays.py::contract_points``) before the
+embedding. Latent conditioning is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.harmonics import harmonic_embedding, harmonic_embedding_dim
-from ..ops.rays import ray_bundle_to_ray_points
+from ..ops.rays import contract_points, ray_bundle_to_ray_points
 from .builder import MODELS
 from .layers import Linear, init_linear_xavier, linear
 from .nerf_mlp import as_torch_dtype
@@ -36,13 +37,16 @@ class ProposalMLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if contract_coords or latent_dim != 0:
-            raise NotImplementedError("contract_coords and latent conditioning are not ported yet (ROADMAP.md Queue 1)")
+        if latent_dim != 0:
+            raise NotImplementedError(
+                'latent conditioning is not ported yet (ROADMAP.md Queue 1, "Multi-scene latent conditioning")'
+            )
         self.n_layers = n_layers
         self.hidden_dim = hidden_dim
         self.n_harmonic_functions_xyz = n_harmonic_functions_xyz
         self.harmonic_functions_xyz_append_intput = harmonic_functions_xyz_append_intput
         self.color_dim = color_dim
+        self.contract_coords = contract_coords
         self.compute_dtype = as_torch_dtype(compute_dtype)
         self.latent_dim = 0
         self.input_dim = harmonic_embedding_dim(3, n_harmonic_functions_xyz, harmonic_functions_xyz_append_intput)
@@ -65,6 +69,8 @@ class ProposalMLP(nn.Module):
         if global_codes is not None:
             raise ValueError("global_codes given but latent_dim is 0")
         points = ray_bundle_to_ray_points(origins, directions, lengths)
+        if self.contract_coords:
+            points = contract_points(points)
         x = harmonic_embedding(
             points, self.n_harmonic_functions_xyz, append_input=self.harmonic_functions_xyz_append_intput
         ).to(self.compute_dtype)

@@ -1,15 +1,21 @@
 """Camera -> RayBundle sampling stage.
 
 Counterpart of ``yanerf_tpu/pipelines/ray_sampler.py``: the full-grid
-EVALUATION half (every pixel, metric depths between the bounds) and the
-Monte-Carlo TRAINING half without a mask, stratified depth jitter and
-uniform pixel indices, drawn with replacement (``pixel_replacement``) or
-without (the Gumbel top-k over one weight of 1 per pixel, the exact
-``topk``). The pixel indices and the jitter draws are optional inputs
-(``pixel_idx``, ``strata_u``), else drawn from ``generator``. The
-approximate top-k (``approx_top_k``), masks and sampling-probability masks,
-NDC, ``scene_aabb``, occupancy grids, disparity spacing and scene-extent
-bounds raise ``NotImplementedError``.
+EVALUATION half (every pixel) and the Monte-Carlo TRAINING half without a
+mask, stratified depth jitter and uniform pixel indices, drawn with
+replacement (``pixel_replacement``) or without (the Gumbel top-k over one
+weight of 1 per pixel, the exact ``topk``). The pixel indices and the
+jitter draws are optional inputs (``pixel_idx``, ``strata_u``), else
+drawn from ``generator``. The depth range is the call's bounds (a batch's
+per-image ``min_depth`` / ``max_depth``), else the constructor's, else,
+with ``scene_extent > 0``, the cameras' distance to ``scene_center`` +-
+the extent; depths are spaced in depth or in disparity
+(``sample_in_disparity``), tightened per ray to ``scene_aabb`` (in both
+modes, or at evaluation only with ``scene_aabb_eval_only``). ``use_ndc``
+forces the range to [0, 1] and warps the sampled rays into NDC
+(``ndc_near``). The approximate top-k (``approx_top_k``), masks and
+sampling-probability masks raise ``NotImplementedError``, and so do
+occupancy grids, which come with the tools slice's ``fit_occupancy.py``.
 
 As in the reference, the principal point comes from the constructor's
 ``image_width/height`` even when a call overrides the grid size.
@@ -19,9 +25,11 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..ops.rays import get_xy_grid, xy_to_ray_bundle
+from ..ops.rays import get_min_max_depth_bounds, get_xy_grid, ndc_ray_bundle, xy_to_ray_bundle
+from ..utils import device_constant
 from ..ops.sampling import uniform_sample_with_replacement, weighted_sample_without_replacement
 from ..ops.structures import EvaluationMode, RayBundle, RenderSamplingMode
 from .builder import RAY_SAMPLERS
@@ -42,6 +50,8 @@ class _RaySampler:
         stratified_sampling: bool = False,
         pixel_replacement: bool = False,
         approx_top_k: bool = False,
+        sample_in_disparity: bool = False,
+        scene_aabb: Optional[np.ndarray] = None,
     ) -> None:
         self.image_width = image_width
         self.image_height = image_height
@@ -52,6 +62,8 @@ class _RaySampler:
         self.stratified_sampling = stratified_sampling
         self.pixel_replacement = pixel_replacement
         self.approx_top_k = approx_top_k
+        self.sample_in_disparity = sample_in_disparity
+        self.scene_aabb = scene_aabb
 
     def __call__(
         self,
@@ -96,6 +108,8 @@ class _RaySampler:
             self.n_pts_per_ray,
             self.stratified_sampling,
             generator=generator,
+            sample_in_disparity=self.sample_in_disparity,
+            scene_aabb=self.scene_aabb,
             strata_u=strata_u,
         )
 
@@ -127,15 +141,24 @@ class RaySampler:
         occupancy_grid: Optional[str] = None,
         **occupancy_options,
     ) -> None:
-        if use_ndc or sample_in_disparity or scene_aabb is not None or occupancy_grid is not None:
+        if occupancy_grid is not None:
             raise NotImplementedError(
-                "NDC, disparity spacing, scene_aabb and occupancy grids are not ported yet (ROADMAP.md Queue 1 item 11)"
+                "occupancy grids are not ported yet: they come with scripts/fit_occupancy.py's port, the tools slice "
+                "(ROADMAP.md Queue 1, \"Tools\")"
             )
-        if scene_extent > 0.0:
-            raise NotImplementedError("scene-extent depth bounds are not ported yet (ROADMAP.md Queue 1 item 2)")
+        if scene_aabb is not None:
+            if use_ndc:
+                raise ValueError("scene_aabb cannot be combined with use_ndc (NDC depth is not metric)")
+            scene_aabb = np.asarray(scene_aabb, np.float32).reshape(2, 3)
+            if not (scene_aabb[0] < scene_aabb[1]).all():
+                raise ValueError(f"scene_aabb must satisfy min < max per axis, got {scene_aabb.tolist()}")
 
         self.image_width = image_width
         self.image_height = image_height
+        self.scene_center = tuple(scene_center)
+        self.scene_extent = scene_extent
+        self.use_ndc = use_ndc
+        self.ndc_near = ndc_near
         self._sampling_mode = {
             EvaluationMode.TRAINING: RenderSamplingMode(sampling_mode_training),
             EvaluationMode.EVALUATION: RenderSamplingMode(sampling_mode_evaluation),
@@ -155,6 +178,8 @@ class RaySampler:
                 stratified_sampling=stratified,
                 pixel_replacement=pixel_replacement,
                 approx_top_k=approx_top_k,
+                sample_in_disparity=sample_in_disparity,
+                scene_aabb=None if scene_aabb_eval_only and mode == EvaluationMode.TRAINING else scene_aabb,
             )
             for mode, n_pts, stratified in (
                 (EvaluationMode.TRAINING, n_pts_per_ray_training, stratified_point_sampling_training),
@@ -184,7 +209,14 @@ class RaySampler:
         strata_u: Optional[torch.Tensor] = None,
     ) -> RayBundle:
         """Rays of ``evaluation_mode``; ``pixel_idx`` ``(B, n_rays)`` and ``strata_u`` replace the draws."""
-        return self._raysamplers[evaluation_mode](
+        if self.use_ndc:
+            # the NDC parameter spans [0, 1] from the near plane to infinity; metric bounds do not apply
+            min_depth, max_depth = 0.0, 1.0
+        elif min_depth is None and max_depth is None and self.scene_extent > 0.0:
+            center = device_constant(("scene_center", self.scene_center), lambda: self.scene_center, poses.dtype,
+                                     poses.device)
+            min_depth, max_depth = get_min_max_depth_bounds(poses, center, self.scene_extent)
+        bundle = self._raysamplers[evaluation_mode](
             poses,
             focal_lengths,
             image_height=image_height,
@@ -195,3 +227,6 @@ class RaySampler:
             pixel_idx=pixel_idx,
             strata_u=strata_u,
         )
+        if self.use_ndc:
+            bundle = ndc_ray_bundle(bundle, self.image_width, self.image_height, focal_lengths, near=self.ndc_near)
+        return bundle

@@ -1,7 +1,7 @@
 """Where one train step's time goes on the card: a torch.profiler breakdown.
 
     python -m yanerf_tpu_torch.profile_training [--config configs/nerf/lego.yml] [--steps 20] [--eager]
-        [--steps_per_call 20]
+        [--steps_per_call 20] [--data_dir DIR] [--cfg_options key=value ...]
 
 Builds the pipeline of ``--config`` (``configs/nerf/lego_proposal.yml`` by
 default) with the fused NeRF-MLP kernels on for training on every NeRFMLP
@@ -9,7 +9,9 @@ of the config (``use_pallas_train``; ``--eager`` turns them off; a config
 with no NeRFMLP, such as ``synth800_mip.yml`` or ``lego_ngp.yml``, runs its
 models' own eager paths and prints ``"kernels": []``), seeded
 random weights, Adam with the config's schedule, and one
-random 800x800 image as the batch. It takes three warm-up steps, times
+random 800x800 image as the batch (``--data_dir``: the first item of the
+config's train dataset there, an LLFF view with its per-image bounds, say;
+``--cfg_options`` overrides the config). It takes three warm-up steps, times
 ``--steps`` steps on the host clock (ending in a synchronize), then profiles
 one more and prints one JSON line: ms per step, train rays/s, the peak
 device memory from the first warm-up step on, device busy time (kernels and copies), the device's
@@ -34,20 +36,24 @@ import time
 import numpy as np
 import torch
 
+from .datasets import DATASETS
 from .datasets.blender import BlenderDatasetWrapper
 from .pipelines import PIPELINES, set_nerf_mlp_option
 from .runners import TrainState, create_optimizer, make_train_step, make_train_step_fused
 from .serve import CAM_CALIBRATION, orbit_pose
 from .utils import Config
+from .utils.config import DictAction
 
 CONFIG = "configs/nerf/lego_proposal.yml"
 TOP_KERNELS = 12
 
 
-def training_config(path: str, eager: bool = False):
-    """The config of ``path`` with the fused NeRF-MLP kernels on (off with ``eager``), and the kernels a step
-    launches (none without a NeRFMLP)."""
+def training_config(path: str, eager: bool = False, options=None):
+    """The config of ``path`` (merged with ``options``) with the fused NeRF-MLP kernels on (off with ``eager``),
+    and the kernels a step launches (none without a NeRFMLP)."""
     cfg = Config.fromfile(path)
+    if options:
+        cfg.merge_from_dict(options)
     keys = set_nerf_mlp_option(cfg, "use_pallas_train", not eager)
     return cfg, ["nerf_mlp_fwd", "nerf_mlp_bwd"] if keys and not eager else []
 
@@ -59,32 +65,40 @@ def main(argv=None) -> None:
     parser.add_argument("--eager", action="store_true", help="the eager NeRF-MLP instead of the fused kernels")
     parser.add_argument("--steps_per_call", type=int, default=1,
                         help="K > 1: fused dispatches of K steps (a captured CUDA graph replayed K times)")
+    parser.add_argument("--data_dir", default=None, help="take the batch from the config's train dataset here")
+    parser.add_argument("--cfg_options", nargs="+", action=DictAction)
     args = parser.parse_args(argv)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    cfg, nerf_mlp_kernels = training_config(args.config, args.eager)
+    cfg, nerf_mlp_kernels = training_config(args.config, args.eager, args.cfg_options)
     device = torch.device("cuda")
     pipeline = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(0), device=device)
     state = TrainState(pipeline=pipeline, optimizer=create_optimizer(cfg.runner, pipeline), step=0)
     step = make_train_step(pipeline, cfg.runner, seed=0)
     h, w = pipeline.render_image_height, pipeline.render_image_width
-    gen = torch.Generator(device=device).manual_seed(1)
-    pose = orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION
-    batch = {
-        "poses": torch.as_tensor(pose, dtype=torch.float32, device=device)[None],
-        "focal_lengths": torch.full((1, 1), 1111.0, device=device),
-        "image_rgb": torch.rand(1, h, w, 3, generator=gen, device=device),
-    }
+    if args.data_dir:
+        dataset = DATASETS.build(dict(cfg.datasets[0], base_dir=args.data_dir))
+        wrapper = dataset.data_wrapper
+        batch = {k: torch.as_tensor(v, device=device)[None] for k, v in wrapper(*dataset[0])._asdict().items()}
+    else:
+        gen = torch.Generator(device=device).manual_seed(1)
+        pose = orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION
+        wrapper = BlenderDatasetWrapper
+        batch = {
+            "poses": torch.as_tensor(pose, dtype=torch.float32, device=device)[None],
+            "focal_lengths": torch.full((1, 1), 1111.0, device=device),
+            "image_rgb": torch.rand(1, h, w, 3, generator=gen, device=device),
+        }
     n_rays = cfg.pipeline.ray_sampler.n_rays_per_image_sampled_from_mask
     per_call, capture_s = 1, None
     run = lambda: step(state, batch)  # noqa: E731
     if args.steps_per_call > 1:
         per_call = args.steps_per_call
-        fused = make_train_step_fused(pipeline, dict(cfg.runner, steps_per_call=per_call), 0, BlenderDatasetWrapper)
-        arrays = (batch["poses"], batch["focal_lengths"], batch["image_rgb"])
+        fused = make_train_step_fused(pipeline, dict(cfg.runner, steps_per_call=per_call), 0, wrapper)
+        arrays = tuple(batch[k] for k in wrapper._fields)
         rows = np.zeros((per_call, 1), dtype=np.int64)
         run = lambda: fused(state, arrays, rows)  # noqa: E731
     torch.cuda.reset_peak_memory_stats(device)  # the warm-up counts: the capture allocates the graph's pool

@@ -1,4 +1,4 @@
-"""PNG decoding, PNG and GIF encoding, with zlib and numpy alone.
+"""PNG decoding, PNG and GIF encoding and an area resize, with zlib and numpy alone.
 
 The port depends on no imaging package: a PNG is zlib-compressed filtered
 scanlines, a GIF is LZW over a fixed 3-3-2 palette. ``decode_png`` reads
@@ -6,14 +6,18 @@ scanlines, a GIF is LZW over a fixed 3-3-2 palette. ``decode_png`` reads
 the five scanline filters (not interlaced), and returns RGB with the alpha
 dropped and grey repeated, as ``yanerf_tpu``'s loader does
 (``native/src/image_io.cpp``: no compositing; 16-bit keeps the high byte).
+``png_shape`` reads the size from the header alone; a JPEG raises
+``NotImplementedError`` (no decoder yet). ``resize_area`` is OpenCV's
+``INTER_AREA`` downscale, byte for byte.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 from pathlib import Path
-from typing import List, Union
+from typing import List, Tuple, Union
 
 import numpy as np
 
@@ -114,9 +118,91 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
+def _read_png(path: Union[str, Path], n_bytes: int = -1) -> bytes:
+    """The first ``n_bytes`` (all with -1) of a PNG file; a JPEG raises ``NotImplementedError`` naming it."""
+    with open(path, "rb") as fp:
+        data = fp.read(n_bytes) if n_bytes >= 0 else fp.read()
+    if data[:3] == b"\xff\xd8\xff" or Path(path).suffix.lower() in (".jpg", ".jpeg"):
+        raise NotImplementedError(f"{path}: JPEG images are not decoded yet (the port reads PNG only)")
+    return data
+
+
+def png_shape(path: Union[str, Path]) -> Tuple[int, int, int]:
+    """``(H, W, 3)`` of a PNG file, from its header (the shape ``load_image`` returns)."""
+    data = _read_png(path, 24)
+    if data[:8] != _PNG_SIGNATURE or data[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", data[16:24])
+    return h, w, 3
+
+
+def load_image_u8(path: Union[str, Path]) -> np.ndarray:
+    """A PNG file as uint8 RGB, ``(H, W, 3)``."""
+    return decode_png(_read_png(path))
+
+
 def load_image(path: Union[str, Path]) -> np.ndarray:
     """A PNG file as float32 RGB in [0, 1], ``(H, W, 3)``."""
-    return decode_png(Path(path).read_bytes()).astype(np.float32) / 255.0
+    return load_image_u8(path).astype(np.float32) / 255.0
+
+
+def _area_taps(ssize: int, dsize: int) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's area table (``computeResizeAreaTab``): per output pixel its source pixels and float32 weights,
+    in OpenCV's order, zero weights padding the rows to one length."""
+    scale = ssize / dsize
+    rows = []
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx2 = min(math.floor(fsx2), ssize - 1)
+        sx1 = min(math.ceil(fsx1), sx2)
+        taps = []
+        if sx1 - fsx1 > 1e-3:
+            taps.append((sx1 - 1, (sx1 - fsx1) / cell))
+        taps.extend((sx, 1.0 / cell) for sx in range(sx1, sx2))
+        if fsx2 - sx2 > 1e-3:
+            taps.append((sx2, min(min(fsx2 - sx2, 1.0), cell) / cell))
+        rows.append(taps)
+    width = max(len(taps) for taps in rows)
+    index, weight = np.zeros((dsize, width), np.int64), np.zeros((dsize, width), np.float32)
+    for d, taps in enumerate(rows):
+        index[d, : len(taps)] = [t[0] for t in taps]
+        weight[d, : len(taps)] = [t[1] for t in taps]
+    return index, weight
+
+
+def resize_area(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """Downscale a uint8 ``(H, W[, C])`` image to ``dsize = (width, height)`` as ``cv2.INTER_AREA`` does.
+
+    Integer factors take OpenCV's fast path: the box sum, rounded half up
+    for 2x2 (``(s + 2) >> 2``), else ``float32(s) * float32(1 / area)``
+    rounded half to even. Other sizes take its general path: per output
+    pixel the covered source pixels with fractional float32 weights, summed
+    in OpenCV's order (along x, then along y), rounded half to even.
+    """
+    h, w = img.shape[:2]
+    dw, dh = dsize
+    if dw > w or dh > h:
+        raise ValueError(f"resize_area downscales only: {w}x{h} -> {dw}x{dh}")
+    fx, fy = w / dw, h / dh
+    if fx == int(fx) and fy == int(fy):
+        fx, fy = int(fx), int(fy)
+        sums = img.reshape(dh, fy, dw, fx, *img.shape[2:]).astype(np.int64).sum(axis=(1, 3))
+        if fx == fy == 2:
+            return ((sums + 2) >> 2).astype(np.uint8)
+        return np.clip(np.rint(sums.astype(np.float32) * np.float32(1.0 / (fx * fy))), 0, 255).astype(np.uint8)
+    src = img.astype(np.float32)
+    trail = (1,) * (img.ndim - 2)
+    x_index, x_weight = _area_taps(w, dw)
+    rows = np.zeros((h, dw, *img.shape[2:]), np.float32)
+    for j in range(x_index.shape[1]):
+        rows = rows + src[:, x_index[:, j]] * x_weight[:, j].reshape(1, dw, *trail)
+    y_index, y_weight = _area_taps(h, dh)
+    out = y_weight[:, 0].reshape(dh, 1, *trail) * rows[y_index[:, 0]]
+    for j in range(1, y_index.shape[1]):
+        out = out + y_weight[:, j].reshape(dh, 1, *trail) * rows[y_index[:, j]]
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def _palette_332() -> bytes:
