@@ -16,8 +16,12 @@ estimator on NDC rays), synth_llff_360_unbounded.yml ("unbounded": all
 three models on contracted points, disparity spacing, per-image bounds),
 synth_llff.yml (the classic pair on per-image metric bounds) and
 synth800_proposal.yml (the proposal estimator with its eval-only content
-box). Phases, each printing its numbers on a line of its own with the
-card's name and power limit:
+box); then multi-scene latent conditioning: synth_multiscene_latent.yml
+(per-scene codes on all three models, its NeRFMLP on its eager path, the
+JAX package's rule) and synth_multiscene_unconditioned.yml (its control,
+K1 / K3); the density tools on the flagship's checkpoint and its frame
+with occupancy bounds. Phases, each printing its numbers on a line of its
+own with the card's name and power limit:
   1. build   compile every kernel of the serving and training paths from
              the sources in this checkout, one nvcc per source, all started
              together: the NeRF-MLP forward (K1), its pipelined twin (K2)
@@ -42,7 +46,9 @@ card's name and power limit:
              again on NDC points (inside [-1, 1]^3) and on contracted
              points (|x| < 2) at the LLFF train step (1024 x 48) and
              fern_ndc_proposal's eval chunk (2027 x 32), K1 also at
-             synth_llff_360_unbounded's (15876 x 32);
+             synth_llff_360_unbounded's (15876 x 32); K1 on the density
+             tools' lattice chunks (65,536 points, one per ray along
+             (0, 0, 1), in [-2, 2]^3 and [-1.5, 1.5]^3);
   3. serve   for each configuration, the HTTP server on 127.0.0.1 with the
              NeRF-MLP kernel switched on answers GET /render, POST /render
              and GET /health at 800x800; K1 is launched exactly once per
@@ -101,11 +107,31 @@ card's name and power limit:
              two epochs of 21 steps) against two per-step runs, K1 and K3
              once per replay, the objective finite at every step, every
              parameter moved; synth_llff.yml one epoch per step through the
-             host DataLoader; and "family" for ndc and unbounded.
+             host DataLoader; and "family" for ndc and unbounded;
+ 10. multiscene  write four 128 px scenes of 10 / 2 / 2 views from a seed
+             (``yanerf_tpu_torch.synth_multiscene``); both multi-scene
+             configs fused (steps_per_call 8, batch 4, 40 steps) against
+             two per-step runs, a val and a test eval each; for the latent
+             one, each frame of a two-scene eval batch against the frame
+             rendered alone and with the other scene's code; the latent
+             config card against CPU ("family") at batch 2, two scene ids;
+ 11. tools   on the flagship's fused checkpoint, each tool's ``main`` (the
+             entry point of ``python -m``) with K1 on the final NeRFMLP:
+             fit_occupancy and fit_aabb at 128^3, also with K1's plain
+             version (only voxels within K1's tolerance of the threshold
+             may differ), extract_mesh --vertex_colors, render --trajectory
+             test --n_frames 2; each tool's seconds and K1 launches;
+ 12. occupancy  lego_proposal.yml's 800x800 frame with a constructed
+             occupancy grid (a ball of voxels): no grid, the default mode
+             (K1 and its plain version, PSNR) and the exact mode, each with
+             its seconds and peak memory; each mode's ray bounds on the card
+             against the CPU's, the differing rays counted.
 
 Any failure exits non-zero, and so does a run in which K1 or K3 did not
-launch on an LLFF training path or K1 on an LLFF frame. Imports nothing of
-JAX or of yanerf_tpu. The
+launch on an LLFF training path or K1 on an LLFF frame, K1 or K3 on the
+multi-scene control's training, K1 on a tool or the occupancy frame, or
+either of them on the latent path. Imports nothing of JAX or of
+yanerf_tpu. The
 last three lines are the kernels' JSON record, the card's name and power
 limit, and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -177,6 +203,15 @@ LLFF_TRAIN_RAYS = 1024  # fern.yml's n_rays_per_image_sampled_from_mask, all fou
 NDC_EVAL_CHUNK = (2027, 32)  # fern_ndc_proposal: 94 chunks of 378*504 rays at 64 points, 32 final points
 UNBOUNDED_EVAL_CHUNK = (15876, 32)  # synth_llff_360_unbounded (chunk_size_grid 2^20): 12 chunks
 UNBOUNDED_FAR = (80.0, 200.0)  # the config's scene: --distant_spheres 16 --distant_min 80 --distant_max 200
+MULTISCENE_LATENT_CONFIG = REPO / "configs" / "nerf" / "synth_multiscene_latent.yml"
+MULTISCENE_CONTROL_CONFIG = REPO / "configs" / "nerf" / "synth_multiscene_unconditioned.yml"
+MULTISCENE = dict(n_scenes=4, hw=128, n_train=10, n_val=2, n_test=2)  # the configs' scenes, cut from 30/4/4 views
+MULTISCENE_BATCH = 4  # the configs' batch_size_list[0]
+MULTISCENE_STEPS_PER_CALL = 8  # the configs' steps_per_call
+MULTISCENE_STEPS = 40  # four epochs of 10 steps: groups of 8 and 2
+TOOL_RESOLUTION = 128  # fit_occupancy's and fit_aabb's default lattice
+LATTICE_CHUNK = 65536  # the tools' --chunk: one K1 launch per chunk of lattice points
+OCCUPANCY_BALL = (128, 1.5, 1.0)  # the constructed grid: 128^3 voxels over [-1.5, 1.5]^3, a ball of radius 1
 
 
 def card() -> str:
@@ -227,6 +262,29 @@ def nerf_mlp_keys(config) -> list:
     from yanerf_tpu_torch.utils import Config
 
     return keys(Config.fromfile(str(config)))
+
+
+def kernel_keys(config) -> list:
+    """The keys of ``nerf_mlp_keys`` whose NeRFMLP the kernels can compute: ``input_xyz`` and ``latent_dim == 0``.
+
+    A latent NeRFMLP with the switch on runs its eager path, the JAX
+    package's rule (yanerf_tpu/models/nerf_mlp.py:183).
+    """
+    from yanerf_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(str(config))
+    models = cfg.pipeline.model
+
+    def model(key):
+        return models if key == "pipeline.model" else models[int(key.rsplit(".", 1)[1])]
+
+    return [k for k in nerf_mlp_keys(config) if model(k).get("latent_dim", 0) == 0 and model(k).get("input_xyz", True)]
+
+
+def kernel_mlps(pipeline) -> int:
+    """How many of ``pipeline``'s models train on K1 and K3: the switch on and the kernels' rule met."""
+    return sum(int(getattr(fn, "use_pallas_train", False) and getattr(fn, "latent_dim", 0) == 0
+                   and getattr(fn, "input_xyz", True)) for fn in pipeline.implicit_functions)
 
 
 def mlp_inputs(torch, n_rays: int, pts_per_ray: int, gen):
@@ -321,7 +379,17 @@ def ray_inputs(torch, n_rays: int, pts_per_ray: int, gen, kind: str = "world"):
     from yanerf_tpu_torch.ops.structures import RayBundle
 
     rand = lambda *shape: torch.rand(*shape, generator=gen)  # noqa: E731
-    if kind == "ndc":
+    if kind.startswith("lattice"):
+        # the middle chunk of the density tools' 128^3 lattice (fit_occupancy / fit_aabb on [-2, 2]^3,
+        # extract_mesh on [-1.5, 1.5]^3): zero-length rays along (0, 0, 1), one point each
+        half = 1.5 if kind == "lattice_mesh" else 2.0
+        axis = torch.linspace(-half, half, TOOL_RESOLUTION)
+        lattice = torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"), dim=-1).reshape(-1, 3)
+        start = (lattice.shape[0] // 2 // n_rays) * n_rays
+        origins = lattice[start : start + n_rays][None]
+        dirs = torch.tensor([0.0, 0.0, 1.0]).expand(1, n_rays, 3).contiguous()
+        lengths = torch.zeros(1, n_rays, pts_per_ray)
+    elif kind == "ndc":
         h, w = LLFF_HW
         focal = 0.5 * w / math.tan(0.5 * 0.6911112070083618)
         xy = rand(1, n_rays, 2) * torch.tensor([w, h])
@@ -645,9 +713,9 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
 
     config = CONFIG if config is None else config
     steps = TRAIN_STEPS if steps is None else steps
-    keys = nerf_mlp_keys(config)
+    keys = kernel_keys(config)
     argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir), "--cfg_options",
-            *(f"{key}.use_pallas_train=True" for key in keys), f"runner.num_iters={steps}", "runner.steps_per_call=1",
+            *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(config)), f"runner.num_iters={steps}", "runner.steps_per_call=1",
             *(f"datasets.{i}.base_dir={scene}" for i in range(3)), *extra_options]
     with observe_run(torch) as seen:
         if DEVICE == "cuda":
@@ -680,7 +748,7 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
     step_s = [s["step_s"] for s in result["train_stats"] if "step_s" in s]
     ms_per_step = 1e3 * sorted(step_s)[len(step_s) // 2]
     n_rays = cfg.pipeline.ray_sampler.n_rays_per_image_sampled_from_mask
-    n_mlps = sum(int(getattr(fn, "use_pallas_train", False)) for fn in state.pipeline.implicit_functions)
+    n_mlps = kernel_mlps(state.pipeline)
     checks = {
         "steps": n_steps == steps == len(objectives),
         # once per step and NeRFMLP (none without one); the test frame at the
@@ -705,15 +773,18 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
 
 
 def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, steps_per_call=None,
-                extra_options=(), train_frames=FUSED_TRAIN_FRAMES):
+                extra_options=(), train_frames=FUSED_TRAIN_FRAMES, batch_size=1):
     """The CLI of ``config`` with ``steps_per_call`` (fused) and twice with 1 (per step), from the same start.
 
     On the device cache, as the configs ship: lego_proposal.yml (the
-    default), fern_ndc_proposal.yml and synth_llff_360_unbounded.yml with
-    ``use_pallas_train`` on their NeRFMLP, K1 and K3 once per replay;
-    synth800_mip.yml, which has no NeRFMLP and launches neither. The fused
-    run's objective must be finite at every step and every parameter must
-    move.
+    default), fern_ndc_proposal.yml, synth_llff_360_unbounded.yml and
+    synth_multiscene_unconditioned.yml with ``use_pallas_train`` on their
+    NeRFMLP, K1 and K3 once per replay; synth800_mip.yml, which has no
+    NeRFMLP, and synth_multiscene_latent.yml, whose NeRFMLP is latent (the
+    switch is set and the kernels' rule sends it down its eager path),
+    launch neither. ``steps`` are steps of ``batch_size`` images (the
+    config's ``num_iters`` counts images). The fused run's objective must be
+    finite at every step and every parameter must move.
     """
     from yanerf_tpu_torch import run
     from yanerf_tpu_torch.ops.kernels import launch_count
@@ -721,12 +792,12 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
     config = CONFIG if config is None else config
     steps = FUSED_TRAIN_STEPS if steps is None else steps
     steps_per_call = FUSED_STEPS_PER_CALL if steps_per_call is None else steps_per_call
-    keys = nerf_mlp_keys(config)
+    keys = kernel_keys(config)
 
     def cli(name: str, per_call: int):
         argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir / name), "--cfg_options",
-                *(f"{key}.use_pallas_train=True" for key in keys),
-                f"runner.num_iters={steps}", f"runner.steps_per_call={per_call}",
+                *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(config)),
+                f"runner.num_iters={steps * batch_size}", f"runner.steps_per_call={per_call}",
                 *(f"datasets.{i}.base_dir={scene}" for i in range(3)), *extra_options]
         sync(torch)
         if DEVICE == "cuda":
@@ -761,7 +832,7 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
     per_step_equal, per_step_gap = gap(per_step, again)
     fused_equal, fused_gap = gap(fused, per_step)
     tally = launch_count.per_replay(trainer.tally) if trainer.tally is not None else {}
-    n_mlps = sum(int(getattr(fn, "use_pallas_train", False)) for fn in fused["state"].pipeline.implicit_functions)
+    n_mlps = kernel_mlps(fused["state"].pipeline)
     step_s = {"fused": [s.get("step_s") for s in fused["train_stats"]],
               "per_step": [s.get("step_s") for s in per_step["train_stats"]]}
     on_card = DEVICE == "cuda"
@@ -778,7 +849,7 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         and fused_launches["nerf_mlp_fwd_pipelined"] == 0 and (n_mlps > 0) == bool(keys),
         # bit for bit where the per-step loop itself is; otherwise no further than it is from itself
         "equal_to_per_step": fused_equal if per_step_equal else fused_gap <= per_step_gap,
-        "objective_finite_every_step": fused["objective"].numel() == steps
+        "objective_finite_every_step": fused["objective"].numel() == steps * batch_size  # one per image and step
         and bool(torch.isfinite(fused["objective"]).all()),
         "params_moved": fused["params_moved"][0] == fused["params_moved"][1] > 0,
         "test_metrics_finite": all(math.isfinite(v) for v in fused["test_stats"].values()),
@@ -796,7 +867,8 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         per_step_launches=per_step_launches,
         per_step_runs_bit_equal=per_step_equal, per_step_max_param_diff=per_step_gap,
         fused_bit_equal_to_per_step=fused_equal, fused_max_param_diff=fused_gap,
-        test_stats=fused["test_stats"], checks=checks,
+        val_stats=fused["val_stats"], test_stats=fused["test_stats"], checks=checks,
+        checkpoint=str(fused["checkpoint"]),
     )
     return numbers, fused_launches
 
@@ -828,7 +900,7 @@ def family_frame(torch, K1, K3, service, card_line: str, config_name: str):
 
 
 def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, train_rays: int = FAMILY_TRAIN_RAYS,
-                 options=None, density_bias: float = 0.0):
+                 options=None, density_bias: float = 0.0, items=(0,), probe_biases=()):
     """The card against the CPU for a family's eager path: one eval chunk and one train step, in float32.
 
     The same weights, batch and draws on both (``compute_dtype`` overridden
@@ -837,16 +909,20 @@ def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, 
     each parameter tensor's gradient at a cosine >= FAMILY_MIN_GRAD_COSINE.
     The train step runs twice on the card; whether the two runs' gradients
     are bit-equal is printed (the hash grid's scatter-add backward). The
-    batch is the first item of the config's train dataset on ``scene``
-    (``options``: more config overrides), its per-image bounds included.
+    batch is the ``items`` of the config's train dataset on ``scene`` (the
+    first one by default; ``options``: more config overrides), their
+    per-image bounds and scene ids included, the eval chunk taken from each.
     ``density_bias`` is added to every model's density bias first, the same
     on both sides, so that every ray carries mass: with the init's densities
     the proposal estimator on LLFF rays is ill-conditioned (on the CPU a
     1e-7 relative change of the ray directions moves the eval chunk's
     depths by 0.075 in NDC and by 23.9 on the unbounded scene; with +1 on
     the biases by 5e-6 and 1.8e-5), the empty-ray note of ROADMAP.md Queue 3.
+    That measure of the chunk's conditioning is printed beside its error
+    (``cpu_chunk_sensitivity``: the CPU chunk against itself with the
+    directions scaled by 1 + 1e-7), also at each of ``probe_biases``.
     """
-    from yanerf_tpu_torch.datasets import DATASETS
+    from yanerf_tpu_torch.datasets import DATASETS, stack_batch
     from yanerf_tpu_torch.ops.structures import EvaluationMode
     from yanerf_tpu_torch.pipelines import PIPELINES
     from yanerf_tpu_torch.runners import TrainState, create_optimizer, make_step_draws, make_train_step, prepare_batch
@@ -868,18 +944,23 @@ def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, 
         pipes[name] = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(7), device=DEVICE)
         pipes[name].load_state_dict(pipes["cpu"].state_dict())
     dataset = DATASETS.build(dict(cfg.datasets[0], base_dir=str(scene)))
-    data = tuple(x[None] for x in dataset[0])
+    data = stack_batch([dataset[i] for i in items])
 
-    def eval_chunk(pipe):
-        """The eval chunk of ``eval_rays`` rays from the middle row of the frame on, through every pass."""
+    def eval_chunk(pipe, direction_scale: float = 1.0):
+        """The eval chunk of ``eval_rays`` rays from the middle row of each frame on, through every pass."""
         batch = prepare_batch(data, dataset.data_wrapper, pipe.device)
+        extra = {k: v for k, v in batch.items() if k not in ("poses", "focal_lengths", "image_rgb", "min_depth",
+                                                                "max_depth")}
         with torch.no_grad():
             bundle = pipe.ray_sampler(batch["poses"], batch["focal_lengths"], EvaluationMode.EVALUATION,
                                       min_depth=batch.get("min_depth"), max_depth=batch.get("max_depth"))
             start = (bundle.origins.shape[1] // 2) * bundle.origins.shape[2]
-            o, d, l, xys = (t.reshape(1, -1, 1, t.shape[-1])[:, start:start + eval_rays] for t in bundle)
+            o, d, l, xys = (t.reshape(t.shape[0], -1, 1, t.shape[-1])[:, start:start + eval_rays] for t in bundle)
+            d = d * direction_scale
+            features = pipe.extract_features(**extra)  # the scene codes of a latent config
             out = pipe.renderer(o, d, l, xys, None, evaluation_mode=EvaluationMode.EVALUATION,
-                                implicit_functions=[pipe._bind_model(fn, {}, False) for fn in pipe.implicit_functions])
+                                implicit_functions=[pipe._bind_model(fn, features, False)
+                                                    for fn in pipe.implicit_functions])
         stages = []
         while out is not None:
             stages.append({k: getattr(out, k).cpu() for k in ("features", "depths", "alpha_masks")})
@@ -887,9 +968,20 @@ def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, 
         return stages
 
     chunks = {name: eval_chunk(pipes[name]) for name in ("cpu", "card")}
-    chunk_err = max(float((a[k] - b[k]).abs().max()) for a, b in zip(chunks["cpu"], chunks["card"]) for k in a)
 
-    draws = make_step_draws(pipes["cpu"], 1, seed=3, step=0)
+    def chunk_gap(x, y) -> float:
+        return max(float((a[k] - b[k]).abs().max()) for a, b in zip(x, y) for k in a)
+
+    chunk_err = chunk_gap(chunks["cpu"], chunks["card"])
+    sensitivity = {density_bias: chunk_gap(chunks["cpu"], eval_chunk(pipes["cpu"], 1.0 + 1e-7))}
+    for bias in probe_biases:
+        probe = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(7), device=cpu)
+        with torch.no_grad():
+            for fn in probe.implicit_functions:
+                fn.density_layer.b.add_(bias)
+        sensitivity[bias] = chunk_gap(eval_chunk(probe), eval_chunk(probe, 1.0 + 1e-7))
+
+    draws = make_step_draws(pipes["cpu"], len(items), seed=3, step=0)
     out = {}
     for name, pipe in pipes.items():
         batch = prepare_batch(data, dataset.data_wrapper, pipe.device)
@@ -909,8 +1001,10 @@ def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, 
         "grad_cosine": grad_cos[worst] >= FAMILY_MIN_GRAD_COSINE,
         "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads_card.values()),
     }
-    return dict(config=Path(config).name, eval_rays=eval_rays, train_rays=train_rays, density_bias=density_bias,
+    return dict(config=Path(config).name, batch=len(items), eval_rays=eval_rays, train_rays=train_rays,
+                density_bias=density_bias,
                 eval_chunk_max_abs_err=chunk_err,
+                cpu_chunk_sensitivity={f"density_bias {b:+g}": v for b, v in sensitivity.items()},
                 atol=FAMILY_ATOL, objective_card=obj_card, objective_cpu=obj_cpu, objective_rtol=FAMILY_OBJECTIVE_RTOL,
                 worst_grad_cosine=grad_cos[worst], worst_grad_tensor=worst, min_grad_cosine=FAMILY_MIN_GRAD_COSINE,
                 tables_grad_cosine=[c for k, c in grad_cos.items() if ".tables." in k],
@@ -1082,6 +1176,257 @@ def llff_phases(torch, K1, K3, card_line: str, tmp: Path) -> dict:
     return paths
 
 
+def scene_codes(torch, config, checkpoint: str, data: Path) -> dict:
+    """Each frame of a two-scene eval batch gets its own scene's code: the batch's frames against each frame
+    rendered alone (PSNR), and the first frame with the other scene's id (the mean change)."""
+    import numpy as np
+
+    from yanerf_tpu_torch.datasets import DATASETS, stack_batch
+    from yanerf_tpu_torch.ops.structures import EvaluationMode
+    from yanerf_tpu_torch.runners import prepare_batch
+    from yanerf_tpu_torch.serve import load_pipeline
+    from yanerf_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(str(config))
+    pipeline = load_pipeline(cfg, checkpoint, DEVICE)
+    test = DATASETS.build(dict(cfg.datasets[2], base_dir=str(data)))
+    items = [0, MULTISCENE["n_test"]]  # the first test view of scenes 0 and 1
+
+    def frames(batch_items, scene_ids=None):
+        batch = prepare_batch(stack_batch([test[i] for i in batch_items]), test.data_wrapper, torch.device(DEVICE))
+        if scene_ids is not None:
+            batch["scene_id"] = torch.tensor(scene_ids, dtype=torch.int32, device=DEVICE)
+        with torch.inference_mode():
+            return pipeline(evaluation_mode=EvaluationMode.EVALUATION, **batch)["rendered_images"].float().cpu()
+
+    batched = frames(items)
+    alone = [frames([i])[0] for i in items]
+    swapped = frames([items[0]], [1])[0]
+
+    def psnr(a, b):
+        return -10.0 * math.log10(max(float(((a - b) ** 2).mean()), 1e-20))
+
+    numbers = dict(scene_ids=[int(test[i][3]) for i in items], batch_vs_alone_psnr_db=[
+        psnr(batched[k], alone[k]) for k in range(2)], other_scene_mean_abs_change=float(
+        (swapped - alone[0]).abs().mean()))
+    numbers["checks"] = {"own_code": min(numbers["batch_vs_alone_psnr_db"]) >= MIN_FRAME_PSNR,
+                         "codes_matter": numbers["other_scene_mean_abs_change"] > 0.0,
+                         "finite": bool(np.isfinite(batched.numpy()).all())}
+    return numbers
+
+
+def multiscene_phases(torch, K1, K3, card_line: str, tmp: Path) -> dict:
+    """Multi-scene latent conditioning: the scenes, both configs fused against per-step runs, the card against
+    the CPU. Returns the kernels' launches on each training path."""
+    from yanerf_tpu_torch import synth_multiscene
+
+    data = tmp / "multiscene"
+    t = time.perf_counter()
+    # the entry point of ``python -m yanerf_tpu_torch.synth_multiscene``
+    synth_multiscene.main(["--out_dir", str(data), *(f"--{k}={v}" for k, v in MULTISCENE.items()), "--seed", "0"])
+    say(card_line, "multiscene scene", seconds=time.perf_counter() - t, **MULTISCENE)
+    paths = {}
+    for name, config in (("latent", MULTISCENE_LATENT_CONFIG), ("control", MULTISCENE_CONTROL_CONFIG)):
+        # a val epoch at the end of the run; then the test eval
+        numbers, paths[f"multiscene_{name}_train_fused"] = fused_train(
+            torch, K1, K3, data, tmp / f"results_multiscene_{name}", config, MULTISCENE_STEPS,
+            MULTISCENE_STEPS_PER_CALL, extra_options=[f"runner.val_per_iter={MULTISCENE_STEPS * MULTISCENE_BATCH}"],
+            train_frames=MULTISCENE["n_scenes"] * MULTISCENE["n_train"], batch_size=MULTISCENE_BATCH)
+        numbers["checks"]["val_ran"] = len(numbers["val_stats"]) == 1 and all(
+            math.isfinite(v) for v in numbers["val_stats"][0].values())
+        if name == "latent":
+            numbers["scene_codes"] = scene_codes(torch, config, numbers["checkpoint"], data)
+            numbers["checks"].update({f"scene_codes_{k}": v for k, v in numbers["scene_codes"]["checks"].items()})
+        say(card_line, "fused", **numbers)
+        if not all(numbers["checks"].values()):
+            raise SystemExit(f"{config.name} fused phase failed: {numbers['checks']}")
+        torch.cuda.empty_cache()
+    # +2 on every density bias: at +1 (the LLFF checks') this chunk of the latent config is still ill-conditioned
+    # on the CPU itself, its depths moving by more than FAMILY_ATOL under a 1e-7 change of the directions
+    # (printed: cpu_chunk_sensitivity)
+    family = family_check(torch, data, MULTISCENE_LATENT_CONFIG, FAMILY_EVAL_RAYS, FAMILY_TRAIN_RAYS, density_bias=2.0,
+                          items=(0, MULTISCENE["n_train"]), probe_biases=(1.0,))
+    say(card_line, "family", **family)
+    if not all(family["checks"].values()):
+        raise SystemExit(f"{MULTISCENE_LATENT_CONFIG.name} family phase failed: {family['checks']}")
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_tool(torch, K1, K3, module, argv, plain: bool = False):
+    """``module.main(argv)``, the entry point of ``python -m``; with ``plain`` K1 is its plain version.
+
+    Returns its result, the kernels' launches and the seconds it took.
+    """
+    import contextlib
+
+    sync(torch)
+    K1.launches = K1.pipelined_launches = K3.launches = 0
+    t = time.perf_counter()
+    with mock.patch.object(K1, "nerf_mlp_fwd", K1.nerf_mlp_fwd_plain) if plain else contextlib.nullcontext():
+        out = module.main(argv)
+    sync(torch)
+    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                "nerf_mlp_bwd": K3.launches}
+    return out, launches, time.perf_counter() - t
+
+
+def tools_phases(torch, K1, K3, card_line: str, tmp: Path, checkpoint: str, scene: Path) -> dict:
+    """The density-field tools on the flagship's fused checkpoint, K1 on the final NeRFMLP; returns the launches.
+
+    The threshold (and the mesh's iso value) is the 90th percentile of the
+    checkpoint's density on fit_occupancy's lattice, so that the grid is
+    neither full nor empty whatever a short run learned. fit_occupancy and
+    fit_aabb also run with K1's plain version: their grids and boxes may
+    differ only at lattice points whose plain density lies within K1's
+    tolerance of the threshold.
+    """
+    import numpy as np
+
+    from yanerf_tpu_torch import extract_mesh, fit_aabb, fit_occupancy, render
+    from yanerf_tpu_torch.ops.mesh import evaluate_density_grid, fit_scene_aabb
+    from yanerf_tpu_torch.serve import load_pipeline
+    from yanerf_tpu_torch.utils import Config
+
+    bounds = (-2.0, 2.0)
+    k1_on = ["--cfg_options", "pipeline.model.2.use_pallas=True"]
+    cfg = Config.fromfile(str(CONFIG))
+    cfg.merge_from_dict({"pipeline.model.2.use_pallas": True})
+    with mock.patch.object(K1, "nerf_mlp_fwd", K1.nerf_mlp_fwd_plain):
+        density = evaluate_density_grid(load_pipeline(cfg, checkpoint, DEVICE).implicit_functions[-1],
+                                        TOOL_RESOLUTION, bounds, LATTICE_CHUNK)
+    threshold = float(np.quantile(density, 0.9))
+    common = ["--config", str(CONFIG), "--checkpoint", checkpoint, "--device", DEVICE, "--resolution",
+              str(TOOL_RESOLUTION), "--chunk", str(LATTICE_CHUNK)]
+    paths, numbers = {}, {}
+
+    fit_args = [*common, "--threshold", str(threshold), "--out", str(tmp / "occupancy.npz")]
+    fitted, paths["fit_occupancy"], seconds = run_tool(torch, K1, K3, fit_occupancy, [*fit_args, *k1_on])
+    plain, _, plain_seconds = run_tool(torch, K1, K3, fit_occupancy, [*fit_args, *k1_on], plain=True)
+    near = np.abs(plain["grid"] - threshold) <= KERNEL_ATOL + KERNEL_RTOL * np.abs(plain["grid"])
+    flipped = (fitted["grid"] > threshold) != (plain["grid"] > threshold)
+    numbers["fit_occupancy"] = dict(seconds=seconds, plain_seconds=plain_seconds, launches=paths["fit_occupancy"],
+                                    threshold=threshold, fraction=fitted["fraction"],
+                                    plain_fraction=plain["fraction"], voxels_near_threshold=int(near.sum()),
+                                    voxels_flipped=int(flipped.sum()), grid_max_abs_err=float(
+                                        np.abs(fitted["grid"] - plain["grid"]).max()))
+    expected = -(-TOOL_RESOLUTION**3 // LATTICE_CHUNK)
+    checks = {"fit_occupancy_k1_per_chunk": paths["fit_occupancy"]["nerf_mlp_fwd"] == expected,
+              "fit_occupancy_flips_near_threshold_only": not (flipped & ~near).any()}
+
+    boxed, paths["fit_aabb"], seconds = run_tool(torch, K1, K3, fit_aabb, [*common, "--threshold", str(threshold),
+                                                                          *k1_on])
+    plain_box, _, _ = run_tool(torch, K1, K3, fit_aabb, [*common, "--threshold", str(threshold), *k1_on], plain=True)
+    sure, maybe = (plain["grid"] > threshold) & ~near, (plain["grid"] > threshold) | near
+    outer = fit_scene_aabb(maybe.astype(np.float32), bounds, 0.5)
+    inner = fit_scene_aabb(sure.astype(np.float32), bounds, 0.5) if sure.any() else None
+    got = boxed["aabb"]
+    within = bool((got[0] >= outer[0]).all() and (got[1] <= outer[1]).all()) and (
+        inner is None or bool((got[0] <= inner[0]).all() and (got[1] >= inner[1]).all()))
+    numbers["fit_aabb"] = dict(seconds=seconds, launches=paths["fit_aabb"], aabb=got.tolist(),
+                               plain_aabb=plain_box["aabb"].tolist(),
+                               equal_to_plain=bool(np.array_equal(got, plain_box["aabb"])))
+    checks.update(fit_aabb_k1_per_chunk=paths["fit_aabb"]["nerf_mlp_fwd"] == expected,
+                  fit_aabb_within_the_near_threshold_boxes=within)
+
+    mesh, paths["extract_mesh"], seconds = run_tool(torch, K1, K3, extract_mesh, [
+        *common, "--iso", str(threshold), "--vertex_colors", "--out", str(tmp / "mesh.obj"), *k1_on])
+    numbers["extract_mesh"] = dict(seconds=seconds, launches=paths["extract_mesh"], iso=threshold,
+                                   vertices=len(mesh["verts"]), faces=len(mesh["faces"]))
+    checks["extract_mesh_obj_written"] = (tmp / "mesh.obj").exists() and paths["extract_mesh"]["nerf_mlp_fwd"] == (
+        expected + -(-len(mesh["verts"]) // LATTICE_CHUNK))
+
+    # the scene holds one test view: the test trajectory over the train split's cameras
+    rendered, paths["render"], seconds = run_tool(torch, K1, K3, render, [
+        "--config", str(CONFIG), "--checkpoint", checkpoint, "--device", DEVICE, "--trajectory", "test",
+        "--n_frames", "2", "--output_dir", str(tmp / "renders"), "--cfg_options", "pipeline.model.2.use_pallas=True",
+        f"datasets.2.base_dir={scene}", "datasets.2.split=train"])
+    numbers["render"] = dict(seconds=seconds, launches=paths["render"], frames=rendered["frames"], fps=rendered["fps"])
+    checks["render_pngs_written"] = rendered["frames"] == 2 and all(
+        (tmp / "renders" / kind / f"{i:05d}.png").exists() for kind in ("rgb", "depth") for i in range(2))
+    say(card_line, "tools", config=CONFIG.name, checkpoint=Path(checkpoint).name, checks=checks, **numbers)
+    if not all(checks.values()):
+        raise SystemExit(f"tools phase failed: {checks}")
+    return paths
+
+
+def occupancy_phase(torch, K1, card_line: str, tmp: Path) -> dict:
+    """lego_proposal.yml's 800x800 frame with a constructed occupancy grid (a ball of voxels), K1 on.
+
+    No grid, the default mode (coarse-to-fine on a decimated image) with
+    K1 and with its plain version (PSNR), and the exact mode: each frame's
+    seconds and peak memory; the rays' bounds of both modes on the card
+    against the CPU's for the same grid and rays, with the rays whose bounds
+    differ counted (a probe on a half may round the other way; it can move a
+    bound by at most a probe spacing). Returns the launches of each mode.
+    """
+    import numpy as np
+
+    from yanerf_tpu_torch.ops.occupancy import OccupancyGrid, occupancy_fraction, save_occupancy
+    from yanerf_tpu_torch.ops.structures import EvaluationMode
+    from yanerf_tpu_torch.pipelines import RAY_SAMPLERS
+    from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose, service_from_config
+    from yanerf_tpu_torch.utils import Config
+
+    res, half, radius = OCCUPANCY_BALL
+    axis = np.linspace(-half, half, res, dtype=np.float32)
+    x, y, z = np.meshgrid(axis, axis, axis, indexing="ij")
+    occ = OccupancyGrid(grid=(x * x + y * y + z * z <= radius * radius).astype(np.uint8),
+                        aabb=np.asarray([[-half] * 3, [half] * 3], np.float32))
+    path = tmp / "ball.npz"
+    save_occupancy(str(path), occ, threshold=0.0)
+    modes = {"no_grid": {}, "default": {"pipeline.ray_sampler.occupancy_grid": str(path)},
+             "exact": {"pipeline.ray_sampler.occupancy_grid": str(path), "pipeline.ray_sampler.occupancy_coarse_factor": 1,
+                       "pipeline.ray_sampler.occupancy_block": 1}}
+    pose = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
+    numbers, launches, checks = {}, {}, {}
+    for mode, options in modes.items():
+        cfg = Config.fromfile(str(CONFIG))
+        cfg.merge_from_dict({"pipeline.model.2.use_pallas": True, **options})
+        service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
+        service.render(pose, service.default_focal)  # warm-up: the grid reaches the device once
+        sync(torch)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        K1.launches = 0
+        t = time.perf_counter()
+        rgb, _ = service.render(pose, service.default_focal)
+        numbers[mode] = dict(frame_s=time.perf_counter() - t, k1_launches=K1.launches, mean_rgb=float(rgb.mean()),
+                             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None)
+        launches[mode] = {"nerf_mlp_fwd": K1.launches}
+        checks[f"{mode}_k1_per_chunk"] = K1.launches == frame_chunks(cfg) and bool(np.isfinite(rgb).all())
+        if mode == "no_grid":
+            continue
+        sampler = service._pipeline.ray_sampler
+        rs = cfg.pipeline.ray_sampler
+        cpu_sampler = RAY_SAMPLERS.build(dict(rs))
+        focal = torch.tensor([[service.default_focal]])
+        with torch.inference_mode():
+            card_bundle = sampler(torch.as_tensor(pose)[None].to(DEVICE), focal.to(DEVICE), EvaluationMode.EVALUATION)
+            cpu_bundle = cpu_sampler(torch.as_tensor(pose)[None], focal, EvaluationMode.EVALUATION)
+        card_l, cpu_l = card_bundle.lengths.cpu().numpy(), cpu_bundle.lengths.numpy()
+        differ = np.abs(card_l - cpu_l).max(axis=-1) > 1e-5
+        n_probe = rs.get("occupancy_n_probe", 128) if mode == "exact" else min(
+            rs.get("occupancy_n_probe_coarse", 32), rs.get("occupancy_n_probe_fine", 64))
+        spacing = (rs.max_depth - rs.min_depth) / n_probe
+        hit = cpu_l[..., -1] < rs.max_depth - 1e-5
+        numbers[mode].update(rays_bounds_differ=int(differ.sum()), rays=int(differ.size),
+                             bounds_max_abs_diff=float(np.abs(card_l - cpu_l).max()), probe_spacing=spacing,
+                             rays_hitting_the_grid=int(hit.sum()))
+        checks[f"{mode}_bounds_card_vs_cpu"] = float(np.abs(card_l - cpu_l).max()) <= spacing + 1e-5
+        checks[f"{mode}_bounds_not_trivial"] = bool(hit.any() and (~hit).any())
+        if mode == "default":
+            launches[mode] = frame(torch, K1, service, card_line, f"{CONFIG.name} with occupancy_grid", with_k2=False,
+                                   k1_per_frame=frame_chunks(cfg))
+        del service
+        torch.cuda.empty_cache()
+    say(card_line, "occupancy frame", config=CONFIG.name, grid=dict(resolution=res, half_extent=half, ball_radius=radius,
+        fraction=occupancy_fraction(occ)), checks=checks, **numbers)
+    if not all(checks.values()):
+        raise SystemExit(f"occupancy frame phase failed: {checks}")
+    return {"occupancy_frame": launches["default"], "occupancy_frame_exact": launches["exact"]}
+
+
 def main() -> int:
     import torch
 
@@ -1136,6 +1481,11 @@ def main() -> int:
             **check_k2(torch, K1, packed, n_rays, pts_per_ray, gen, timed=False))
     check_classic_train_shapes(torch, K1, K3, nerf_mlp, packed, gen, card_line)
     check_llff_ranges(torch, K1, K3, nerf_mlp, packed, gen, card_line)
+    k1_lattice = check_k1(torch, K1, nerf_mlp, packed, LATTICE_CHUNK, 1, gen, "lattice")
+    say(card_line, "kernel", name="nerf_mlp_fwd", shape=f"density tools' lattice chunk, {LATTICE_CHUNK} points of "
+        "[-2, 2]^3 along (0, 0, 1)", **k1_lattice)
+    say(card_line, "kernel", name="nerf_mlp_fwd", shape=f"extract_mesh's lattice chunk, {LATTICE_CHUNK} points of "
+        "[-1.5, 1.5]^3 along (0, 0, 1)", **check_k1(torch, K1, nerf_mlp, packed, LATTICE_CHUNK, 1, gen, "lattice_mesh"))
     torch.cuda.empty_cache()
 
     # 3. serve and 4. frame, proposal then classic
@@ -1214,6 +1564,13 @@ def main() -> int:
         # LLFF captures, NDC rays and unbounded scenes
         llff_paths = llff_phases(torch, K1, K3, card_line, Path(tmp))
 
+        # multi-scene latent conditioning; the density tools on the flagship's fused checkpoint; occupancy bounds
+        slice_paths = multiscene_phases(torch, K1, K3, card_line, Path(tmp))
+        (Path(tmp) / "tools").mkdir()
+        slice_paths.update(tools_phases(torch, K1, K3, card_line, Path(tmp) / "tools", fused_numbers["checkpoint"],
+                                        fused_scene))
+        slice_paths.update(occupancy_phase(torch, K1, card_line, Path(tmp)))
+
     def entry(name, source, replaces, numbers, launches_by_path):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1231,12 +1588,15 @@ def main() -> int:
         paths["proposal_train_fused"] = train_launches["proposal_fused"][kernel]
         paths.update({name: launches[kernel] for name, launches in new_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in llff_paths.items()})
+        paths.update({name: launches.get(kernel, 0) for name, launches in slice_paths.items()})
         return paths
 
     record = {
         "kernels": [
-            entry("nerf_mlp_fwd", "yanerf_tpu_torch/csrc/nerf_mlp_fwd.cu",
-                  "yanerf_tpu/ops/pallas/nerf_mlp_kernel.py:154", k1, by_path("nerf_mlp_fwd")),
+            dict(entry("nerf_mlp_fwd", "yanerf_tpu_torch/csrc/nerf_mlp_fwd.cu",
+                       "yanerf_tpu/ops/pallas/nerf_mlp_kernel.py:154", k1, by_path("nerf_mlp_fwd")),
+                 lattice_chunk={k: k1_lattice[k] for k in ("points", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                           "max_abs_err", "eager_ms")}),
             entry("nerf_mlp_fwd_pipelined", "yanerf_tpu_torch/csrc/nerf_mlp_fwd_pipelined.cu",
                   "yanerf_tpu/ops/pallas/nerf_mlp_kernel.py:296", k2, by_path("nerf_mlp_fwd_pipelined")),
             entry("nerf_mlp_bwd", "yanerf_tpu_torch/csrc/nerf_mlp_bwd.cu", "yanerf_tpu/ops/pallas/nerf_mlp_bwd.py:67",
@@ -1257,6 +1617,16 @@ def main() -> int:
     idle = {name: launches for name, launches in llff_paths.items() if kernels_missing(name, launches)}
     if idle:
         raise SystemExit(f"a NeRF-MLP kernel did not run on an LLFF path: {idle}")
+    # K1 and K3 on the control's training, K1 on the tools and the occupancy frame; neither on the latent path
+    expected = {"multiscene_control_train_fused": ("nerf_mlp_fwd", "nerf_mlp_bwd"), "fit_occupancy": ("nerf_mlp_fwd",),
+                "fit_aabb": ("nerf_mlp_fwd",), "extract_mesh": ("nerf_mlp_fwd",), "render": ("nerf_mlp_fwd",),
+                "occupancy_frame": ("nerf_mlp_fwd",), "occupancy_frame_exact": ("nerf_mlp_fwd",)}
+    idle = {name: slice_paths[name] for name, kernels in expected.items()
+            if any(slice_paths[name].get(k, 0) == 0 for k in kernels)}
+    if idle or slice_paths["multiscene_latent_train_fused"] != NO_LAUNCHES:
+        raise SystemExit(f"a NeRF-MLP kernel did not run on a path of multi-scene training, the tools or the "
+                         f"occupancy frame, or ran on the latent path: {idle}, "
+                         f"{slice_paths['multiscene_latent_train_fused']}")
     say(card_line, "total", seconds=time.perf_counter() - t_start)
     print(json.dumps(record))
     print(card_line)

@@ -112,10 +112,13 @@ def test_torch_inits_have_the_reference_bounds():
 
 
 def test_unported_model_options_raise():
-    with pytest.raises(NotImplementedError):
-        MODELS.build(dict(NERF_CFG, latent_dim=4))
-    with pytest.raises(NotImplementedError):
-        MODELS.build(dict(PROPOSAL_CFG, latent_dim=4))
+    """Latent conditioning is ported (tests/test_torch_latent.py holds it to JAX): the models build with
+    ``latent_dim``, and only what the JAX package refuses raises."""
+    for cfg in (NERF_CFG, PROPOSAL_CFG, dict(NERF_CFG, input_xyz=False)):
+        model = MODELS.build(dict(cfg, latent_dim=4))
+        assert model.latent_dim == 4 and model.input_dim == JAX_MODELS.build(dict(cfg, latent_dim=4)).input_dim
+    with pytest.raises(ValueError, match="latent dimension has to be > 0"):
+        MODELS.build(dict(NERF_CFG, input_xyz=False))
     # contracted coordinates are ported: the models build (tests/test_torch_unbounded.py holds them to JAX)
     for cfg in (NERF_CFG, PROPOSAL_CFG, dict(type="HashGridNeRF", scene_bound=2.0)):
         assert MODELS.build(dict(cfg, contract_coords=True)).contract_coords

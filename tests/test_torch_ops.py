@@ -70,19 +70,37 @@ def test_linspace_matches_jnp(n):
 
 
 def test_ray_bundle_unported_options_raise():
-    """Occupancy-grid bounds still raise (the tools slice); disparity spacing and ``scene_aabb`` match JAX."""
-    grid = torch.zeros(1, 2, 2, 2)
-    with pytest.raises(NotImplementedError, match="tools slice"):
-        trays.xy_to_ray_bundle(torch.eye(4)[None], 2, 2, torch.ones(1), grid, 1.0, 2.0, 4, occupancy=object())
+    """Every option of ``xy_to_ray_bundle`` is ported and matches JAX: disparity spacing, ``scene_aabb`` and the
+    occupancy bounds (a grid: the exact march; a spec: coarse-to-fine, on the image grid's decimated path),
+    applied after the slab test and before the depths are drawn."""
+    from yanerf_tpu.ops import occupancy as jocc
+    from yanerf_tpu_torch.ops import occupancy as tocc
+
     pose = np.eye(4, dtype=np.float32)[None, :3]
     pose[0, :, 3] = (0.1, -0.2, -2.0)
-    xy = np.broadcast_to(trays._xy_grid_np(3, 4), (1, 3, 4, 2)).copy()
-    for options in (dict(sample_in_disparity=True), dict(scene_aabb=[-0.5, -0.5, -0.5, 0.5, 0.5, 0.5])):
-        ref = jrays.xy_to_ray_bundle(jnp.asarray(pose), 4, 3, jnp.asarray([[3.0]]), jnp.asarray(xy), 0.5, 4.0, 5,
-                                     **{k: jnp.asarray(v) if k == "scene_aabb" else v for k, v in options.items()})
-        got = trays.xy_to_ray_bundle(torch.from_numpy(pose), 4, 3, torch.tensor([[3.0]]), torch.from_numpy(xy), 0.5,
-                                     4.0, 5, **options)
+    xy = np.broadcast_to(trays._xy_grid_np(6, 8), (1, 6, 8, 2)).copy()
+    density = np.zeros((12, 12, 12), np.float32)
+    density[3:8, 4:9, 5:9] = 10.0
+    grids = {pkg: pkg.build_occupancy_grid(density, (-0.6, 0.6), 5.0) for pkg in (jocc, tocc)}
+    box = [-0.5, -0.5, -0.5, 0.5, 0.5, 0.5]
+    for options in (dict(sample_in_disparity=True), dict(scene_aabb=box), dict(occupancy="grid"),
+                    dict(occupancy="spec", scene_aabb=box), dict(occupancy="grid", occupancy_n_probe=16,
+                                                                 sample_in_disparity=True)):
+        def resolve(pkg, v):
+            if v == "grid":
+                return grids[pkg]
+            return pkg.OccupancyBoundsSpec(grids[pkg], pkg.coarsen_occupancy(grids[pkg], 4), block=2)
+
+        ref = jrays.xy_to_ray_bundle(jnp.asarray(pose), 8, 6, jnp.asarray([[3.0]]), jnp.asarray(xy), 0.5, 4.0, 5,
+                                     **{k: jnp.asarray(v) if k == "scene_aabb" else resolve(jocc, v) if k == "occupancy"
+                                        else v for k, v in options.items()})
+        got = trays.xy_to_ray_bundle(torch.from_numpy(pose), 8, 6, torch.tensor([[3.0]]), torch.from_numpy(xy), 0.5,
+                                     4.0, 5, **{k: resolve(tocc, v) if k == "occupancy" else v
+                                                for k, v in options.items()})
         _close(got.lengths, ref.lengths)
+        if "occupancy" in options:  # tightened: some rays hit the content, some collapse to the far plane
+            lengths = got.lengths.numpy()
+            assert (lengths[..., -1] < 4.0).any() and (lengths[..., 0] == 4.0).any()
 
 
 def _ray_inputs(seed=2, n_rays=6, n_pts=9, channels=3):

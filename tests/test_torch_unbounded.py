@@ -12,7 +12,7 @@ seeds) and the same draws:
     reciprocals of the disparity spacing are the same IEEE divisions);
   * ``RaySampler`` with ``sample_in_disparity``, ``scene_aabb`` (in both
     modes and eval-only) and ``scene_extent``, the JAX draws fed in, and
-    its ``ValueError``s; occupancy grids still raise;
+    its ``ValueError``s (occupancy grids: tests/test_torch_tools.py);
   * each model with ``contract_coords`` at f32 1e-5 (ProposalMLP, NeRFMLP
     eager and through the fused function's plain versions against
     ``make_fused_mlp`` in interpret mode, HashGridNeRF and its
@@ -225,11 +225,13 @@ def test_ray_sampler_refuses_what_the_jax_sampler_refuses():
             JAX_RAY_SAMPLERS.build(_sampler_cfg(**options))
         with pytest.raises(type(jax_err.value), match="scene_aabb"):
             RAY_SAMPLERS.build(_sampler_cfg(**options))
-    with pytest.raises(NotImplementedError, match="tools slice"):
-        RAY_SAMPLERS.build(_sampler_cfg(occupancy_grid="grid.npz"))
-    with pytest.raises(NotImplementedError, match="tools slice"):
-        trays.xy_to_ray_bundle(torch.eye(4)[None], 2, 2, torch.ones(1), torch.zeros(1, 2, 2, 2), 1.0, 2.0, 4,
-                               occupancy=object())
+    # occupancy grids are ported (tests/test_torch_tools.py): refused with NDC as in JAX, a missing file raises
+    for options in (dict(occupancy_grid="grid.npz", use_ndc=True), dict(occupancy_grid="missing.npz")):
+        with pytest.raises((ValueError, FileNotFoundError)) as jax_err:
+            JAX_RAY_SAMPLERS.build(_sampler_cfg(**options))
+        with pytest.raises(type(jax_err.value)) as port_err:
+            RAY_SAMPLERS.build(_sampler_cfg(**options))
+        assert str(port_err.value) == str(jax_err.value)
 
 
 # --- the models -------------------------------------------------------------------

@@ -42,10 +42,17 @@ def test_registry_builds_and_reports_unported_components():
     assert reg.build({"type": "Thing", "size": 3}).size == 3
     with pytest.raises(KeyError):
         reg.build({"type": "Other"})
-    from yanerf_tpu_torch.datasets import DATASETS
+    from yanerf_tpu_torch.datasets import DATASETS, MultiSceneBlenderDataset
+    from yanerf_tpu_torch.utils.registry import register_not_ported
 
-    with pytest.raises(NotImplementedError, match="MultiSceneBlenderDataset"):
-        DATASETS.build({"type": "MultiSceneBlenderDataset"})
+    # MultiSceneBlenderDataset is ported: the registry builds it (and its own error comes through)
+    assert DATASETS.get("MultiSceneBlenderDataset") is MultiSceneBlenderDataset
+    with pytest.raises(FileNotFoundError, match="MultiSceneBlenderDataset: No scene_"):
+        DATASETS.build({"type": "MultiSceneBlenderDataset", "base_dir": "/nonexistent", "split": "train"})
+    # a component a config names before the port has it says so when built
+    register_not_ported(reg, ("Later",))
+    with pytest.raises(NotImplementedError, match="Later is not ported"):
+        reg.build({"type": "Later"})
 
 
 def test_png_and_gif_encoders_round_trip_through_pil():

@@ -1,6 +1,5 @@
 """Datasets and loaders of the port."""
 
-from ..utils.registry import register_not_ported
 from .blender import CAM_CALIBRATION, BlenderDataset, BlenderDatasetWrapper
 from .builder import DATASETS
 from .llff import LLFFDataset, LLFFDatasetWrapper
@@ -13,8 +12,7 @@ from .loader import (
     decode_cached_field,
     stack_batch,
 )
-
-register_not_ported(DATASETS, ("MultiSceneBlenderDataset",))
+from .multiscene import MultiSceneBlenderDataset, MultiSceneBlenderWrapper
 
 __all__ = [
     "CAM_CALIBRATION",
@@ -25,6 +23,8 @@ __all__ = [
     "DeviceCachedLoader",
     "LLFFDataset",
     "LLFFDatasetWrapper",
+    "MultiSceneBlenderDataset",
+    "MultiSceneBlenderWrapper",
     "ShardedEpochSampler",
     "create_loader",
     "create_sampler",

@@ -7,6 +7,8 @@ for key with no transpose (``convert.py``).
 
 The bf16 policy is the JAX package's: under a low-precision compute dtype
 the inputs, weights and bias are cast to it and the bias is added in it.
+``concat_global_codes`` is the latent conditioning every model family
+shares: per-batch codes broadcast onto the point embedding.
 """
 
 from __future__ import annotations
@@ -72,3 +74,24 @@ def linear_with_repeat(
         out2 = y.to(compute_dtype) @ w2.to(compute_dtype)
         return out1 + layer.b.to(compute_dtype) + out2[..., None, :]
     return x @ w1 + layer.b + (y @ w2)[..., None, :]
+
+
+def concat_global_codes(embeds: torch.Tensor, global_codes: Optional[torch.Tensor], latent_dim: int) -> torch.Tensor:
+    """Broadcast per-batch latent codes onto a point embedding and concatenate them on the feature axis.
+
+    Codes are ``(B, latent_dim)`` (extra dims flattened, ``(B, N, D)`` with
+    ``N * D == latent_dim``), broadcast over every spatial and point axis of
+    ``embeds`` and cast to its dtype. Without codes ``latent_dim`` must be 0.
+    """
+    if global_codes is None:
+        if latent_dim != 0:
+            raise ValueError("latent_dim > 0 requires global_codes")
+        return embeds
+    global_codes = global_codes.reshape(global_codes.shape[0], -1)
+    if global_codes.shape[-1] != latent_dim:
+        raise ValueError(
+            f"global_codes dim {global_codes.shape[-1]} is incompatible with latent_dim {latent_dim}"
+        )
+    broadcast_shape = (embeds.shape[0],) + (1,) * (embeds.ndim - 2) + (latent_dim,)
+    codes = global_codes.reshape(broadcast_shape).expand(*embeds.shape[:-1], latent_dim).to(embeds.dtype)
+    return torch.cat([embeds, codes], dim=-1)

@@ -5,7 +5,9 @@ the parameters are NeRFMLP's (a NeRFMLP's weights load into it through
 ``convert.py``); only the embedding changes: each sample's depth interval
 (``interval_mode``: centred on the samples, or the samples as boundaries)
 becomes the Gaussian of its conical frustum, and the IPE of that Gaussian
-replaces the harmonic embedding of the point (``ops/mip.py``).
+replaces the harmonic embedding of the point (``ops/mip.py``). Latent codes
+(``latent_dim > 0``) are concatenated onto the IPE as onto NeRFMLP's
+embedding.
 
 It has no fused kernel, as in the JAX package: it refuses ``use_pallas`` /
 ``use_pallas_train``, and NeRFMLP's kernel machinery (the packed weights)
@@ -25,6 +27,7 @@ from ..ops.mip import (
     intervals_from_midpoints,
 )
 from .builder import MODELS
+from .layers import concat_global_codes
 from .nerf_mlp import NeRFMLP
 
 
@@ -82,8 +85,7 @@ class MipNeRFMLP(NeRFMLP):
         """NeRFMLP's outputs at the IPE of each sample's frustum; ``use_pallas`` may only be off."""
         if use_pallas:
             raise ValueError("MipNeRFMLP has no fused kernel; use_pallas must be off")
-        if global_codes is not None:
-            raise ValueError(f"global_codes given but latent_dim is {self.latent_dim}")
         if lengths.shape[-1] < self.min_samples_per_ray:
             raise ValueError("MipNeRFMLP needs >= 2 samples per ray to form intervals")
-        return self._from_embedding(self._embed_points(origins, directions, lengths), directions)
+        embeds = concat_global_codes(self._embed_points(origins, directions, lengths), global_codes, self.latent_dim)
+        return self._from_embedding(embeds, directions)

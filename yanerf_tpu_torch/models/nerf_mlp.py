@@ -20,8 +20,15 @@ The eager path is the point embedding (``_embed_points``) and the rest
 With ``contract_coords`` (unbounded scenes) the ray points go through the
 mip-NeRF 360 contraction (``ops/rays.py::contract_points``) before either
 path: the eager embedding and the kernels both see the contracted points,
-as ``make_fused_mlp`` gets them in the JAX package. Latent conditioning is
-not ported yet.
+as ``make_fused_mlp`` gets them in the JAX package.
+
+With ``latent_dim > 0`` the per-batch ``global_codes`` (a feature
+extractor's, ``pipelines/feature_extractors.py``) are broadcast onto the
+point embedding (``layers.concat_global_codes``), and ``input_xyz=False``
+leaves the codes as the trunk's only input. The kernels compute neither:
+the kernel switch is taken only with ``input_xyz`` and ``latent_dim == 0``,
+the JAX package's rule, so a latent NeRFMLP runs its eager path whatever
+the switch says.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from ..ops.kernels import nerf_mlp_fwd as fused
 from ..ops.kernels.fused_mlp import fused_nerf_mlp
 from ..ops.rays import contract_points, ray_bundle_to_ray_points
 from .builder import MODELS
-from .layers import Linear, init_linear_default, init_linear_xavier, linear, linear_with_repeat
+from .layers import Linear, concat_global_codes, init_linear_default, init_linear_xavier, linear, linear_with_repeat
 from .mlp import MLPWithInputSkips
 
 
@@ -70,11 +77,8 @@ class NeRFMLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if latent_dim != 0 or not input_xyz:
-            raise NotImplementedError(
-                "latent conditioning and input_xyz=False are not ported yet "
-                '(ROADMAP.md Queue 1, "Multi-scene latent conditioning")'
-            )
+        if not input_xyz and latent_dim <= 0:
+            raise ValueError("The latent dimension has to be > 0 if xyz is not input!")
         self.n_layers = n_layers
         self.input_skips = tuple(input_skips)
         self.n_harmonic_functions_xyz = n_harmonic_functions_xyz
@@ -94,7 +98,7 @@ class NeRFMLP(nn.Module):
 
         self.embedding_dim_xyz = harmonic_embedding_dim(3, n_harmonic_functions_xyz, harmonic_functions_xyz_append_intput)
         self.embedding_dim_dir = harmonic_embedding_dim(3, n_harmonic_functions_dir, harmonic_functions_dir_append_intput)
-        self.input_dim = self.embedding_dim_xyz
+        self.input_dim = self.embedding_dim_xyz * int(input_xyz) + latent_dim
         self.n_extra_color_layers = (n_layers // 4) if nerf_paper_v1 else 0
 
         # parameters are created in the JAX package's init order
@@ -191,11 +195,17 @@ class NeRFMLP(nn.Module):
         use_pallas: Optional[bool] = None,
         **kwargs,
     ) -> Dict[str, Any]:
-        """Densities ``(B, *spatial, P, 1)`` and colors ``(B, *spatial, P, C)`` at all ray points."""
-        if global_codes is not None:
-            raise ValueError(f"global_codes given but latent_dim is {self.latent_dim}")
+        """Densities ``(B, *spatial, P, 1)`` and colors ``(B, *spatial, P, C)`` at all ray points.
+
+        ``global_codes``: ``(B, latent_dim)`` (or ``(B, N, D)`` with ``N * D
+        == latent_dim``), required exactly when ``latent_dim > 0``.
+        """
         use_pallas = self.use_pallas if use_pallas is None else use_pallas
+        use_pallas = use_pallas and self.input_xyz and self.latent_dim == 0
         if use_pallas:
+            if global_codes is not None:  # latent_dim is 0 here
+                raise ValueError(f"global_codes dim {global_codes.reshape(global_codes.shape[0], -1).shape[-1]} "
+                                 f"is incompatible with latent_dim {self.latent_dim}")
             points = self._points(origins, directions, lengths)
             *lead, n_pts, _ = points.shape
             out = fused_nerf_mlp(
@@ -206,7 +216,11 @@ class NeRFMLP(nn.Module):
                 rays_features=out[:, 1:].reshape(*lead, n_pts, self.color_dim),
                 aux={},
             )
-        return self._from_embedding(self._embed_points(origins, directions, lengths), directions)
+        if self.input_xyz:
+            embeds = self._embed_points(origins, directions, lengths)
+        else:
+            embeds = origins.new_zeros((*lengths.shape, 0))
+        return self._from_embedding(concat_global_codes(embeds, global_codes, self.latent_dim), directions)
 
 
 @MODELS.register_module()

@@ -4,7 +4,10 @@ Counterpart of ``yanerf_tpu/models/proposal_mlp.py::ProposalMLP``:
 harmonic embedding -> ``n_layers`` x ``hidden_dim`` Linear+ReLU -> raw
 density. ``rays_features`` is a zero placeholder. With ``contract_coords``
 the points are contracted (``ops/rays.py::contract_points``) before the
-embedding. Latent conditioning is not ported yet.
+embedding. With ``latent_dim > 0`` the per-batch ``global_codes`` are
+concatenated onto the embedding (``layers.concat_global_codes``) before the
+cast to ``compute_dtype``, in the JAX package's order: in a multi-scene
+setting the proposal density is scene-dependent too.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 from ..ops.harmonics import harmonic_embedding, harmonic_embedding_dim
 from ..ops.rays import contract_points, ray_bundle_to_ray_points
 from .builder import MODELS
-from .layers import Linear, init_linear_xavier, linear
+from .layers import Linear, concat_global_codes, init_linear_xavier, linear
 from .nerf_mlp import as_torch_dtype
 
 
@@ -37,10 +40,6 @@ class ProposalMLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if latent_dim != 0:
-            raise NotImplementedError(
-                'latent conditioning is not ported yet (ROADMAP.md Queue 1, "Multi-scene latent conditioning")'
-            )
         self.n_layers = n_layers
         self.hidden_dim = hidden_dim
         self.n_harmonic_functions_xyz = n_harmonic_functions_xyz
@@ -48,8 +47,10 @@ class ProposalMLP(nn.Module):
         self.color_dim = color_dim
         self.contract_coords = contract_coords
         self.compute_dtype = as_torch_dtype(compute_dtype)
-        self.latent_dim = 0
-        self.input_dim = harmonic_embedding_dim(3, n_harmonic_functions_xyz, harmonic_functions_xyz_append_intput)
+        self.latent_dim = int(latent_dim)
+        self.input_dim = (
+            harmonic_embedding_dim(3, n_harmonic_functions_xyz, harmonic_functions_xyz_append_intput) + self.latent_dim
+        )
         layers = []
         dim = self.input_dim
         for _ in range(n_layers):
@@ -66,14 +67,13 @@ class ProposalMLP(nn.Module):
         global_codes: Optional[torch.Tensor] = None,
         **kwargs,
     ) -> Dict[str, Any]:
-        if global_codes is not None:
-            raise ValueError("global_codes given but latent_dim is 0")
         points = ray_bundle_to_ray_points(origins, directions, lengths)
         if self.contract_coords:
             points = contract_points(points)
         x = harmonic_embedding(
             points, self.n_harmonic_functions_xyz, append_input=self.harmonic_functions_xyz_append_intput
-        ).to(self.compute_dtype)
+        )
+        x = concat_global_codes(x, global_codes, self.latent_dim).to(self.compute_dtype)
         for layer in self.mlp:
             x = F.relu(linear(layer, x, self.compute_dtype))
         raw_density = linear(self.density_layer, x, self.compute_dtype).to(torch.float32)

@@ -8,8 +8,8 @@ the mip-NeRF 360 scene contraction (``contract_points``), scene-extent
 bounds (``get_min_max_depth_bounds``) and ray points. Every function is a
 plain tensor function with no host sync and no Python branch on a device
 value, so a train step that calls them can be captured as a CUDA graph.
-Occupancy-grid bounds raise ``NotImplementedError``: they need the grid
-that ``scripts/fit_occupancy.py`` fits, a tool of a later slice.
+Occupancy-grid bounds (``ops/occupancy.py``, a grid that ``fit_occupancy.py``
+fits) tighten the ray bundle's range after the slab test.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils import device_constant
+from .occupancy import occupancy_bounds
 from .structures import RayBundle
 
 
@@ -135,6 +136,7 @@ def xy_to_ray_bundle(
     sample_in_disparity: bool = False,
     scene_aabb=None,
     occupancy=None,
+    occupancy_n_probe: int = 128,
     strata_u: Optional[torch.Tensor] = None,
 ) -> RayBundle:
     """Unproject pixel coordinates into world-space rays with depth samples.
@@ -156,17 +158,17 @@ def xy_to_ray_bundle(
             1e-6)`` first.
         scene_aabb: a ``(2, 3)`` content box: each ray's range is tightened
             to its slab intersection with the box (``ray_aabb_bounds``).
-        occupancy: occupancy-grid bounds, not ported (raises).
+        occupancy: an ``ops.occupancy.OccupancyGrid`` (the exact march,
+            ``occupancy_n_probe`` probes per ray) or ``OccupancyBoundsSpec``
+            (coarse-to-fine, image-decimated): each ray's range is further
+            tightened to the occupied span along it
+            (``ops.occupancy.occupancy_bounds``), inside the ``scene_aabb``
+            bounds when both are set, before the depths are drawn.
 
     Returns:
         A :class:`RayBundle`; directions are NOT normalized (their norm
         carries the depth->distance scale used by the raymarcher).
     """
-    if occupancy is not None:
-        raise NotImplementedError(
-            "occupancy-grid bounds are not ported yet: they come with scripts/fit_occupancy.py's port, the tools "
-            "slice (ROADMAP.md Queue 1, \"Tools\")"
-        )
     batch_size = xy_grid.shape[0]
     spatial_size = xy_grid.shape[1:-1]
     dtype, device = xy_grid.dtype, xy_grid.device
@@ -192,6 +194,8 @@ def xy_to_ray_bundle(
         hi = torch.mean(_bound(max_depth, dtype, device))
         if scene_aabb is not None:  # per-ray bounds (B, *spatial)
             lo, hi = ray_aabb_bounds(origins, directions, scene_aabb, lo, hi)
+        if occupancy is not None:
+            lo, hi = occupancy_bounds(origins, directions, occupancy, lo, hi, n_probe=occupancy_n_probe)
         t = linspace01(n_pts_per_ray, dtype=dtype, device=device)
         if sample_in_disparity:
             # a non-positive near plane would give inf / NaN depths

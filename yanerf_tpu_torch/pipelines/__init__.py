@@ -2,14 +2,11 @@
 
 from __future__ import annotations
 
-from ..utils.registry import register_not_ported
 from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS, nerf_mlp_keys, set_nerf_mlp_option
-from .feature_extractors import IdentityMapper
+from .feature_extractors import IdentityMapper, LearnedSceneEmbedding
 from .nerf_pipeline import NeRFPipeline
 from .ray_sampler import RaySampler
 from .renderer import MultipassEmissionAbsorpsionRenderer, ProposalEmissionAbsorpsionRenderer, refine_ray_points
-
-register_not_ported(FEATURE_EXTRACTORS, ("LearnedSceneEmbedding",))
 
 __all__ = [
     "FEATURE_EXTRACTORS",
@@ -17,6 +14,7 @@ __all__ = [
     "RAY_SAMPLERS",
     "RENDERERS",
     "IdentityMapper",
+    "LearnedSceneEmbedding",
     "MultipassEmissionAbsorpsionRenderer",
     "NeRFPipeline",
     "ProposalEmissionAbsorpsionRenderer",

@@ -193,18 +193,7 @@ class NeRFPipeline(nn.Module):
         xys = ray_bundle.xys
         bg_color = sample_grid(bg_image_rgb, xys) if bg_image_rgb is not None else None
 
-        extracted_features: Dict[str, Any] = {}
-        for fe in self.feature_extractors:
-            for k, v in fe(**kwargs).items():
-                extracted_features.setdefault(k, []).append(v)
-        for k, v_list in extracted_features.items():
-            if isinstance(v_list[0], torch.Tensor):
-                extracted_features[k] = torch.stack(v_list, dim=1)
-            else:
-                if len(v_list) != 1:
-                    raise KeyError(f"{k} has multiple non-tensor values.")
-                extracted_features[k] = v_list[0]
-
+        extracted_features = self.extract_features(**kwargs)
         implicit_functions = [self._bind_model(fn, extracted_features, training) for fn in self.implicit_functions]
         if sampling_mode == RenderSamplingMode.FULL_GRID and self.chunk_size_grid > 0:
             rendered = self._render_chunked(*ray_bundle, bg_color, implicit_functions, evaluation_mode, generator)
@@ -254,6 +243,27 @@ class NeRFPipeline(nn.Module):
         for key, n in self.renderer.training_draw_shapes(sampler.n_pts_per_ray, len(self.implicit_functions)):
             specs.append(Draw(key, (*lead, n), "normal" if key == "density_noise" else "uniform", listed=True))
         return specs
+
+    def extract_features(self, **kwargs) -> Dict[str, Any]:
+        """The feature extractors' outputs for the batch's extra keyword arguments (``scene_id``).
+
+        The tensor outputs of several extractors are stacked on dim 1
+        (``global_codes`` ``(B, n_extractors, latent_dim)``); a non-tensor
+        output must come from one extractor only. Without extractors the
+        extra arguments are ignored.
+        """
+        extracted: Dict[str, Any] = {}
+        for fe in self.feature_extractors:
+            for k, v in fe(**kwargs).items():
+                extracted.setdefault(k, []).append(v)
+        for k, v_list in extracted.items():
+            if isinstance(v_list[0], torch.Tensor):
+                extracted[k] = torch.stack(v_list, dim=1)
+            else:
+                if len(v_list) != 1:
+                    raise KeyError(f"{k} has multiple non-tensor values.")
+                extracted[k] = v_list[0]
+        return extracted
 
     @staticmethod
     def _bind_model(fn: nn.Module, extracted_features: Dict[str, Any], training: bool) -> Callable[..., Dict[str, Any]]:

@@ -13,9 +13,16 @@ the extent; depths are spaced in depth or in disparity
 (``sample_in_disparity``), tightened per ray to ``scene_aabb`` (in both
 modes, or at evaluation only with ``scene_aabb_eval_only``). ``use_ndc``
 forces the range to [0, 1] and warps the sampled rays into NDC
-(``ndc_near``). The approximate top-k (``approx_top_k``), masks and
-sampling-probability masks raise ``NotImplementedError``, and so do
-occupancy grids, which come with the tools slice's ``fit_occupancy.py``.
+(``ndc_near``). An occupancy grid (``occupancy_grid``, the ``.npz`` of
+``fit_occupancy.py``) tightens each ray's range further to the occupied
+span along it, at evaluation only unless ``occupancy_eval_only`` is off:
+the exact march (``occupancy_coarse_factor`` and ``occupancy_block`` both
+1, ``occupancy_n_probe`` probes) or, by default, the coarse-to-fine march
+on a decimated image (``ops/occupancy.py::OccupancyBoundsSpec``). The grids
+reach a device once, at the first call there, and are reused (also by a
+captured step). The approximate
+top-k (``approx_top_k``), masks and sampling-probability masks raise
+``NotImplementedError``.
 
 As in the reference, the principal point comes from the constructor's
 ``image_width/height`` even when a call overrides the grid size.
@@ -28,6 +35,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.occupancy import OccupancyBoundsSpec, coarsen_occupancy, load_occupancy, occupancy_on_device
 from ..ops.rays import get_min_max_depth_bounds, get_xy_grid, ndc_ray_bundle, xy_to_ray_bundle
 from ..utils import device_constant
 from ..ops.sampling import uniform_sample_with_replacement, weighted_sample_without_replacement
@@ -52,6 +60,8 @@ class _RaySampler:
         approx_top_k: bool = False,
         sample_in_disparity: bool = False,
         scene_aabb: Optional[np.ndarray] = None,
+        occupancy=None,
+        occupancy_n_probe: int = 128,
     ) -> None:
         self.image_width = image_width
         self.image_height = image_height
@@ -64,6 +74,17 @@ class _RaySampler:
         self.approx_top_k = approx_top_k
         self.sample_in_disparity = sample_in_disparity
         self.scene_aabb = scene_aabb
+        self.occupancy = occupancy
+        self.occupancy_n_probe = occupancy_n_probe
+        self._occupancy_on = {}  # device -> the grids there
+
+    def occupancy_on(self, device: torch.device):
+        """The occupancy grid or spec with its grids on ``device``, moved there at the first call."""
+        if self.occupancy is None:
+            return None
+        if device not in self._occupancy_on:
+            self._occupancy_on[device] = occupancy_on_device(self.occupancy, device)
+        return self._occupancy_on[device]
 
     def __call__(
         self,
@@ -110,6 +131,8 @@ class _RaySampler:
             generator=generator,
             sample_in_disparity=self.sample_in_disparity,
             scene_aabb=self.scene_aabb,
+            occupancy=self.occupancy_on(poses.device),
+            occupancy_n_probe=self.occupancy_n_probe,
             strata_u=strata_u,
         )
 
@@ -139,13 +162,13 @@ class RaySampler:
         scene_aabb: Optional[List[float]] = None,
         scene_aabb_eval_only: bool = False,
         occupancy_grid: Optional[str] = None,
-        **occupancy_options,
+        occupancy_n_probe: int = 128,
+        occupancy_eval_only: bool = True,
+        occupancy_coarse_factor: int = 4,
+        occupancy_n_probe_coarse: int = 32,
+        occupancy_n_probe_fine: int = 64,
+        occupancy_block: int = 2,
     ) -> None:
-        if occupancy_grid is not None:
-            raise NotImplementedError(
-                "occupancy grids are not ported yet: they come with scripts/fit_occupancy.py's port, the tools slice "
-                "(ROADMAP.md Queue 1, \"Tools\")"
-            )
         if scene_aabb is not None:
             if use_ndc:
                 raise ValueError("scene_aabb cannot be combined with use_ndc (NDC depth is not metric)")
@@ -159,6 +182,25 @@ class RaySampler:
         self.scene_extent = scene_extent
         self.use_ndc = use_ndc
         self.ndc_near = ndc_near
+        # eval-only by default: the grid holds for the density field it was fitted to
+        self.occupancy = None
+        if occupancy_grid is not None:
+            if use_ndc:
+                raise ValueError("occupancy_grid cannot be combined with use_ndc (NDC depth is not metric)")
+            grid = load_occupancy(occupancy_grid)
+            if int(occupancy_coarse_factor) <= 1 and int(occupancy_block) <= 1:
+                self.occupancy = grid  # the exact single-stage march
+            else:
+                self.occupancy = OccupancyBoundsSpec(
+                    grid=grid,
+                    coarse=coarsen_occupancy(grid, int(occupancy_coarse_factor)) if int(occupancy_coarse_factor) > 1
+                    else None,
+                    n_probe=int(occupancy_n_probe_fine),
+                    n_probe_coarse=int(occupancy_n_probe_coarse),
+                    block=int(occupancy_block),
+                )
+        self.occupancy_n_probe = int(occupancy_n_probe)
+        self.occupancy_eval_only = bool(occupancy_eval_only)
         self._sampling_mode = {
             EvaluationMode.TRAINING: RenderSamplingMode(sampling_mode_training),
             EvaluationMode.EVALUATION: RenderSamplingMode(sampling_mode_evaluation),
@@ -180,6 +222,8 @@ class RaySampler:
                 approx_top_k=approx_top_k,
                 sample_in_disparity=sample_in_disparity,
                 scene_aabb=None if scene_aabb_eval_only and mode == EvaluationMode.TRAINING else scene_aabb,
+                occupancy=None if self.occupancy_eval_only and mode == EvaluationMode.TRAINING else self.occupancy,
+                occupancy_n_probe=self.occupancy_n_probe,
             )
             for mode, n_pts, stratified in (
                 (EvaluationMode.TRAINING, n_pts_per_ray_training, stratified_point_sampling_training),

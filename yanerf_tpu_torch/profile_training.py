@@ -1,7 +1,7 @@
 """Where one train step's time goes on the card: a torch.profiler breakdown.
 
     python -m yanerf_tpu_torch.profile_training [--config configs/nerf/lego.yml] [--steps 20] [--eager]
-        [--steps_per_call 20] [--data_dir DIR] [--cfg_options key=value ...]
+        [--steps_per_call 20] [--data_dir DIR [--batch N]] [--cfg_options key=value ...]
 
 Builds the pipeline of ``--config`` (``configs/nerf/lego_proposal.yml`` by
 default) with the fused NeRF-MLP kernels on for training on every NeRFMLP
@@ -10,8 +10,11 @@ with no NeRFMLP, such as ``synth800_mip.yml`` or ``lego_ngp.yml``, runs its
 models' own eager paths and prints ``"kernels": []``), seeded
 random weights, Adam with the config's schedule, and one
 random 800x800 image as the batch (``--data_dir``: the first item of the
-config's train dataset there, an LLFF view with its per-image bounds, say;
-``--cfg_options`` overrides the config). It takes three warm-up steps, times
+config's train dataset there, an LLFF view with its per-image bounds, say,
+or ``--batch`` items spread evenly over it, one view of each of four scenes
+of a multi-scene dataset at ``--batch 4``; ``--cfg_options`` overrides the
+config). A latent NeRFMLP runs its eager path whatever the switch says, so
+its config prints ``"kernels": []`` too. It takes three warm-up steps, times
 ``--steps`` steps on the host clock (ending in a synchronize), then profiles
 one more and prints one JSON line: ms per step, train rays/s, the peak
 device memory from the first warm-up step on, device busy time (kernels and copies), the device's
@@ -36,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-from .datasets import DATASETS
+from .datasets import DATASETS, stack_batch
 from .datasets.blender import BlenderDatasetWrapper
 from .pipelines import PIPELINES, set_nerf_mlp_option
 from .runners import TrainState, create_optimizer, make_train_step, make_train_step_fused
@@ -55,7 +58,10 @@ def training_config(path: str, eager: bool = False, options=None):
     if options:
         cfg.merge_from_dict(options)
     keys = set_nerf_mlp_option(cfg, "use_pallas_train", not eager)
-    return cfg, ["nerf_mlp_fwd", "nerf_mlp_bwd"] if keys and not eager else []
+    models = cfg.pipeline.model if isinstance(cfg.pipeline.model, (list, tuple)) else [cfg.pipeline.model]
+    on_kernels = any(m["type"] == "NeRFMLP" and m.get("latent_dim", 0) == 0 and m.get("input_xyz", True)
+                     for m in models)
+    return cfg, ["nerf_mlp_fwd", "nerf_mlp_bwd"] if keys and on_kernels and not eager else []
 
 
 def main(argv=None) -> None:
@@ -66,6 +72,7 @@ def main(argv=None) -> None:
     parser.add_argument("--steps_per_call", type=int, default=1,
                         help="K > 1: fused dispatches of K steps (a captured CUDA graph replayed K times)")
     parser.add_argument("--data_dir", default=None, help="take the batch from the config's train dataset here")
+    parser.add_argument("--batch", type=int, default=1, help="with --data_dir: items spread evenly over the dataset")
     parser.add_argument("--cfg_options", nargs="+", action=DictAction)
     args = parser.parse_args(argv)
 
@@ -82,7 +89,8 @@ def main(argv=None) -> None:
     if args.data_dir:
         dataset = DATASETS.build(dict(cfg.datasets[0], base_dir=args.data_dir))
         wrapper = dataset.data_wrapper
-        batch = {k: torch.as_tensor(v, device=device)[None] for k, v in wrapper(*dataset[0])._asdict().items()}
+        items = [dataset[int(i)] for i in np.linspace(0, len(dataset) - 1, args.batch)]
+        batch = {k: torch.as_tensor(v, device=device) for k, v in wrapper(*stack_batch(items))._asdict().items()}
     else:
         gen = torch.Generator(device=device).manual_seed(1)
         pose = orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION
@@ -99,7 +107,7 @@ def main(argv=None) -> None:
         per_call = args.steps_per_call
         fused = make_train_step_fused(pipeline, dict(cfg.runner, steps_per_call=per_call), 0, wrapper)
         arrays = tuple(batch[k] for k in wrapper._fields)
-        rows = np.zeros((per_call, 1), dtype=np.int64)
+        rows = np.tile(np.arange(len(batch["poses"])), (per_call, 1))
         run = lambda: fused(state, arrays, rows)  # noqa: E731
     torch.cuda.reset_peak_memory_stats(device)  # the warm-up counts: the capture allocates the graph's pool
     for _ in range(max(1, 3 // per_call)):
@@ -139,9 +147,10 @@ def main(argv=None) -> None:
                 "config": args.config,
                 "kernels": nerf_mlp_kernels,
                 "steps_per_call": per_call,
+                "batch": len(batch["poses"]),
                 "capture_s": capture_s,
                 "ms_per_step": step_s * 1e3,
-                "train_rays_per_s": n_rays / step_s,
+                "train_rays_per_s": n_rays * len(batch["poses"]) / step_s,
                 "peak_memory_gb": peak_gb,
                 "profiled_step_s": profiled_s,
                 "device_busy_s": busy_us / 1e6,

@@ -265,13 +265,14 @@ def _default_focal(cfg) -> Tuple[float, str]:
     return rs.image_width / (2.0 * np.tan(0.6911112070083618 / 2.0)), "blender_synthetic_assumption"
 
 
-def service_from_config(
-    cfg,
-    checkpoint: Optional[str] = None,
-    device: Union[str, torch.device] = "cuda",
-    seed: int = 0,
-) -> RenderService:
-    """Build the pipeline of ``cfg`` on ``device`` (weights from ``checkpoint`` or ``seed``)."""
+def load_pipeline(cfg, checkpoint: Optional[str] = None, device: Union[str, torch.device] = "cuda", seed: int = 0):
+    """The pipeline of ``cfg`` on ``device`` in eval mode, its weights from ``checkpoint`` or drawn from ``seed``.
+
+    ``checkpoint``: a checkpoint of the port's runner, or an ``.npz`` of the
+    JAX param tree flattened to dotted keys. The serving and the density
+    tools (``fit_occupancy``, ``fit_aabb``, ``extract_mesh``, ``render``)
+    load their weights here.
+    """
     from .convert import load_jax_params
     from .pipelines import PIPELINES
 
@@ -286,7 +287,17 @@ def service_from_config(
         from .runners.checkpoints import checkpoint_params_tree
 
         load_jax_params(pipeline, checkpoint_params_tree(checkpoint))
+    return pipeline
 
+
+def service_from_config(
+    cfg,
+    checkpoint: Optional[str] = None,
+    device: Union[str, torch.device] = "cuda",
+    seed: int = 0,
+) -> RenderService:
+    """Build the pipeline of ``cfg`` on ``device`` (weights from ``checkpoint`` or ``seed``)."""
+    pipeline = load_pipeline(cfg, checkpoint, device, seed)
     rs = cfg.pipeline.ray_sampler
     default_focal, focal_source = _default_focal(cfg)
     service = RenderService(
