@@ -1,8 +1,8 @@
-"""Smoke run of yanerf_tpu_torch on one NVIDIA GPU: build, check, serve, train.
+"""Smoke run of yanerf_tpu_torch on one NVIDIA GPU: build, check, serve, train, export.
 
     python3 chip_smoke.py
 
-Eight configurations at their published widths, random weights from a seed:
+Nine configurations at their published widths, random weights from a seed:
 configs/nerf/lego_proposal.yml ("proposal": two 4x128 ProposalMLPs and one
 8x256 NeRFMLP at 48 points per ray), configs/nerf/lego.yml ("classic":
 two 8x256 NeRFMLPs, coarse at 64 points per ray, fine at 64 + 128 merged
@@ -20,8 +20,12 @@ box); then multi-scene latent conditioning: synth_multiscene_latent.yml
 (per-scene codes on all three models, its NeRFMLP on its eager path, the
 JAX package's rule) and synth_multiscene_unconditioned.yml (its control,
 K1 / K3); the density tools on the flagship's checkpoint and its frame
-with occupancy bounds. Phases, each printing its numbers on a line of its
-own with the card's name and power limit:
+with occupancy bounds; the classic frame served from the reference's
+``.pth`` layout, the flagship's frame as an exported ``torch.export``
+program, ``--debug``, configs/nerf/lego_tpu.yml (the classic pair at
+16,384 rays with ``approx_top_k``) and the async checkpoint saves. Phases,
+each printing its numbers on a line of its own with the card's name and
+power limit:
   1. build   compile every kernel of the serving and training paths from
              the sources in this checkout, one nvcc per source, all started
              together: the NeRF-MLP forward (K1), its pipelined twin (K2)
@@ -125,12 +129,37 @@ own with the card's name and power limit:
              occupancy grid (a ball of voxels): no grid, the default mode
              (K1 and its plain version, PSNR) and the exact mode, each with
              its seconds and peak memory; each mode's ray bounds on the card
-             against the CPU's, the differing rays counted.
+             against the CPU's, the differing rays counted;
+ 13. pth serve  the classic service's weights written as a reference-layout
+             ``.pth`` (``export_torch_checkpoint``) and served from it by a
+             service of another seed: the 800x800 frame bit for bit the
+             directly loaded one, K1 626 times;
+ 14. export  lego_proposal.yml at ``chunk_size_grid=4194304`` (10 chunks;
+             the program unrolls the chunk loop, and tracing 40 chunks
+             takes two minutes):
+             the serve frame, then ``export.build_render_fn`` of the same
+             seed traced by ``torch.export`` (seconds, graph nodes, one
+             operator node per chunk, no parameter among the inputs) and
+             saved (MB); a fresh ``python3`` loads the ``.pt2``
+             (``load_artifact``) and renders the camera twice: the frame
+             within 1e-6 of the serve frame (bitwise printed), its K1
+             launches and seconds;
+ 15. debug   ``run --debug`` on a 2 / 2 / 2-view 800x800 scene: two steps,
+             val, test, ``ckpts_-001`` and ``ckpts_0000``;
+ 16. lego_tpu  lego_tpu.yml as it ships (16,384 rays, ``approx_top_k``,
+             fused at 8 on the uint8 cache) with ``use_pallas_train``, one
+             epoch of the 40-frame scene: K1 and K3 twice per replay, ms
+             per step, capture seconds, peak memory;
+ 17. async save  the fused flagship CLI for three epochs with a checkpoint
+             after each, saved async and sync: the seconds each save holds
+             the loop, the CLI's ms per step, and each async file equal to
+             a sync save of the same state made right after it.
 
 Any failure exits non-zero, and so does a run in which K1 or K3 did not
 launch on an LLFF training path or K1 on an LLFF frame, K1 or K3 on the
 multi-scene control's training, K1 on a tool or the occupancy frame, or
-either of them on the latent path. Imports nothing of JAX or of
+either of them on the latent path, or K1 on a path of phases 13-17 (K3
+on their training paths). Imports nothing of JAX or of
 yanerf_tpu. The
 last three lines are the kernels' JSON record, the card's name and power
 limit, and the result:
@@ -212,6 +241,11 @@ MULTISCENE_STEPS = 40  # four epochs of 10 steps: groups of 8 and 2
 TOOL_RESOLUTION = 128  # fit_occupancy's and fit_aabb's default lattice
 LATTICE_CHUNK = 65536  # the tools' --chunk: one K1 launch per chunk of lattice points
 OCCUPANCY_BALL = (128, 1.5, 1.0)  # the constructed grid: 128^3 voxels over [-1.5, 1.5]^3, a ball of radius 1
+LEGO_TPU_CONFIG = REPO / "configs" / "nerf" / "lego_tpu.yml"
+PTH_SEED = 1  # the .pth service's own seed: its weights must come from the file
+EXPORT_CHUNK_SIZE_GRID = 4194304  # 10 chunks of the 800x800 flagship frame: the program unrolls the chunk loop
+EXPORT_MAX_ERR = 1e-6  # the restored frame against the serve frame
+ASYNC_EPOCHS = 3  # the async-save runs: three epochs of the 40-frame scene, a checkpoint after each
 
 
 def card() -> str:
@@ -1427,6 +1461,377 @@ def occupancy_phase(torch, K1, card_line: str, tmp: Path) -> dict:
     return {"occupancy_frame": launches["default"], "occupancy_frame_exact": launches["exact"]}
 
 
+# -- the reference's checkpoints, the exported renderer, --debug, lego_tpu.yml, async saves -----------------
+
+EXPORT_CONSUMER = """
+import json, sys, time
+import numpy as np
+import torch
+from yanerf_tpu_torch.export import load_artifact
+from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
+
+artifact, poses, focals, out, device = sys.argv[1:6]
+t = time.perf_counter()
+render = load_artifact(artifact)
+load_s = time.perf_counter() - t
+poses, focals = (torch.from_numpy(np.load(p)).to(device) for p in (poses, focals))
+with torch.inference_mode():
+    t = time.perf_counter()
+    render(poses, focals).cpu()
+    first_s = time.perf_counter() - t
+    K1.launches = K1.pipelined_launches = 0
+    t = time.perf_counter()
+    frame = render(poses, focals).cpu()
+    frame_s = time.perf_counter() - t
+np.save(out, frame.numpy())
+print(json.dumps({"load_s": load_s, "first_frame_s": first_s, "frame_s": frame_s,
+                  "launches": {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches}}))
+"""
+
+
+def orbit_view(service):
+    """The orbit camera of "frame" (theta 30, phi -30, radius 4) as a world 3x4 pose, and the service's focal."""
+    import numpy as np
+
+    from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose
+
+    return (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32), service.default_focal
+
+
+def kernel_config(config, options=None):
+    """``config`` with the NeRF-MLP kernel switched on for serving, and ``options`` merged."""
+    from yanerf_tpu_torch.pipelines import set_nerf_mlp_option
+    from yanerf_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(str(config))
+    set_nerf_mlp_option(cfg, "use_pallas", True)
+    cfg.merge_from_dict(dict(options or {}))
+    return cfg
+
+
+def pth_serve_phase(torch, K1, K3, service, card_line: str, tmp: Path, config=None) -> dict:
+    """"pth serve": ``service``'s weights written as a reference-layout ``.pth`` and served from it.
+
+    The service built from the file (its own seed differs) must render the
+    frame of ``service`` bit for bit, K1 once per chunk and NeRFMLP.
+    Returns the launches of the ``.pth`` frame.
+    """
+    import numpy as np
+
+    from yanerf_tpu_torch.runners import export_torch_checkpoint
+    from yanerf_tpu_torch.serve import service_from_config
+
+    config = CLASSIC_CONFIG if config is None else config
+    cfg = kernel_config(config)
+    pth = tmp / "weights.pth"
+    t = time.perf_counter()
+    n_tensors = export_torch_checkpoint(service._pipeline, pth)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    from_pth = service_from_config(cfg, checkpoint=str(pth), device=DEVICE, seed=PTH_SEED)
+    load_s = time.perf_counter() - t
+    pose, focal = orbit_view(service)
+    rgb, depth = service.render(pose, focal)
+    sync(torch)
+    K1.launches = K1.pipelined_launches = K3.launches = 0
+    t = time.perf_counter()
+    rgb_pth, depth_pth = from_pth.render(pose, focal)
+    frame_s = time.perf_counter() - t
+    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                "nerf_mlp_bwd": K3.launches}
+    direct = dict(service._pipeline.named_parameters())
+    n_mlps = sum(int(type(fn).__name__ == "NeRFMLP" and fn.use_pallas) for fn in from_pth._pipeline.implicit_functions)
+    checks = {
+        "weights_from_the_file": all(torch.equal(p, direct[k]) for k, p in from_pth._pipeline.named_parameters()),
+        "frame_bit_equal": bool(np.array_equal(rgb_pth, rgb) and np.array_equal(depth_pth, depth)),
+        "k1_once_per_chunk_and_nerf_mlp": launches == {"nerf_mlp_fwd": n_mlps * frame_chunks(cfg),
+                                                       "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0},
+    }
+    say(card_line, "pth serve", config=Path(config).name, tensors=n_tensors, pth_mb=pth.stat().st_size / 1e6,
+        write_s=write_s, load_s=load_s, frame_s=frame_s, launches=launches, frame_hw=list(rgb.shape[:2]),
+        mean_rgb=float(rgb.mean()), checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"pth serve phase failed: {checks}")
+    return launches
+
+
+def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None) -> dict:
+    """"export": the config's EVALUATION frame as a ``torch.export`` program, loaded in a fresh process.
+
+    The serve frame first (K1 once per chunk), then ``export.build_render_fn``
+    of the same seed, traced (seconds, graph nodes, operator nodes) and
+    saved (MB); a new ``python3`` loads it (``export.load_artifact``) and
+    renders the same camera twice, K1 counted on the second frame. The
+    restored frame must be within 1e-6 of the serve frame. Returns the
+    launches of the serve frame and of the restored one.
+    """
+    import numpy as np
+
+    from yanerf_tpu_torch import export
+    from yanerf_tpu_torch.serve import service_from_config
+
+    config = CONFIG if config is None else config
+    options = {"pipeline.chunk_size_grid": EXPORT_CHUNK_SIZE_GRID} if options is None else options
+    cfg = kernel_config(config, options)
+    chunks = frame_chunks(cfg)
+    service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
+    pose, focal = orbit_view(service)
+    service.render(pose, focal)  # warm-up
+    sync(torch)
+    K1.launches = K1.pipelined_launches = 0
+    t = time.perf_counter()
+    rgb, _ = service.render(pose, focal)
+    serve_s = time.perf_counter() - t
+    serve_launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches}
+    del service
+
+    render, _ = export.build_render_fn(cfg, None, seed=0, device=DEVICE)
+    poses = torch.eye(4, dtype=torch.float32)[None].clone()
+    poses[0, :3, :4] = torch.from_numpy(pose)
+    focals = torch.tensor([[focal]], dtype=torch.float32)
+    inputs = (poses.to(DEVICE), focals.to(DEVICE))
+    t = time.perf_counter()
+    program = torch.export.export(render, inputs)
+    export_s = time.perf_counter() - t
+    artifact = tmp / "render.pt2"
+    t = time.perf_counter()
+    torch.export.save(program, artifact)
+    save_s = time.perf_counter() - t
+    numbers = dict(chunks=chunks, export_s=export_s, save_s=save_s, nodes=len(program.graph.nodes),
+                   op_nodes=export.op_nodes(program), mb=artifact.stat().st_size / 1e6,
+                   user_inputs=len(program.graph_signature.user_inputs),
+                   parameters=len(program.graph_signature.parameters))
+    with torch.inference_mode():
+        direct = render(*inputs)[0].cpu().numpy()
+    del program, render
+    np.save(tmp / "poses.npy", poses.numpy())
+    np.save(tmp / "focals.npy", focals.numpy())
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CONSUMER, str(artifact), str(tmp / "poses.npy"),
+                           str(tmp / "focals.npy"), str(tmp / "restored.npy"), DEVICE],
+                          cwd=REPO, capture_output=True, text=True, timeout=900)
+    process_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise SystemExit(f"export phase: the fresh process failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    restored_numbers = json.loads(proc.stdout.strip().splitlines()[-1])
+    restored = np.load(tmp / "restored.npy")[0]
+    err = float(np.abs(restored - rgb).max())
+    restored_launches = restored_numbers.pop("launches")
+    checks = {
+        "restored_within_1e-6_of_serve": restored.shape == rgb.shape and err <= EXPORT_MAX_ERR,
+        "direct_equals_serve": bool(np.array_equal(direct, rgb)),
+        "one_operator_node_per_chunk": numbers["op_nodes"] == chunks,
+        "no_parameter_input": numbers["parameters"] == 0 and numbers["user_inputs"] == 2,
+        # the fresh process counts the card's launches; on the CPU (the tests) the plain version counts none
+        "k1_once_per_chunk": serve_launches["nerf_mlp_fwd"] == chunks
+        and restored_launches["nerf_mlp_fwd"] == (chunks if DEVICE == "cuda" else 0)
+        and serve_launches["nerf_mlp_fwd_pipelined"] == restored_launches["nerf_mlp_fwd_pipelined"] == 0,
+    }
+    say(card_line, "export", config=Path(config).name, options=options, frame_hw=list(rgb.shape[:2]),
+        serve_frame_s=serve_s, serve_launches=serve_launches, restored_launches=restored_launches,
+        restored_max_abs_err=err, restored_bit_equal=bool(np.array_equal(restored, rgb)),
+        fresh_process_s=process_s, **restored_numbers, **numbers, checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"export phase failed: {checks}")
+    return {"export_serve": serve_launches, "export_restored": restored_launches}
+
+
+def debug_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, config=None, extra_options=()) -> dict:
+    """"debug": ``python -m yanerf_tpu_torch.run --debug`` on ``scene``, to its checkpoints; returns the launches.
+
+    Every split cut to ``batch_size + 1`` items (``scene`` holds two of
+    each, every val and test view kept), one epoch, eval and a checkpoint
+    after it, K1 and K3 once per step and NeRFMLP.
+    """
+    from yanerf_tpu_torch import run
+
+    config = CONFIG if config is None else config
+    argv = ["--config", str(config), "--device", DEVICE, "--debug", "--output_dir", str(out_dir), "--cfg_options",
+            *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(config)),
+            *(f"datasets.{i}.base_dir={scene}" for i in range(3)), *(f"datasets.{i}.test_skip=1" for i in (1, 2)),
+            *extra_options]
+    sync(torch)
+    K1.launches = K1.pipelined_launches = K3.launches = 0
+    t = time.perf_counter()
+    result = run.main(argv)
+    sync(torch)
+    run_s = time.perf_counter() - t
+    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                "nerf_mlp_bwd": K3.launches}
+    out = result["output_dir"]
+    steps = result["state"].step
+    n_mlps = kernel_mlps(result["state"].pipeline)
+    ckpts = sorted(c.name for c in (out / "ckpts").iterdir())
+    checks = {
+        "debug_mode": "In DEBUG mode, some hyperparameters have been changed." in (out / "run.log").read_text(),
+        "steps": steps == 2 and len(result["train_stats"]) == 1,
+        "checkpoints": ckpts == ["ckpts_-001", "ckpts_0000"],
+        "k1_k3_per_step": launches["nerf_mlp_fwd"] == launches["nerf_mlp_bwd"] == n_mlps * steps > 0,
+        "metrics_finite": all(math.isfinite(v) for v in result["test_stats"].values()),
+    }
+    say(card_line, "debug", config=Path(config).name, run_s=run_s, steps=steps, checkpoints=ckpts, launches=launches,
+        val_stats=result["val_stats"], test_stats=result["test_stats"], checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"debug phase failed: {checks}")
+    return launches
+
+
+def lego_tpu_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, config=None, steps=None,
+                   extra_options=()) -> dict:
+    """"lego_tpu": lego_tpu.yml as it ships (16,384 rays, ``approx_top_k``, ``steps_per_call: 8`` on the uint8
+    device cache) with ``use_pallas_train``, ``steps`` steps (one epoch of the 40-frame scene); returns the
+    launches.
+
+    K1 and K3 once per step and NeRFMLP (twice per replay), the fused path
+    taken, the objective finite at every step, every parameter moved;
+    ms per step, the capture's seconds and the peak device memory.
+    """
+    from yanerf_tpu_torch import run
+    from yanerf_tpu_torch.ops.kernels import launch_count
+    from yanerf_tpu_torch.ops.structures import EvaluationMode
+
+    config = LEGO_TPU_CONFIG if config is None else config
+    steps = FUSED_TRAIN_FRAMES if steps is None else steps
+    argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir), "--cfg_options",
+            *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(config)), f"runner.num_iters={steps}",
+            *(f"datasets.{i}.base_dir={scene}" for i in range(3)), *extra_options]
+    sync(torch)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K1.launches = K1.pipelined_launches = K3.launches = 0
+    t = time.perf_counter()
+    with observe_run(torch) as seen:
+        result = run.main(argv)
+    sync(torch)
+    run_s = time.perf_counter() - t
+    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                "nerf_mlp_bwd": K3.launches}
+    state, trainer = result["state"], result["train_step_fused"]
+    sampler = state.pipeline.ray_sampler.sampler(EvaluationMode.TRAINING)
+    n_mlps = kernel_mlps(state.pipeline)
+    objective = seen.objective()
+    tally = launch_count.per_replay(trainer.tally) if trainer is not None and trainer.tally is not None else {}
+    on_card = DEVICE == "cuda"
+    step_s = [s["step_s"] for s in result["train_stats"] if "step_s" in s]
+    checks = {
+        "approx_top_k": bool(sampler.approx_top_k) and not sampler.pixel_replacement,
+        "fused_path_ran": trainer is not None and trainer.dispatches > 0 and (trainer.graph is not None) == on_card,
+        "launches_per_replay": tally == ({"nerf_mlp_fwd.launches": n_mlps, "nerf_mlp_bwd.launches": n_mlps}
+                                         if on_card else {}),
+        "k1_k3_per_step": launches["nerf_mlp_fwd"] == launches["nerf_mlp_bwd"] == n_mlps * state.step > 0
+        and launches["nerf_mlp_fwd_pipelined"] == 0 and state.step == steps,
+        "objective_finite": objective.numel() == state.step and bool(torch.isfinite(objective).all()),
+        "params_moved": seen.moved(state.pipeline) == len(seen.initial),
+        "test_metrics_finite": all(math.isfinite(v) for v in result["test_stats"].values()),
+    }
+    say(card_line, "lego_tpu", config=Path(config).name, rays_per_step=sampler.n_rays_per_image, steps=state.step,
+        steps_per_call=trainer.steps_per_call if trainer is not None else None,
+        dispatches=trainer.dispatches if trainer is not None else 0, capture_s=getattr(trainer, "capture_s", None),
+        launches=launches, launches_per_replay=tally, ms_per_step=1e3 * step_s[-1] if step_s else None,
+        train_rays_per_s=sampler.n_rays_per_image / step_s[-1] if step_s else None, run_s=run_s,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+        objective_first=float(objective[0]), objective_last=float(objective[-1]), test_stats=result["test_stats"],
+        checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"lego_tpu phase failed: {checks}")
+    return launches
+
+
+def async_save_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, config=None, epochs=None,
+                     frames=None, extra_options=()) -> dict:
+    """"async save": the fused flagship CLI with a checkpoint after every epoch, saved async (as it ships) and
+    sync; returns the launches of the async run.
+
+    Per run: the seconds each periodic save held the loop, and the CLI's
+    ms per step from the first epoch's start to the final save. In the
+    async run each async save is followed by a sync save of the same state
+    to a side directory before the next dispatch; after the run each async
+    file must equal its sync twin tensor for tensor.
+    """
+    import yanerf_tpu_torch.runners as runners
+    from yanerf_tpu_torch import run
+
+    config = CONFIG if config is None else config
+    epochs = ASYNC_EPOCHS if epochs is None else epochs
+    frames = FUSED_TRAIN_FRAMES if frames is None else frames
+    save = runners.save_checkpoint
+
+    train_one_epoch = runners.train_one_epoch
+
+    def cli(run_name: str, async_saves: bool):
+        records, started = [], []
+        twins = out_dir / f"{run_name}_sync_twins"
+
+        def saving(output_dir, state, epoch, name=None, async_save=False):
+            t0 = time.perf_counter()
+            path = save(output_dir, state, epoch=epoch, name=name, async_save=async_save and async_saves)
+            t1 = time.perf_counter()
+            side = save(twins, state, epoch=epoch, name=name) if async_save and async_saves else None
+            records.append(dict(path=path, side=side, periodic=async_save, t0=t0, t1=t1,
+                                side_s=time.perf_counter() - t1))
+            return path
+
+        def epoch_fn(*args, **kwargs):
+            started.append(time.perf_counter())
+            return train_one_epoch(*args, **kwargs)
+
+        argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir / run_name), "--cfg_options",
+                *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(config)),
+                f"runner.num_iters={epochs * frames}", f"runner.save_per_iter={frames}",
+                *(f"datasets.{i}.base_dir={scene}" for i in range(3)), *extra_options]
+        sync(torch)
+        K1.launches = K1.pipelined_launches = K3.launches = 0
+        with mock.patch.object(runners, "save_checkpoint", saving), mock.patch.object(runners, "train_one_epoch",
+                                                                                      epoch_fn):
+            result = run.main(argv)
+        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                    "nerf_mlp_bwd": K3.launches}
+        periodic = [r for r in records if r["periodic"]]
+        final = records[-1]
+        loop_s = final["t0"] - started[0] - sum(r["side_s"] for r in records)
+        steps = result["state"].step
+        return dict(result=result, launches=launches, periodic=periodic, steps=steps,
+                    save_block_ms=[1e3 * (r["t1"] - r["t0"]) for r in periodic],
+                    cli_ms_per_step=1e3 * loop_s / steps,
+                    step_ms=[1e3 * s["step_s"] for s in result["train_stats"] if "step_s" in s])
+
+    runs = {"async": cli("async", True), "sync": cli("sync", False)}
+    twins_equal = []
+    for record in runs["async"]["periodic"]:
+        a, b = (torch.load(p, weights_only=True) for p in (record["path"], record["side"]))
+        twins_equal.append(payloads_equal(torch, a, b) and a["step"] == b["step"])
+    # the runs start from one seed; the last periodic file is overwritten by the final save of the same name
+    firsts = [torch.load(runs[k]["periodic"][0]["path"], weights_only=True) for k in ("async", "sync")]
+    checks = {
+        "periodic_saves": [len(r["periodic"]) for r in runs.values()] == [epochs, epochs],
+        "async_equals_its_sync_twin": len(twins_equal) == epochs and all(twins_equal),
+        "no_tmp_left": not list(out_dir.glob("**/*.tmp")),
+        "fused_path_ran": all(r["result"]["train_step_fused"].dispatches > 0 for r in runs.values()),
+        "steps": runs["async"]["steps"] == runs["sync"]["steps"] == epochs * frames,
+    }
+    say(card_line, "async save", config=Path(config).name, epochs=epochs, steps=runs["async"]["steps"],
+        **{f"{k}_save_block_ms": r["save_block_ms"] for k, r in runs.items()},
+        **{f"{k}_cli_ms_per_step": r["cli_ms_per_step"] for k, r in runs.items()},
+        **{f"{k}_step_ms": r["step_ms"] for k, r in runs.items()},
+        first_checkpoints_of_the_two_runs_equal=payloads_equal(torch, *firsts),
+        launches=runs["async"]["launches"], checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"async save phase failed: {checks}")
+    return runs["async"]["launches"]
+
+
+def payloads_equal(torch, a, b) -> bool:
+    """Two checkpoint payloads equal tensor for tensor (dtype, device and bits), and in every other value."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and (a.dtype, a.device) == (b.dtype, b.device) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(payloads_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            payloads_equal(torch, x, y) for x, y in zip(a, b))
+    return a == b
+
+
 def main() -> int:
     import torch
 
@@ -1496,7 +1901,12 @@ def main() -> int:
     serve_launches["classic"] = serve(torch, K1, K3, service, card_line, CLASSIC_CONFIG.name,
                                       len(nerf_mlps) * CHUNKS_PER_FRAME)
     classic_frame_launches = frame(torch, K1, service, card_line, CLASSIC_CONFIG.name, with_k2=True)
-    del service, nerf_mlps
+    # the classic frame from a reference-layout .pth; the flagship's frame as an exported program
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        checkpoint_paths = {"pth_serve": pth_serve_phase(torch, K1, K3, service, card_line, Path(tmp))}
+        del service, nerf_mlps
+        torch.cuda.empty_cache()
+        checkpoint_paths.update(export_phase(torch, K1, card_line, Path(tmp)))
     torch.cuda.empty_cache()
 
     # the families with no NeRF-MLP kernel: a frame of each, lego_ngp.yml also over HTTP
@@ -1571,6 +1981,17 @@ def main() -> int:
                                         fused_scene))
         slice_paths.update(occupancy_phase(torch, K1, card_line, Path(tmp)))
 
+        # --debug, lego_tpu.yml as it ships, and the fused flagship CLI with async against sync saves
+        debug_scene = write_scene(Path(tmp) / "debug_scene", hw=800, n_train=2, n_val=2, n_test=2, seed=2)
+        checkpoint_paths["debug_train"] = debug_phase(torch, K1, K3, card_line, debug_scene, Path(tmp) / "debug")
+        torch.cuda.empty_cache()
+        checkpoint_paths["lego_tpu_train_fused"] = lego_tpu_phase(torch, K1, K3, card_line, fused_scene,
+                                                                  Path(tmp) / "lego_tpu")
+        torch.cuda.empty_cache()
+        checkpoint_paths["async_save_train_fused"] = async_save_phase(torch, K1, K3, card_line, fused_scene,
+                                                                      Path(tmp) / "async_save")
+        torch.cuda.empty_cache()
+
     def entry(name, source, replaces, numbers, launches_by_path):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1589,6 +2010,7 @@ def main() -> int:
         paths.update({name: launches[kernel] for name, launches in new_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in llff_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in slice_paths.items()})
+        paths.update({name: launches.get(kernel, 0) for name, launches in checkpoint_paths.items()})
         return paths
 
     record = {
@@ -1627,6 +2049,12 @@ def main() -> int:
         raise SystemExit(f"a NeRF-MLP kernel did not run on a path of multi-scene training, the tools or the "
                          f"occupancy frame, or ran on the latent path: {idle}, "
                          f"{slice_paths['multiscene_latent_train_fused']}")
+    # K1 on every path of the checkpoints, the export, --debug, lego_tpu.yml and the saves; K3 on their training
+    idle = {name: launches for name, launches in checkpoint_paths.items()
+            if launches.get("nerf_mlp_fwd", 0) == 0 or (launches.get("nerf_mlp_bwd", 0) > 0) != ("_train" in name)}
+    if idle:
+        raise SystemExit(f"a NeRF-MLP kernel did not run on a path of the checkpoints, the export, --debug, "
+                         f"lego_tpu.yml or the async saves: {idle}")
     say(card_line, "total", seconds=time.perf_counter() - t_start)
     print(json.dumps(record))
     print(card_line)

@@ -163,8 +163,14 @@ def test_blender_dataset_matches_jax(scene, split, test_skip):
 
 
 def test_blender_scale_down_is_refused(scene):
-    with pytest.raises(NotImplementedError, match="scale_down"):
-        BlenderDataset(scene, "train", scale_down=2)
+    """A factor that is not a number > 0 is refused with the JAX package's TypeError; a valid one resizes
+    (tests/test_torch_debug.py holds the resize to the JAX dataset)."""
+    for bad in ("2", 0, -1.5, None):
+        with pytest.raises(TypeError, match="Invalid scale_down"):
+            BlenderDataset(scene, "train", scale_down=bad)
+    full, half = BlenderDataset(scene, "train"), BlenderDataset(scene, "train", scale_down=2)
+    assert (half.H, half.W) == (full.H // 2, full.W // 2) and half.focal == full.focal / 2
+    assert half[0][2].shape == (full.H // 2, full.W // 2, 3) and half[0][2].dtype == np.float32
 
 
 def test_device_cached_loader_decodes_bit_for_bit(scene):

@@ -103,11 +103,12 @@ def test_chunking_does_not_change_the_frame(chunk_size_grid):
 def test_training_mode_is_the_next_slice():
     """Training is ported (tests/test_torch_train.py, test_torch_classic.py); its unported options still raise."""
     cfg = _cfg()
-    cfg["ray_sampler"] = dict(cfg["ray_sampler"], approx_top_k=True)
-    with pytest.raises(NotImplementedError, match="approx_top_k"):
-        PIPELINES.build(cfg, device="cpu")(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]),
-                                           evaluation_mode=EvaluationMode.TRAINING, image_rgb=torch.rand(1, HW, HW, 3),
-                                           generator=torch.Generator().manual_seed(0))
+    cfg["ray_sampler"] = dict(cfg["ray_sampler"], approx_top_k=True)  # ported: the exact top-k
+    preds = PIPELINES.build(cfg, device="cpu")(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]),
+                                               evaluation_mode=EvaluationMode.TRAINING,
+                                               image_rgb=torch.rand(1, HW, HW, 3),
+                                               generator=torch.Generator().manual_seed(0))
+    assert bool(torch.isfinite(preds["objective"]).all())
     pipeline = PIPELINES.build(dict(_cfg()), device="cpu")
     with pytest.raises(NotImplementedError, match="mask"):
         pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING,

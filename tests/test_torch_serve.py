@@ -148,10 +148,15 @@ def test_cuda_without_a_gpu_raises():
 
 
 def test_render_service_rejects_non_npz_checkpoints(tmp_path):
-    """Besides an .npz, only a checkpoint of the port's runner is read (tests/test_torch_runner.py)."""
+    """Besides an .npz and a reference .pth, only a checkpoint of the port's runner is read
+    (tests/test_torch_runner.py)."""
     cfg = Config({"pipeline": PIPELINE_CFG})
     with pytest.raises(FileNotFoundError):
         service_from_config(cfg, checkpoint=str(tmp_path / "ckpts_-001"), device="cpu")
-    torch.save({"model": {}}, tmp_path / "other.pth")
+    torch.save({"model": {}}, tmp_path / "other.ckpt")
     with pytest.raises(KeyError, match="params"):
-        service_from_config(cfg, checkpoint=str(tmp_path / "other.pth"), device="cpu")
+        service_from_config(cfg, checkpoint=str(tmp_path / "other.ckpt"), device="cpu")
+    # a reference-layout .pth is read (tests/test_torch_checkpoint_io.py), and held to the pipeline's shapes
+    torch.save({"model": {"implicit_functions.1._fn.density_layer.weight": torch.zeros(1, 7)}}, tmp_path / "x.pth")
+    with pytest.raises(ValueError, match="shape mismatch at implicit_functions.1.density_layer.w"):
+        service_from_config(cfg, checkpoint=str(tmp_path / "x.pth"), device="cpu")

@@ -670,8 +670,23 @@ def test_render_writes_the_trajectory(tiny_run, capsys):
     one = render.main(["--config", tiny_run["config"], "--checkpoint", tiny_run["checkpoint"], "--output_dir",
                        str(tiny_run["tmp"] / "one"), "--device", "cpu", "--trajectory", "test", "--n_frames", "1"])
     assert one["frames"] == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        render.main(["--config", tiny_run["config"], "--checkpoint", "weights.pth", "--device", "cpu"])
+    # a reference-layout .pth of the final NeRFMLP: the proposal MLPs keep the seed's weights
+    from yanerf_tpu_torch.runners import export_torch_checkpoint
+    from yanerf_tpu_torch.serve import load_pipeline
+
+    stub = torch.nn.Module()
+    stub.implicit_functions = torch.nn.ModuleList([tiny_run["pipeline"].implicit_functions[2]])
+    pth = tiny_run["tmp"] / "weights.pth"
+    export_torch_checkpoint(stub, pth)
+    blob = torch.load(pth, weights_only=True)
+    blob["model"] = {k.replace("implicit_functions.0.", "implicit_functions.2.", 1): v for k, v in blob["model"].items()}
+    torch.save(blob, pth)
+    from_pth = render.main(["--config", tiny_run["config"], "--checkpoint", str(pth), "--output_dir",
+                            str(tiny_run["tmp"] / "pth"), "--device", "cpu", "--trajectory", "test", "--n_frames", "1"])
+    assert from_pth["frames"] == 1
+    loaded = load_pipeline(Config.fromfile(tiny_run["config"]), str(pth), "cpu").implicit_functions[2]
+    for (key, p), q in zip(loaded.named_parameters(), tiny_run["pipeline"].implicit_functions[2].parameters()):
+        assert torch.equal(p, q.detach()), key
 
 
 def test_chip_smoke_slice_phases_run_on_the_cpu(tiny_run, tmp_path, monkeypatch):

@@ -185,7 +185,7 @@ def test_monte_carlo_ray_sampler_with_fed_draws_matches_jax(monkeypatch):
 
 
 def test_sampling_without_replacement_with_fed_gumbel_matches_jax():
-    """The Gumbel top-k with the JAX package's Gumbel draws gives its indices; approx_top_k is refused."""
+    """The Gumbel top-k with the JAX package's Gumbel draws gives its indices, with approx_top_k too."""
     rng = np.random.RandomState(2)
     weights = np.ones((3, 40), np.float32)
     weights[1] = rng.rand(40)
@@ -203,8 +203,12 @@ def test_sampling_without_replacement_with_fed_gumbel_matches_jax():
     drawn = weighted_sample_without_replacement(torch.from_numpy(weights), 8,
                                                 generator=torch.Generator().manual_seed(0))
     assert drawn.shape == (3, 8) and np.all(weights[1, drawn[1].numpy()] > 0.0)
-    with pytest.raises(NotImplementedError, match="approx_top_k"):
-        weighted_sample_without_replacement(torch.from_numpy(weights), 8, gumbel=gumbel, approx=True)
+    # approx_top_k: the exact top-k, which is what lax.approx_max_k gives on the JAX CPU backend
+    ref_approx = np.asarray(jax_sampling.weighted_sample_without_replacement(key, jnp.asarray(weights), 8,
+                                                                             approx=True))
+    got_approx = weighted_sample_without_replacement(torch.from_numpy(weights), 8, gumbel=gumbel, approx=True)
+    np.testing.assert_array_equal(got_approx.numpy()[:2], ref_approx[:2])
+    np.testing.assert_array_equal(got_approx.numpy(), got)
 
     # the ray sampler's uniform case (lego.yml's default pixel_replacement: false)
     cfg = dict(_pipeline_cfg()["ray_sampler"], pixel_replacement=False)
@@ -214,9 +218,9 @@ def test_sampling_without_replacement_with_fed_gumbel_matches_jax():
                                            generator=torch.Generator().manual_seed(1))
     flat = bundle.xys[0, :, 0].numpy()
     assert flat.shape == (12, 2) and len({tuple(xy) for xy in flat}) == 12, "no pixel twice"
-    with pytest.raises(NotImplementedError, match="approx_top_k"):
-        RAY_SAMPLERS.build(dict(cfg, approx_top_k=True))(poses, focal, EvaluationMode.TRAINING,
-                                                          generator=torch.Generator().manual_seed(1))
+    approx = RAY_SAMPLERS.build(dict(cfg, approx_top_k=True))(poses, focal, EvaluationMode.TRAINING,
+                                                               generator=torch.Generator().manual_seed(1))
+    assert torch.equal(approx.xys, bundle.xys), "the same draws pick the same pixels"
 
 
 # --- ground-truth metrics -------------------------------------------------

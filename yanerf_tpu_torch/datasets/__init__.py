@@ -7,6 +7,7 @@ from .loader import (
     DataLoader,
     DeviceCachedLoader,
     ShardedEpochSampler,
+    Subset,
     create_loader,
     create_sampler,
     decode_cached_field,
@@ -26,6 +27,7 @@ __all__ = [
     "MultiSceneBlenderDataset",
     "MultiSceneBlenderWrapper",
     "ShardedEpochSampler",
+    "Subset",
     "create_loader",
     "create_sampler",
     "decode_cached_field",

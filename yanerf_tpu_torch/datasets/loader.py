@@ -14,7 +14,8 @@ Counterpart of ``yanerf_tpu/datasets/loader.py`` for one process:
     and decoded through a table of the exact float32 values k/255, so the
     decode reproduces the loaders' ``astype(float32) / 255`` bit for bit.
     The table is made once per device, so a decode copies nothing from the
-    host (a captured train step gathers and decodes on the card).
+    host (a captured train step gathers and decodes on the card);
+  * ``Subset`` is a view of some of a dataset's items (``--debug``).
 """
 
 from __future__ import annotations
@@ -182,6 +183,21 @@ def create_loader(dataset, sampler, batch_size: int, num_workers: int, is_train:
                   prefetch_depth: int = 2, **_) -> DataLoader:
     return DataLoader(dataset, sampler, batch_size=batch_size, is_train=is_train, num_workers=num_workers,
                       collate_fn=collate_fn, prefetch_depth=prefetch_depth)
+
+
+class Subset:
+    """Dataset view over a subset of indices (debug mode)."""
+
+    def __init__(self, dataset, indices: Sequence[int]):
+        self.dataset = dataset
+        self.indices = list(indices)
+        self.data_wrapper = dataset.data_wrapper
+
+    def __getitem__(self, idx: int):
+        return self.dataset[self.indices[idx]]
+
+    def __len__(self) -> int:
+        return len(self.indices)
 
 
 def decode_cached_field(a):

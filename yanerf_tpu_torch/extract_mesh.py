@@ -8,8 +8,8 @@ on a lattice (``ops/mesh.py::evaluate_density_grid``), surface nets on the
 host, an OBJ; with ``--vertex_colors`` the color head at each vertex, seen
 along ``-normal``. The iso value is in activated-density units (sigma);
 sweep with ``--resolution 64`` first. ``--checkpoint`` takes a checkpoint of
-the port's runner or an ``.npz`` of the JAX param tree; ``--device cuda`` is
-the default and raises without a GPU.
+the port's runner, an ``.npz`` of the JAX param tree or a reference-layout
+``.pth``; ``--device cuda`` is the default and raises without a GPU.
 """
 
 from __future__ import annotations

@@ -7,9 +7,9 @@ Counterpart of ``scripts/fit_aabb.py``: the final-pass model's density on a
 lattice (``ops/mesh.py::evaluate_density_grid``) and the tight box of the
 occupied region (``fit_scene_aabb``), printed for
 ``pipeline.ray_sampler.scene_aabb`` (per-ray depth tightening by the slab
-test). ``--checkpoint`` takes a checkpoint of the port's runner or an
-``.npz`` of the JAX param tree; ``--device cuda`` is the default and raises
-without a GPU.
+test). ``--checkpoint`` takes a checkpoint of the port's runner, an
+``.npz`` of the JAX param tree or a reference-layout ``.pth``; ``--device
+cuda`` is the default and raises without a GPU.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ chunk; K1 with ``--cfg_options pipeline.model.2.use_pallas=True``),
 thresholded and dilated into a binary grid (``ops/occupancy.py``) and saved
 as ``.npz``, the file ``pipeline.ray_sampler.occupancy_grid`` names for
 per-ray empty-space skipping at eval. ``--checkpoint`` takes a checkpoint of
-the port's runner or an ``.npz`` of the JAX param tree; ``--device cuda`` is
-the default and raises without a GPU.
+the port's runner, an ``.npz`` of the JAX param tree or a reference-layout
+``.pth``; ``--device cuda`` is the default and raises without a GPU.
 """
 
 from __future__ import annotations

@@ -15,6 +15,10 @@ so both packages read the same configs; in TRAINING the pipeline passes
     the CUDA kernels on the card, their plain versions on the CPU.
 The eager path is the point embedding (``_embed_points``) and the rest
 (``_from_embedding``), so that ``MipNeRFMLP`` replaces only the embedding.
+Without a gradient to carry (serving, eval) the kernel path calls the
+forward operator directly, the same call the autograd Function makes;
+``bake_packed_weights`` freezes the packed weights as buffers for a traced
+program (``export.py``).
 ``ZeroOutputer`` is the reference's analytic test model.
 
 With ``contract_coords`` (unbounded scenes) the ray points go through the
@@ -33,6 +37,7 @@ the switch says.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -122,6 +127,7 @@ class NeRFMLP(nn.Module):
         color_layers.append(init_linear_default(Linear(n_hidden_neurons_dir, color_dim), generator))
         self.color_layer = nn.ModuleList(color_layers)
         self._packed = None  # (key, PackedNerfMlp) of the kernel's weights
+        self._baked: Optional[fused.PackedNerfMlp] = None  # the pack whose buffers replaced the parameters
 
     # -- the fused kernel's weights -------------------------------------------
     def packed_weights(self, refresh: bool = False) -> fused.PackedNerfMlp:
@@ -136,12 +142,31 @@ class NeRFMLP(nn.Module):
         replaced or written to in place since (``_version``), or after
         :meth:`params_changed`. A move to another device packs anew.
         """
+        if self._baked is not None:
+            return dataclasses.replace(self._baked, flat=self.packed_flat, biases_flat=self.packed_biases)
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._packed is None or self._packed[1].flat.device != self.density_layer.w.device:
             self._packed = (key, fused.pack_weights(self))
         elif refresh or self._packed[0] != key:
             self._packed = (key, fused.repack_weights_(self._packed[1], self))
         return self._packed[1]
+
+    def bake_packed_weights(self) -> None:
+        """Hold the kernel's packed weights as the buffers ``packed_flat`` / ``packed_biases``, in place of the
+        parameters, which are dropped: the module then computes its frame with the kernel alone.
+
+        For a traced program (``export.py``): the buffers are read where the
+        operator is called, so the program takes them as its own state; a
+        repack in place cannot be traced, and nothing trains a baked model.
+        """
+        if not (self.use_pallas and self.input_xyz and self.latent_dim == 0):
+            raise ValueError("only a NeRFMLP on the fused kernel (use_pallas, no latent) can bake its weights")
+        packed = self.packed_weights()
+        self.register_buffer("packed_flat", packed.flat)
+        self.register_buffer("packed_biases", packed.biases_flat)
+        for layer in fused.kernel_layers(self):
+            layer._parameters.clear()
+        self._baked, self._packed = packed, None
 
     def params_changed(self) -> None:
         """The parameters changed where ``_version`` cannot see it (a graph replay): repack at the next use."""
@@ -202,15 +227,20 @@ class NeRFMLP(nn.Module):
         """
         use_pallas = self.use_pallas if use_pallas is None else use_pallas
         use_pallas = use_pallas and self.input_xyz and self.latent_dim == 0
+        if self._baked is not None and not use_pallas:
+            raise ValueError("a NeRFMLP with baked weights computes on the fused kernel only")
         if use_pallas:
             if global_codes is not None:  # latent_dim is 0 here
                 raise ValueError(f"global_codes dim {global_codes.reshape(global_codes.shape[0], -1).shape[-1]} "
                                  f"is incompatible with latent_dim {self.latent_dim}")
             points = self._points(origins, directions, lengths)
             *lead, n_pts, _ = points.shape
-            out = fused_nerf_mlp(
-                self, points.reshape(-1, 3).contiguous(), directions.reshape(-1, 3).contiguous(), n_pts
-            )
+            points, dirs = points.reshape(-1, 3).contiguous(), directions.reshape(-1, 3).contiguous()
+            if self._baked is not None or not torch.is_grad_enabled():
+                # no gradient to carry: the operator alone, as the Function's forward calls it
+                out = fused.nerf_mlp_fwd(self.packed_weights(), points, dirs, n_pts)
+            else:
+                out = fused_nerf_mlp(self, points, dirs, n_pts)
             return dict(
                 rays_densities=out[:, :1].reshape(*lead, n_pts, 1),
                 rays_features=out[:, 1:].reshape(*lead, n_pts, self.color_dim),

@@ -12,5 +12,9 @@ bits. ``fused_mlp.py`` joins K1 and K3 in a
 ``torch.autograd.Function`` (the JAX package's ``make_fused_mlp``).
 
 Each kernel is compiled with ``nvcc`` at first use into ``_build/`` and
-loaded with ``ctypes``; importing this package compiles nothing.
+loaded with ``ctypes``; importing this package compiles nothing. K1 and K2
+are launched through the ``torch.library`` operator
+``yanerf_tpu_torch::nerf_mlp_fwd`` (``nerf_mlp_fwd.nerf_mlp_fwd_op``), so
+a traced program (``export.py``) records them by name; K3 is called by
+``FusedNerfMlp.backward`` directly.
 """

@@ -26,9 +26,13 @@ it is chosen at this entry only.
   It mirrors the Pallas kernel, not the eager model: float32 bias adds after
   float32 accumulation of bf16 products, and ``cos(t)`` as
   ``sin(t + pi/2)``. It runs with TF32 off.
-* ``nerf_mlp_fwd`` launches K1 (or K2 with ``pipelined=True``) for CUDA
-  tensors and takes the plain version only for CPU tensors. It never falls
-  back on the card.
+* ``nerf_mlp_fwd_op`` is the operator ``torch.ops.yanerf_tpu_torch.nerf_mlp_fwd``
+  (``torch.library.custom_op``, with a fake implementation for tracing):
+  its CUDA kernel launches K1 (or K2 with ``pipelined=True``), its CPU
+  kernel is the plain version, chosen by the tensors' device. It never
+  falls back on the card. Every K1 / K2 launch of the port goes through it,
+  so a traced graph (``export.py``) records it by name.
+* ``nerf_mlp_fwd`` calls the operator on a ``PackedNerfMlp``.
 * ``repack_weights_`` writes the model's current weights into an earlier
   pack's buffers, at the same addresses (the kernels' tensor maps are
   cached by address, and a captured CUDA graph reads the buffers it saw).
@@ -116,10 +120,18 @@ class PackedNerfMlp:
         return _round_up(3 * (2 * self.n_freq_dir + int(self.append_dir)), 16)
 
     @functools.cached_property
+    def op_layout(self) -> tuple:
+        """The operator's arguments after the two buffers: offsets, shapes and architecture, ints and int lists."""
+        return (
+            list(self.w_offsets), list(self.b_offsets), [d for w in self.weights for d in w.shape], self.n_layers,
+            list(self.input_skips), self.n_freq_xyz, self.append_xyz, self.n_freq_dir, self.append_dir,
+            self.n_extra_color, self.color_dim,
+        )
+
+    @property
     def launch_tables(self):
         """``(w_off, b_off, w_rows)`` as the host int64 arrays the kernels' entry points take, made once."""
-        tables = (self.w_offsets, self.b_offsets, weight_rows(self))
-        return tuple((ctypes.c_longlong * len(t))(*t) for t in tables)
+        return _host_tables(self.w_offsets, self.b_offsets, weight_rows(self))
 
 
 def kernel_layers(model) -> List:
@@ -153,13 +165,17 @@ def weight_rows(packed: PackedNerfMlp) -> Tuple[int, ...]:
     ``row .. row + K`` of ``packed.flat[: numel // w * w].view(-1, w)``. The
     two heads (density, color), read by the threads, get -1.
     """
-    nl, ne = packed.n_layers, packed.n_extra_color
+    widths = tuple(w.shape[1] for w in packed.weights)
+    return _weight_rows(packed.w_offsets, widths, packed.n_layers, packed.n_extra_color)
+
+
+@functools.lru_cache(maxsize=64)
+def _weight_rows(w_offsets: Tuple[int, ...], widths: Tuple[int, ...], n_layers: int, n_extra_color: int):
     rows = []
-    for i, (w, off) in enumerate(zip(packed.weights, packed.w_offsets)):
-        if i in (nl + 1, nl + 3 + ne):
+    for i, (width, off) in enumerate(zip(widths, w_offsets)):
+        if i in (n_layers + 1, n_layers + 3 + n_extra_color):
             rows.append(-1)
             continue
-        width = w.shape[1]
         if off % width:
             raise ValueError(f"packed tensor {i} starts at {off}, not on a row of the ({width}-wide) view")
         rows.append(off // width)
@@ -347,23 +363,77 @@ def _check_cuda_inputs(packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.
         raise ValueError(f"{points.shape[0]} points do not make {dirs.shape[0]} rays of {pts_per_ray}")
 
 
-def nerf_mlp_fwd(
-    packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.Tensor, pts_per_ray: int, pipelined: bool = False
-) -> torch.Tensor:
-    """Fused forward: ``(N, 3)`` points and ``(N / pts_per_ray, 3)`` dirs -> ``(N, 1 + C)``.
+def _op_args(packed: PackedNerfMlp) -> tuple:
+    """The op's arguments after ``points, dirs`` that describe ``packed``: its buffers, tables and architecture."""
+    return (packed.flat, packed.biases_flat, *packed.op_layout)
 
-    CPU tensors go through :func:`nerf_mlp_fwd_plain` (K1 and K2 compute
-    one function); CUDA tensors launch K1, or K2 with ``pipelined``, or
-    raise.
+
+def _packed_from_args(
+    flat: torch.Tensor, biases_flat: torch.Tensor, w_offsets: List[int], b_offsets: List[int], w_shapes: List[int],
+    n_layers: int, input_skips: List[int], n_freq_xyz: int, append_xyz: bool, n_freq_dir: int, append_dir: bool,
+    n_extra_color: int, color_dim: int, views: bool = True,
+) -> PackedNerfMlp:
+    """The ``PackedNerfMlp`` the op's arguments describe; with ``views`` its weight and bias views into the two
+    buffers (a launch reads the buffers' addresses and the tables only)."""
+    shapes = [tuple(w_shapes[i : i + 2]) for i in range(0, len(w_shapes), 2)]
+    weights = tuple(flat[o : o + k * n].view(k, n) for o, (k, n) in zip(w_offsets, shapes)) if views else ()
+    biases = tuple(biases_flat[o : o + n] for o, (_, n) in zip(b_offsets, shapes)) if views else ()
+    return PackedNerfMlp(
+        flat=flat, biases_flat=biases_flat, weights=weights, biases=biases, w_offsets=tuple(w_offsets),
+        b_offsets=tuple(b_offsets), n_layers=n_layers, input_skips=tuple(input_skips), n_freq_xyz=n_freq_xyz,
+        append_xyz=append_xyz, n_freq_dir=n_freq_dir, append_dir=append_dir, n_extra_color=n_extra_color,
+        hidden=shapes[0][1], hidden_dir=shapes[n_layers + 2][1], color_dim=color_dim, compute_dtype=flat.dtype,
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _host_tables(w_offsets: Tuple[int, ...], b_offsets: Tuple[int, ...], w_rows: Tuple[int, ...]):
+    """``(w_off, b_off, w_rows)`` as the host int64 arrays the entry points read at each launch, made once."""
+    return tuple((ctypes.c_longlong * len(t))(*t) for t in (w_offsets, b_offsets, w_rows))
+
+
+@torch.library.custom_op("yanerf_tpu_torch::nerf_mlp_fwd", mutates_args=())
+def nerf_mlp_fwd_op(
+    points: torch.Tensor, dirs: torch.Tensor, flat: torch.Tensor, biases_flat: torch.Tensor, w_offsets: List[int],
+    b_offsets: List[int], w_shapes: List[int], n_layers: int, input_skips: List[int], n_freq_xyz: int,
+    append_xyz: bool, n_freq_dir: int, append_dir: bool, n_extra_color: int, color_dim: int, pts_per_ray: int,
+    pipelined: bool,
+) -> torch.Tensor:
+    """The fused forward as a PyTorch operator, ``torch.ops.yanerf_tpu_torch.nerf_mlp_fwd``.
+
+    Its arguments are tensors, ints and int lists only (``_op_args``), so
+    that a graph can record it: ``torch.export`` writes it into a
+    program by name, and the program's consumer imports this module to run
+    it. The kernel of the tensors' device runs: K1 (K2 with ``pipelined``)
+    on CUDA tensors, the plain version on CPU tensors.
     """
-    if points.device.type == "cpu":
-        return nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray)
-    if points.device.type != "cuda":
-        raise ValueError(f"unsupported device {points.device}")
+    raise ValueError(f"unsupported device {points.device}")
+
+
+@nerf_mlp_fwd_op.register_fake
+def _(points, dirs, flat, biases_flat, w_offsets, b_offsets, w_shapes, n_layers, input_skips, n_freq_xyz, append_xyz,
+      n_freq_dir, append_dir, n_extra_color, color_dim, pts_per_ray, pipelined):
+    return points.new_empty((points.shape[0], 1 + color_dim), dtype=torch.float32)
+
+
+@nerf_mlp_fwd_op.register_kernel("cpu")
+def _(points, dirs, flat, biases_flat, w_offsets, b_offsets, w_shapes, n_layers, input_skips, n_freq_xyz, append_xyz,
+      n_freq_dir, append_dir, n_extra_color, color_dim, pts_per_ray, pipelined):
+    packed = _packed_from_args(flat, biases_flat, w_offsets, b_offsets, w_shapes, n_layers, input_skips, n_freq_xyz,
+                               append_xyz, n_freq_dir, append_dir, n_extra_color, color_dim)
+    return nerf_mlp_fwd_plain(packed, points, dirs, pts_per_ray)
+
+
+@nerf_mlp_fwd_op.register_kernel("cuda")
+def _(points, dirs, flat, biases_flat, w_offsets, b_offsets, w_shapes, n_layers, input_skips, n_freq_xyz, append_xyz,
+      n_freq_dir, append_dir, n_extra_color, color_dim, pts_per_ray, pipelined):
+    packed = _packed_from_args(flat, biases_flat, w_offsets, b_offsets, w_shapes, n_layers, input_skips, n_freq_xyz,
+                               append_xyz, n_freq_dir, append_dir, n_extra_color, color_dim, views=False)
     _check_cuda_inputs(packed, points, dirs, pts_per_ray)
     n = points.shape[0]
     out = torch.empty((n, 1 + packed.color_dim), dtype=torch.float32, device=points.device)
-    w_off, b_off, w_rows = packed.launch_tables
+    rows = _weight_rows(packed.w_offsets, tuple(w_shapes[1::2]), packed.n_layers, packed.n_extra_color)
+    w_off, b_off, w_rows = _host_tables(packed.w_offsets, packed.b_offsets, rows)
     skip_mask = sum(1 << s for s in packed.input_skips if 0 < s < packed.n_layers)
     entry = (
         PIPELINED_LIBRARY.library().nerf_mlp_fwd_pipelined_bf16 if pipelined else LIBRARY.library().nerf_mlp_fwd_bf16
@@ -383,6 +453,20 @@ def nerf_mlp_fwd(
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     launch_count.count(sys.modules[__name__], "pipelined_launches" if pipelined else "launches")
     return out
+
+
+def nerf_mlp_fwd(
+    packed: PackedNerfMlp, points: torch.Tensor, dirs: torch.Tensor, pts_per_ray: int, pipelined: bool = False
+) -> torch.Tensor:
+    """Fused forward: ``(N, 3)`` points and ``(N / pts_per_ray, 3)`` dirs -> ``(N, 1 + C)``.
+
+    Calls the operator :func:`nerf_mlp_fwd_op`: CPU tensors go through
+    :func:`nerf_mlp_fwd_plain` (K1 and K2 compute one function); CUDA
+    tensors launch K1, or K2 with ``pipelined``, or raise.
+    """
+    if points.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {points.device}")
+    return nerf_mlp_fwd_op(points, dirs, *_op_args(packed), pts_per_ray, pipelined)
 
 
 def flops_per_point(packed: PackedNerfMlp) -> int:

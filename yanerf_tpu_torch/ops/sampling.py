@@ -4,9 +4,9 @@ Counterpart of ``yanerf_tpu/ops/sampling.py`` for what the lego configs'
 training needs: uniform pixel indices drawn with replacement (a bare
 ``randint``), weighted sampling without replacement by the Gumbel top-k,
 and ``sample_grid`` and its inverse, ``scatter_rays_to_image`` (the training
-vis's Monte-Carlo rasterization). The approximate top-k
-(``lax.approx_max_k``) has no PyTorch counterpart and raises; weighted
-sampling with replacement is not ported yet.
+vis's Monte-Carlo rasterization). Where the JAX package takes the
+approximate top-k (``lax.approx_max_k``), the port takes the exact one;
+weighted sampling with replacement is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,14 +30,14 @@ def weighted_sample_without_replacement(
     ``gumbel`` (``weights``' shape) if given, else drawn from ``generator``;
     with neither the call raises.
     As in the JAX package, a row with fewer positive weights than samples
-    pads with zero-weight indices. ``approx=True`` where the JAX package
-    would take ``lax.approx_max_k`` (``ray_sampler.approx_top_k``, when
-    ``4 * num_samples <= N``) raises: it is not ported.
+    pads with zero-weight indices. ``approx=True`` (``ray_sampler.approx_top_k``)
+    takes the exact ``topk`` too: ``lax.approx_max_k(keys, k,
+    recall_target=0.95)`` promises at least 95% of the true top k, and the
+    exact top k keeps that promise. On the JAX CPU backend it returns
+    ``lax.top_k``'s indices in the same order, so the two packages draw the
+    same pixels from the same Gumbel draws; the approximation that drops
+    some of them is the TPU's own (its aggregation-based top-k).
     """
-    if approx and num_samples * 4 <= weights.shape[-1]:
-        raise NotImplementedError(
-            "the approximate top-k (ray_sampler.approx_top_k) has no PyTorch counterpart: set it to False"
-        )
     tiny = torch.finfo(weights.dtype).tiny
     if gumbel is None:
         if generator is None:

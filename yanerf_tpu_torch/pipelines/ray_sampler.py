@@ -20,8 +20,8 @@ the exact march (``occupancy_coarse_factor`` and ``occupancy_block`` both
 1, ``occupancy_n_probe`` probes) or, by default, the coarse-to-fine march
 on a decimated image (``ops/occupancy.py::OccupancyBoundsSpec``). The grids
 reach a device once, at the first call there, and are reused (also by a
-captured step). The approximate
-top-k (``approx_top_k``), masks and sampling-probability masks raise
+captured step). ``approx_top_k`` takes the exact top-k
+(``ops/sampling.py``); masks and sampling-probability masks raise
 ``NotImplementedError``.
 
 As in the reference, the principal point comes from the constructor's
@@ -82,6 +82,8 @@ class _RaySampler:
         """The occupancy grid or spec with its grids on ``device``, moved there at the first call."""
         if self.occupancy is None:
             return None
+        if device not in self._occupancy_on and torch.compiler.is_exporting():
+            return occupancy_on_device(self.occupancy, device)  # for the trace alone: the cache keeps real tensors
         if device not in self._occupancy_on:
             self._occupancy_on[device] = occupancy_on_device(self.occupancy, device)
         return self._occupancy_on[device]

@@ -9,8 +9,8 @@ split's cameras, with a warning) or the test split's cameras, one frame at
 a time, written as ``rgb/NNNNN.png`` and ``depth/NNNNN.png``
 (``utils/images.png_bytes``; ``--gif`` also writes ``rgb.gif``), and the
 frames per second after the first frame. ``--checkpoint`` takes a
-checkpoint of the port's runner or an ``.npz`` of the JAX param tree; the
-reference's released torch weights (``.pth``) are not read yet.
+checkpoint of the port's runner, an ``.npz`` of the JAX param tree or the
+reference's torch weights (``.pth``).
 ``--device cuda`` is the default and raises without a GPU.
 """
 
@@ -42,11 +42,6 @@ def main(argv=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options is not None:
         cfg.merge_from_dict(args.cfg_options)
-    if str(args.checkpoint).endswith(".pth"):
-        raise NotImplementedError(
-            "importing the reference's torch checkpoints (.pth, import_torch_checkpoint) is not ported yet "
-            "(ROADMAP.md Queue 1 item 2); pass a checkpoint of the port's runner or an .npz of the JAX param tree"
-        )
 
     from .datasets import CAM_CALIBRATION, DATASETS
     from .ops.structures import EvaluationMode

@@ -18,10 +18,16 @@ with ``runner.profile_dir``; ``{train,val,test}_stats.json``; checkpoints
 ``loss_rgb_psnr`` at validation); and the test metrics at the end.
 SIGTERM / SIGINT stop training between steps (dispatches) and write the
 resumable ``ckpts_preempt``; ``--auto_resume`` continues from the newest
-checkpoint of the output directory, where the run stopped. ``--device
-cuda`` is the default and raises without a GPU; ``--device cpu`` runs the
-kernels' plain versions. ``--checkpoint`` resumes from a checkpoint of this
-runner. Distributed training is not ported yet.
+checkpoint of the output directory, where the run stopped. The periodic
+and best-model checkpoints are written by a writer thread
+(``save_checkpoint(..., async_save=True)``), the final and the emergency
+ones at once. ``--device cuda`` is the default and raises without a GPU;
+``--device cpu`` runs the kernels' plain versions. ``--checkpoint``
+resumes from a checkpoint of this runner, or takes the weights of a
+reference-layout ``.pth`` (``import_torch_checkpoint``) with a fresh
+optimizer at epoch 0. ``--debug`` (``runner.debug``) logs at DEBUG and
+cuts the run to one iteration over ``batch_size + 1`` items of each split
+(``setup_debug_env``). Distributed training is not ported yet.
 """
 
 from __future__ import annotations
@@ -80,6 +86,24 @@ def setup_iter_based_runner(runner_config, dataloader, logger, world_size: int =
             logger.info(f"\t{key}: {old} -> {runner_config[key]}")
 
 
+def setup_debug_env(runner_config, datasets, logger):
+    """``scripts/run.py``'s debug mode: every split cut to ``batch_size + 1`` items, one iteration, eval and
+    checkpoint at every epoch, no loader workers."""
+    from .datasets import Subset
+
+    logger.warning("In DEBUG mode, some hyperparameters have been changed.")
+    runner_config["val_per_epoch"] = 1
+    runner_config["save_per_epoch"] = 1
+    for index in (0, 1, 2):
+        datasets[index] = Subset(datasets[index], list(range(runner_config["batch_size_list"][index] + 1)))
+    runner_config["num_iters"] = 1
+    runner_config["print_per_iter"] = 1
+    runner_config["save_per_iter"] = 1
+    runner_config["val_per_iter"] = 1
+    runner_config["num_workers_list"] = [0 for _ in runner_config["num_workers_list"]]
+    return datasets
+
+
 def _get_logger(log_file: Path, debug: bool) -> logging.Logger:
     logger = logging.getLogger("yanerf_tpu_torch")
     logger.setLevel(logging.DEBUG if debug else logging.INFO)
@@ -124,11 +148,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         eval_one_epoch,
         find_best_checkpoint,
         find_latest_checkpoint,
+        import_torch_checkpoint,
         load_checkpoint,
         make_train_step,
         make_train_step_fused,
         save_checkpoint,
         train_one_epoch,
+        wait_for_async_saves,
     )
 
     device = resolve_device(args.device)
@@ -158,6 +184,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     logger.info(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
 
     datasets = [DATASETS.build(dataset_cfg) for dataset_cfg in config.datasets]
+    if config.runner.get("debug", False):
+        datasets = setup_debug_env(config.runner, datasets, logger)
     samplers = [
         create_sampler(dataset, shuffle=(dataset_cfg.split == "train"), seed=seed)
         for dataset, dataset_cfg in zip(datasets, config.datasets)
@@ -184,7 +212,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     lr_schedule = create_lr_schedule(config.runner)
 
     start_epoch = skip_iters = 0
-    if args.checkpoint:
+    if args.checkpoint and str(args.checkpoint).endswith(".pth"):
+        # the reference's torch weights: the parameters only, no optimizer state
+        n_missing = import_torch_checkpoint(args.checkpoint, pipeline)
+        logger.info(f"Imported reference .pth weights from: {args.checkpoint} ({n_missing} unmapped tensors)")
+    elif args.checkpoint:
         start_epoch = load_checkpoint(args.checkpoint, state)["epoch"] + 1
         done = state.step - start_epoch * len(dataloaders[0])
         if done > 0:  # an emergency checkpoint, saved mid-epoch: go on from the step it reached
@@ -233,13 +265,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     if current is not None and current > best_metric:
                         logger.info(f"Monitor Metric: {best_metric} -> {current}.")
                         best_metric = current
-                        save_checkpoint(output_dir, state, epoch=-1)
+                        save_checkpoint(output_dir, state, epoch=-1, async_save=True)
                         logger.info("Save Best Model to Epoch: -1")
                 if (epoch + 1) % runner["save_per_epoch"] == 0:
-                    save_checkpoint(output_dir, state, epoch=epoch)
+                    save_checkpoint(output_dir, state, epoch=epoch, async_save=True)
                     logger.info(f"Save Model at Epoch: {epoch}")
         finally:
             guard.uninstall()
+            wait_for_async_saves()
         logger.info(f"Training time: {datetime.timedelta(seconds=int(time.perf_counter() - t0))}")
         result["checkpoint"] = save_checkpoint(output_dir, state, epoch=runner["num_epochs"] - 1)
         if runner.get("eval_last_epoch_model", True) is False:
@@ -261,7 +294,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", default="./configs/nerf/lego.yml")
     parser.add_argument("--output_dir", type=str, default=None)
-    parser.add_argument("--checkpoint", type=str, default=None, help="a checkpoint of this runner to resume from")
+    parser.add_argument("--checkpoint", type=str, default=None,
+                        help="a checkpoint of this runner to resume from, or a reference-layout .pth of weights")
     parser.add_argument("--auto_resume", action="store_true",
                         help="resume from the newest checkpoint under output_dir (after a preemption)")
     parser.add_argument("--test_only", action="store_true")

@@ -15,10 +15,13 @@ from .checkpoints import (
     PreemptionGuard,
     checkpoint_params_tree,
     ckpt_name,
+    export_torch_checkpoint,
     find_best_checkpoint,
     find_latest_checkpoint,
+    import_torch_checkpoint,
     load_checkpoint,
     save_checkpoint,
+    wait_for_async_saves,
 )
 from .hooks import HOOKS
 from .optim import TrainState, apply_learning_rates, create_optimizer, learning_rates, set_learning_rates
@@ -41,8 +44,10 @@ __all__ = [
     "create_stats",
     "eval_one_epoch",
     "exponential_schedule",
+    "export_torch_checkpoint",
     "find_best_checkpoint",
     "find_latest_checkpoint",
+    "import_torch_checkpoint",
     "learning_rates",
     "load_checkpoint",
     "make_step_draws",
@@ -54,5 +59,6 @@ __all__ = [
     "step_generator",
     "train_one_epoch",
     "vis_batch_img",
+    "wait_for_async_saves",
     "with_warmup",
 ]

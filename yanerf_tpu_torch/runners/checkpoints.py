@@ -8,44 +8,105 @@ resuming restores all of it and continues at ``epoch + 1``. Storage is
 JAX param tree's dotted paths, so ``checkpoint_params_tree`` gives back a
 tree that the JAX package's pipeline takes as its params.
 
+``save_checkpoint(..., async_save=True)`` (the JAX package's async orbax
+save) copies the state to the host before it returns and leaves only the
+write to a writer thread; ``wait_for_async_saves`` waits for the writes.
+
 ``PreemptionGuard`` (the JAX package's) turns SIGTERM / SIGINT into a
 request the train loops poll between steps (or fused dispatches); the CLI
 then writes the emergency checkpoint ``ckpts_preempt`` and
 ``find_latest_checkpoint`` finds it for ``--auto_resume``.
+
+``import_torch_checkpoint`` / ``export_torch_checkpoint`` read and write
+the reference's own ``.pth`` layout (``{"model": state_dict, "optimizer":
+{}, "epoch": e}``, torch ``(out, in)`` Linear weights, the
+``PartialFunctionWrapper``'s ``._fn.`` and the ``Sequential`` indices of
+its modules), the JAX package's importer and its inverse, through the
+weight bridge (``convert.py``).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import signal
 import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
-from ..convert import unflatten_tree
+from ..convert import export_jax_params, flatten_tree, load_jax_params, unflatten_tree
 from .optim import TrainState
+
+# one writer thread: async saves are written in the order they were made, one at a time
+_WRITER = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoint-writer")
+_PENDING: List[Future] = []
 
 
 def ckpt_name(epoch: int) -> str:
     return f"ckpts_{epoch:04d}"
 
 
-def save_checkpoint(output_dir: Union[str, Path], state: TrainState, epoch: int, name: Optional[str] = None) -> Path:
-    """Write params, optimizer state, step and epoch to ``{output_dir}/ckpts/ckpts_{epoch:04d}`` (or ``name``)."""
-    path = Path(output_dir).resolve() / "ckpts" / (name or ckpt_name(epoch))
-    path.parent.mkdir(parents=True, exist_ok=True)
-    payload = {
-        "params": {k: p.detach().cpu() for k, p in state.pipeline.named_parameters()},
-        "opt_state": state.optimizer.state_dict(),
-        "step": int(state.step),
-        "epoch": int(epoch),
-    }
+def _host_copy(tree: Any) -> Any:
+    """``tree`` with every tensor copied to new host memory (a CPU tensor too): a snapshot no later step reaches."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def _write(payload: Dict[str, Any], path: Path) -> Path:
     tmp = path.with_name(path.name + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path)  # a reader never sees a half-written file
     return path
+
+
+def wait_for_async_saves() -> None:
+    """Block until every async save has been written; re-raises a failed write.
+
+    Call it before reading a checkpoint that may still be written (the
+    best-model reload) and before the process ends.
+    """
+    while _PENDING:
+        _PENDING.pop(0).result()
+
+
+def save_checkpoint(
+    output_dir: Union[str, Path],
+    state: TrainState,
+    epoch: int,
+    name: Optional[str] = None,
+    async_save: bool = False,
+) -> Path:
+    """Write params, optimizer state, step and epoch to ``{output_dir}/ckpts/ckpts_{epoch:04d}`` (or ``name``).
+
+    Every parameter and optimizer tensor is copied to the host before this
+    returns (the fused dispatch's CUDA graph writes both in place at its
+    next replay); with ``async_save`` the writer thread then does the
+    ``torch.save`` and the rename. A synchronous save first waits for the
+    async ones, so two writes never meet at one path.
+    """
+    path = Path(output_dir).resolve() / "ckpts" / (name or ckpt_name(epoch))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if not async_save:
+        wait_for_async_saves()
+    payload = {
+        "params": _host_copy(dict(state.pipeline.named_parameters())),
+        "opt_state": _host_copy(state.optimizer.state_dict()),
+        "step": int(state.step),
+        "epoch": int(epoch),
+    }
+    if async_save:
+        _PENDING.append(_WRITER.submit(_write, payload, path))
+        return path
+    return _write(payload, path)
 
 
 def load_checkpoint(path: Union[str, Path], state: TrainState) -> Dict[str, Any]:
@@ -80,6 +141,94 @@ def checkpoint_params_tree(path: Union[str, Path]) -> Dict[str, Any]:
     tree = unflatten_tree({k: v.numpy() for k, v in payload["params"].items()})
     tree.setdefault("feature_extractors", [])
     return tree
+
+
+# -- the reference's .pth ---------------------------------------------------------------
+
+
+def _reference_key(name: str) -> Tuple[str, bool]:
+    """A reference module name -> ``(the JAX param tree's dotted key, whether it is a Linear weight)``.
+
+    ``implicit_functions.0._fn.xyz_encoder.mlp.3.0.weight`` ->
+    ``implicit_functions.0.xyz_encoder.mlp.3.w``; the color head's
+    ``Sequential`` holds the Linear layers at its even slots.
+    """
+    path = name.replace("._fn.", ".")
+    path = re.sub(r"\.mlp\.(\d+)\.0\.(weight|bias)", r".mlp.\1.\2", path)
+    match = re.search(r"color_layer\.(\d+)\.(weight|bias)$", path)
+    if match:
+        path = re.sub(r"color_layer\.\d+\.", f"color_layer.{int(match.group(1)) // 2}.", path)
+    if path.endswith(".weight"):
+        return path[: -len(".weight")] + ".w", True
+    if path.endswith(".bias"):
+        return path[: -len(".bias")] + ".b", False
+    return path, False
+
+
+def import_torch_checkpoint(pth_path: Union[str, Path], pipeline: torch.nn.Module) -> int:
+    """Load a reference-layout ``.pth`` into ``pipeline``'s parameters; returns the tensors that found no slot.
+
+    The JAX package's ``import_torch_checkpoint``: torch's ``(out, in)``
+    Linear weights become the ``(in, out)`` layout, a tensor whose key the
+    pipeline lacks is counted, a shape mismatch raises ``ValueError``, and
+    the parameters the file does not hold keep their values.
+    """
+    blob = torch.load(Path(pth_path), map_location="cpu", weights_only=True)
+    state_dict = blob["model"] if isinstance(blob, dict) and "model" in blob else blob
+    flat = flatten_tree(export_jax_params(pipeline))
+    n_missing = 0
+    for name, tensor in state_dict.items():
+        value = tensor.detach().cpu().numpy().astype(np.float32)
+        key, is_weight = _reference_key(name)
+        if is_weight and value.ndim == 2:
+            value = value.T  # (out, in) -> (in, out)
+        if key not in flat:
+            n_missing += 1
+            continue
+        if flat[key].shape != value.shape:
+            raise ValueError(f"shape mismatch at {key}: {flat[key].shape} vs {value.shape}")
+        flat[key] = value
+    load_jax_params(pipeline, flat)
+    return n_missing
+
+
+def export_torch_checkpoint(pipeline: torch.nn.Module, pth_path: Union[str, Path], epoch: int = -1) -> int:
+    """Write ``pipeline``'s NeRFMLPs as a reference-layout ``.pth``; returns the tensors written.
+
+    The JAX package's ``export_torch_checkpoint`` (the inverse of the
+    importer): ``torch.save({"model": state_dict, "optimizer": {}, "epoch":
+    e})`` with the reference's module names, weights back in torch's
+    ``(out, in)``. Only the NeRFMLP family has a reference counterpart;
+    another model raises ``ValueError``.
+    """
+    params = export_jax_params(pipeline)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name: str, arr: np.ndarray) -> None:
+        arr = np.asarray(arr, dtype=np.float32)
+        if arr.ndim == 2:
+            arr = arr.T  # (in, out) -> torch Linear's (out, in)
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    for i, fn_params in enumerate(params["implicit_functions"]):
+        prefix = f"implicit_functions.{i}._fn."
+        if not (isinstance(fn_params, dict) and "xyz_encoder" in fn_params):
+            raise ValueError(
+                f"implicit function {i} is not a NeRFMLP param tree; only the "
+                "reference-analog family can be exported to .pth"
+            )
+        for li, layer in enumerate(fn_params["xyz_encoder"]["mlp"]):
+            put(f"{prefix}xyz_encoder.mlp.{li}.0.weight", layer["w"])
+            put(f"{prefix}xyz_encoder.mlp.{li}.0.bias", layer["b"])
+        for flat in ("intermediate_linear", "density_layer"):
+            put(f"{prefix}{flat}.weight", fn_params[flat]["w"])
+            put(f"{prefix}{flat}.bias", fn_params[flat]["b"])
+        for j, layer in enumerate(fn_params["color_layer"]):  # Linear layers at the Sequential's even slots
+            put(f"{prefix}color_layer.{2 * j}.weight", layer["w"])
+            put(f"{prefix}color_layer.{2 * j}.bias", layer["b"])
+
+    torch.save({"model": sd, "optimizer": {}, "epoch": int(epoch)}, str(pth_path))
+    return len(sd)
 
 
 def find_best_checkpoint(output_dir: Union[str, Path]) -> Optional[Path]:

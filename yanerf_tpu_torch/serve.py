@@ -26,9 +26,10 @@ Usage:
   curl 'localhost:8765/render?theta=30&phi=-25&radius=4' > frame.png
 
 ``--checkpoint`` takes a checkpoint of the port's runner (a run's
-``ckpts/ckpts_-001``, the best model, or any ``ckpts_NNNN``) or an ``.npz``
-of the JAX param tree flattened to dotted keys (``convert.flatten_tree``);
-without one the weights are random, drawn from ``--seed``.
+``ckpts/ckpts_-001``, the best model, or any ``ckpts_NNNN``), an ``.npz``
+of the JAX param tree flattened to dotted keys (``convert.flatten_tree``)
+or the reference's own ``.pth`` (``import_torch_checkpoint``); without one
+the weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -268,10 +269,12 @@ def _default_focal(cfg) -> Tuple[float, str]:
 def load_pipeline(cfg, checkpoint: Optional[str] = None, device: Union[str, torch.device] = "cuda", seed: int = 0):
     """The pipeline of ``cfg`` on ``device`` in eval mode, its weights from ``checkpoint`` or drawn from ``seed``.
 
-    ``checkpoint``: a checkpoint of the port's runner, or an ``.npz`` of the
-    JAX param tree flattened to dotted keys. The serving and the density
-    tools (``fit_occupancy``, ``fit_aabb``, ``extract_mesh``, ``render``)
-    load their weights here.
+    ``checkpoint``: a checkpoint of the port's runner, an ``.npz`` of the
+    JAX param tree flattened to dotted keys, or a reference-layout ``.pth``
+    (its NeRFMLP weights; what it lacks keeps the seed's values, as the
+    JAX importer leaves it). The serving, the export and the density tools
+    (``fit_occupancy``, ``fit_aabb``, ``extract_mesh``, ``render``) load
+    their weights here.
     """
     from .convert import load_jax_params
     from .pipelines import PIPELINES
@@ -283,6 +286,10 @@ def load_pipeline(cfg, checkpoint: Optional[str] = None, device: Union[str, torc
     if checkpoint and str(checkpoint).endswith(".npz"):
         with np.load(checkpoint) as ckpt:
             load_jax_params(pipeline, {k: ckpt[k] for k in ckpt.files})
+    elif checkpoint and str(checkpoint).endswith(".pth"):
+        from .runners.checkpoints import import_torch_checkpoint
+
+        import_torch_checkpoint(checkpoint, pipeline)
     elif checkpoint:
         from .runners.checkpoints import checkpoint_params_tree
 
@@ -311,7 +318,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", required=True)
     parser.add_argument("--checkpoint", default=None,
-                        help="a checkpoint of the port's runner (<run>/ckpts/ckpts_-001) or an .npz of the JAX param tree")
+                        help="a checkpoint of the port's runner (<run>/ckpts/ckpts_-001), an .npz of the JAX param "
+                        "tree or a reference-layout .pth")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--device", default="cuda", help="torch device; cuda without a GPU raises")

@@ -34,10 +34,13 @@ def device_constant(key: Hashable, make: Callable[[], Any], dtype: torch.dtype, 
     the card in the eager step before the capture, and the capture reuses
     them. Callers must not write to the tensor. It is never an inference
     tensor, so an eval pass may make it and a train step save it for
-    backward.
+    backward. While ``torch.export`` traces, a constant not made yet is
+    made for the trace and not kept.
     """
     full_key = (key, dtype, torch.device(device))
     tensor = _CONSTANTS.get(full_key)
+    if tensor is None and torch.compiler.is_exporting():  # a traced tensor must not stay in the cache
+        return torch.as_tensor(make(), dtype=dtype, device=device)
     if tensor is None:
         with torch.inference_mode(False):
             tensor = _CONSTANTS.setdefault(full_key, torch.as_tensor(make(), dtype=dtype, device=device))

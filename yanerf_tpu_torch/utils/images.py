@@ -8,7 +8,8 @@ dropped and grey repeated, as ``yanerf_tpu``'s loader does
 (``native/src/image_io.cpp``: no compositing; 16-bit keeps the high byte).
 ``png_shape`` reads the size from the header alone; a JPEG raises
 ``NotImplementedError`` (no decoder yet). ``resize_area`` is OpenCV's
-``INTER_AREA`` downscale, byte for byte.
+``INTER_AREA`` downscale, byte for byte; ``resize_linear`` its
+``INTER_LINEAR`` resize of float32 images.
 """
 
 from __future__ import annotations
@@ -203,6 +204,44 @@ def resize_area(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
     for j in range(1, y_index.shape[1]):
         out = out + y_weight[:, j].reshape(dh, 1, *trail) * rows[y_index[:, j]]
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def _linear_taps(ssize: int, dsize: int) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's linear table: per output pixel the first source pixel (unclamped) and the float32 weight of the
+    next, from the pixel centres ``(d + 0.5) * scale - 0.5``, in double."""
+    scale = 1.0 / (dsize / ssize)
+    f = (np.arange(dsize) + 0.5) * scale - 0.5
+    s = np.floor(f)
+    return s.astype(np.int64), (f - s).astype(np.float32)
+
+
+def resize_linear(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """Resize a float ``(H, W[, C])`` image to ``dsize = (width, height)`` as ``cv2.INTER_LINEAR`` does, in float32.
+
+    Per output pixel the two nearest source pixels along x, then along y,
+    weighted by the distance of the pixel centres; along x a tap left of
+    the first or right of the last source pixel takes that pixel alone,
+    along y the rows are clamped to the image (OpenCV's table and border).
+    An exact 2x downscale is OpenCV's area average, as ``cv2.resize``
+    switches to it there.
+    """
+    src = np.asarray(img, dtype=np.float32)
+    h, w = src.shape[:2]
+    dw, dh = dsize
+    if (dw, dh) == (w, h):
+        return src.copy()
+    if (w, h) == (2 * dw, 2 * dh):
+        return src.reshape(dh, 2, dw, 2, *src.shape[2:]).sum(axis=(1, 3), dtype=np.float32) * np.float32(0.25)
+    trail = (1,) * (src.ndim - 2)
+    sx, fx = _linear_taps(w, dw)
+    edge = (sx < 0) | (sx >= w - 1)
+    fx[edge] = 0.0
+    sx = np.clip(sx, 0, w - 1)
+    ax0, ax1 = (np.float32(1.0) - fx).reshape(1, dw, *trail), fx.reshape(1, dw, *trail)
+    rows = src[:, sx] * ax0 + src[:, np.minimum(sx + 1, w - 1)] * ax1
+    sy, fy = _linear_taps(h, dh)
+    ay0, ay1 = (np.float32(1.0) - fy).reshape(dh, 1, *trail), fy.reshape(dh, 1, *trail)
+    return rows[np.clip(sy, 0, h - 1)] * ay0 + rows[np.clip(sy + 1, 0, h - 1)] * ay1
 
 
 def _palette_332() -> bytes:
