@@ -1,8 +1,8 @@
-"""Smoke run of yanerf_tpu_torch on one NVIDIA GPU: build, check, serve, train, export.
+"""Smoke run of yanerf_tpu_torch on one NVIDIA GPU: build, check, serve, train, export, real captures.
 
     python3 chip_smoke.py
 
-Nine configurations at their published widths, random weights from a seed:
+The configurations at their published widths, random weights from a seed:
 configs/nerf/lego_proposal.yml ("proposal": two 4x128 ProposalMLPs and one
 8x256 NeRFMLP at 48 points per ray), configs/nerf/lego.yml ("classic":
 two 8x256 NeRFMLPs, coarse at 64 points per ray, fine at 64 + 128 merged
@@ -23,7 +23,10 @@ K1 / K3); the density tools on the flagship's checkpoint and its frame
 with occupancy bounds; the classic frame served from the reference's
 ``.pth`` layout, the flagship's frame as an exported ``torch.export``
 program, ``--debug``, configs/nerf/lego_tpu.yml (the classic pair at
-16,384 rays with ``approx_top_k``) and the async checkpoint saves. Phases,
+16,384 rays with ``approx_top_k``) and the async checkpoint saves; then
+real phone captures from JPEGs, configs/nerf/fern.yml and real_360.yml
+on the committed capture ``tests/data/llff_jpeg``, sampling masks on the
+flagship, and the parity runbook's smoke. Phases,
 each printing its numbers on a line of its own with the card's name and
 power limit:
   1. build   compile every kernel of the serving and training paths from
@@ -153,12 +156,33 @@ power limit:
  17. async save  the fused flagship CLI for three epochs with a checkpoint
              after each, saved async and sync: the seconds each save holds
              the loop, the CLI's ms per step, and each async file equal to
-             a sync save of the same state made right after it.
+             a sync save of the same state made right after it;
+ 18. jpeg decode  the committed capture ``tests/data/llff_jpeg`` (12 views
+             at 1008x756, baseline 4:2:0 JPEGs with restart markers)
+             decoded by ``yanerf_tpu_torch.native`` (built with g++ in
+             phase 1) on this machine's host: each array's sha256 equal to
+             the JAX package's libjpeg decode committed beside the files;
+             the decode rate one file at a time and batched (MB/s of JPEG,
+             megapixels/s);
+ 19. jpeg capture  a copy of the capture: the ``images_2/`` PNG cache
+             written from the JPEGs equal to the JAX ``_minify`` digests;
+             configs/nerf/fern.yml fused (steps_per_call 8, 40 steps) at its
+             published widths (8x256, 1024 rays, 64 + 64 points) on K1 / K3
+             against two per-step runs; a 504x378 test view of
+             configs/nerf/real_360.yml (spherified) on K1 against its plain
+             version; "family" for both (+1 on the density biases);
+ 20. masks   one flagship train step with a two-layer
+             ``sampling_prob_mask`` and one with ``mask_crop``, K1 + K3:
+             every drawn pixel of positive weight, the objective finite, the
+             step against the eager model's at the tolerances of "step";
+ 21. parity smoke  ``python -m yanerf_tpu_torch.repro_parity --smoke
+             --device cuda``: every stage ok, the time-to-quality stage at
+             its target, the kernels' launches read from its runs' logs.
 
 Any failure exits non-zero, and so does a run in which K1 or K3 did not
 launch on an LLFF training path or K1 on an LLFF frame, K1 or K3 on the
 multi-scene control's training, K1 on a tool or the occupancy frame, or
-either of them on the latent path, or K1 on a path of phases 13-17 (K3
+either of them on the latent path, or K1 on a path of phases 13-21 (K3
 on their training paths). Imports nothing of JAX or of
 yanerf_tpu. The
 last three lines are the kernels' JSON record, the card's name and power
@@ -246,6 +270,15 @@ PTH_SEED = 1  # the .pth service's own seed: its weights must come from the file
 EXPORT_CHUNK_SIZE_GRID = 4194304  # 10 chunks of the 800x800 flagship frame: the program unrolls the chunk loop
 EXPORT_MAX_ERR = 1e-6  # the restored frame against the serve frame
 ASYNC_EPOCHS = 3  # the async-save runs: three epochs of the 40-frame scene, a checkpoint after each
+FERN_CONFIG = REPO / "configs" / "nerf" / "fern.yml"
+REAL_360_CONFIG = REPO / "configs" / "nerf" / "real_360.yml"
+JPEG_CAPTURE = REPO / "tests" / "data" / "llff_jpeg"  # 12 views at 1008x756: baseline 4:2:0 JPEGs with restarts
+JPEG_FACTOR = 2  # the capture's views at the LLFF configs' 504x378
+JPEG_TRAIN_VIEWS = 10  # 12 views, every 8th held out (fern.yml's test_skip)
+JPEG_STEPS_PER_CALL = 8
+JPEG_TRAIN_STEPS = 40  # four epochs of 10 steps
+JPEG_DECODE_REPEATS = 3  # each decode timing is the fastest of this many passes over the capture
+MASK_LAYERS = 2  # the multi-layer sampling_prob_mask: one ray budget per layer
 
 
 def card() -> str:
@@ -1045,9 +1078,18 @@ def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, 
                 card_step_bit_equal_twice=bit_equal_twice, checks=checks)
 
 
-def step_equivalence(torch, scene: Path, config=None):
-    """One train step with the fused kernels and with the eager model, same weights, batch and draws."""
+def step_equivalence(torch, scene: Path, config=None, masks=None):
+    """One train step with the fused kernels and with the eager model, same weights, batch and draws.
+
+    ``masks`` (``mask_crop`` / ``sampling_prob_mask`` / ``n_rays_per_image``) join the batch, whose pixels
+    are then drawn by the mask; the result then also holds ``drawn_xys``, the pixels the steps drew. Each
+    step's kernel launches are counted from 0 (``launches_kernels``, ``launches_eager``).
+    """
     from yanerf_tpu_torch.datasets import BlenderDataset
+    from yanerf_tpu_torch.ops.kernels import launch_count
+    from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
+    from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
+    from yanerf_tpu_torch.ops.structures import EvaluationMode
     from yanerf_tpu_torch.pipelines import PIPELINES, set_nerf_mlp_option
     from yanerf_tpu_torch.runners import TrainState, create_optimizer, make_step_draws, make_train_step, prepare_batch
     from yanerf_tpu_torch.utils import Config
@@ -1057,8 +1099,10 @@ def step_equivalence(torch, scene: Path, config=None):
     set_nerf_mlp_option(cfg, "use_pallas_train", True)
     dataset = BlenderDataset(scene, "train")
     batch = prepare_batch(tuple(x[None] for x in dataset[0]), dataset.data_wrapper, torch.device(DEVICE))
+    batch.update(masks or {})
     kernel_pipe = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(5), device=DEVICE)
-    draws = make_step_draws(kernel_pipe, 1, seed=3, step=0)
+    draws = make_step_draws(kernel_pipe, 1, seed=3, step=0, masked=kernel_pipe.masked_training(batch),
+                            n_rays_per_image=batch.get("n_rays_per_image"))
     eager_pipe = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(5), device=DEVICE)
     eager_pipe.load_state_dict(kernel_pipe.state_dict())
     nerf_mlps = [i for i, fn in enumerate(kernel_pipe.implicit_functions) if getattr(fn, "use_pallas_train", False)]
@@ -1070,12 +1114,14 @@ def step_equivalence(torch, scene: Path, config=None):
         if DEVICE == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+        K1.launches = K1.pipelined_launches = K3.launches = 0
         preds = make_train_step(pipe, cfg.runner, 0)(state, batch, draws)
         sync(torch)
+        launches = launch_count.totals()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
         grads = [[p.grad for p in pipe.implicit_functions[i].parameters()] for i in nerf_mlps]
-        out[name] = (float(preds["objective"].mean()), grads, peak_gb)
-    (obj_k, grads_k, peak_k), (obj_e, grads_e, peak_e) = out["kernels"], out["eager"]
+        out[name] = (float(preds["objective"].mean()), grads, peak_gb, launches)
+    (obj_k, grads_k, peak_k, launches_k), (obj_e, grads_e, peak_e, launches_e) = out["kernels"], out["eager"]
     grad_cos = [cosine(torch, torch.cat([g.flatten() for g in gk]), torch.cat([g.flatten() for g in ge]))
                 for gk, ge in zip(grads_k, grads_e)]
     worst = [min(cosine(torch, a, b) for a, b in zip(gk, ge)) for gk, ge in zip(grads_k, grads_e)]
@@ -1083,10 +1129,19 @@ def step_equivalence(torch, scene: Path, config=None):
         "objective": abs(obj_k - obj_e) <= STEP_OBJECTIVE_RTOL * abs(obj_e) and math.isfinite(obj_k),
         "nerf_mlp_grad_cosine": all(c >= STEP_MIN_GRAD_COSINE for c in grad_cos),
     }
-    return dict(config=Path(config).name, objective_kernels=obj_k, objective_eager=obj_e,
-                objective_rtol=STEP_OBJECTIVE_RTOL, nerf_mlp_grad_cosine=grad_cos,
-                min_grad_cosine=STEP_MIN_GRAD_COSINE, worst_tensor_cosine=worst,
-                peak_memory_gb_kernels=peak_k, peak_memory_gb_eager=peak_e, checks=checks)
+    result = dict(config=Path(config).name, objective_kernels=obj_k, objective_eager=obj_e,
+                  objective_rtol=STEP_OBJECTIVE_RTOL, nerf_mlp_grad_cosine=grad_cos,
+                  min_grad_cosine=STEP_MIN_GRAD_COSINE, worst_tensor_cosine=worst,
+                  peak_memory_gb_kernels=peak_k, peak_memory_gb_eager=peak_e, nerf_mlps=len(nerf_mlps),
+                  launches_kernels=launches_k, launches_eager=launches_e, checks=checks)
+    if masks:
+        bundle = kernel_pipe.ray_sampler(batch["poses"], batch["focal_lengths"], EvaluationMode.TRAINING,
+                                         mask=batch.get("mask_crop"), sampling_prob_mask=batch.get("sampling_prob_mask"),
+                                         n_rays_per_image=batch.get("n_rays_per_image"),
+                                         pixel_u=draws.get("pixel_u"), pixel_gumbel=draws.get("pixel_gumbel"),
+                                         strata_u=draws.get("strata_u"))
+        result["drawn_xys"] = bundle.xys[0, :, 0].long()
+    return result
 
 
 def build_service(config):
@@ -1820,6 +1875,171 @@ def async_save_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, 
     return runs["async"]["launches"]
 
 
+def jpeg_decode_phase(card_line: str) -> None:
+    """Decode the committed capture with ``native`` on this machine's host: every array's sha256 against the
+    digest of the JAX package's libjpeg decode (``digests.json``), and the decode rate, one thread and batched."""
+    import hashlib
+    import os
+
+    from yanerf_tpu_torch import native
+
+    digests = json.loads((JPEG_CAPTURE / "digests.json").read_text())["decode"]
+    files = sorted((JPEG_CAPTURE / "images").iterdir())
+    jpeg_mb = sum(f.stat().st_size for f in files) / 1e6
+    one_s, batch_s = [], []
+    for _ in range(JPEG_DECODE_REPEATS):
+        t = time.perf_counter()
+        single = [native.decode_image(f) for f in files]
+        one_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        batched = native.decode_batch(files)
+        batch_s.append(time.perf_counter() - t)
+    sha = [hashlib.sha256(img.tobytes()).hexdigest() for img in single]
+    megapixels = sum(img.shape[0] * img.shape[1] for img in single) / 1e6
+    checks = {
+        "decode_digests": sha == [digests[f.name] for f in files],
+        "batch_digests": [hashlib.sha256(img.tobytes()).hexdigest() for img in batched] == sha,
+        "files": len(files) == len(digests) > 0,
+    }
+    say(card_line, "jpeg decode", where="the card machine's host CPU", cpus=os.cpu_count(), files=len(files),
+        jpeg_mb=jpeg_mb, megapixels=megapixels, one_thread_s=min(one_s), batched_s=min(batch_s),
+        one_thread_mb_per_s=jpeg_mb / min(one_s), batched_mb_per_s=jpeg_mb / min(batch_s),
+        one_thread_megapixels_per_s=megapixels / min(one_s), batched_megapixels_per_s=megapixels / min(batch_s),
+        checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"jpeg decode phase failed: {checks}")
+
+
+def jpeg_capture_phases(torch, K1, K3, card_line: str, tmp: Path, configs=None, factor: int = JPEG_FACTOR,
+                        steps: int = JPEG_TRAIN_STEPS) -> dict:
+    """fern.yml and real_360.yml from the JPEG capture: the PNG cache against the JAX ``_minify`` digests,
+    fern.yml trained fused on K1 / K3 at its published widths, a real_360.yml frame on K1, both held to their
+    eager twins on the CPU. ``configs`` (the pair) and ``factor`` (the views' size) stand in for the
+    published ones in the tests. Returns the kernels' launches on each path."""
+    import hashlib
+    import shutil
+
+    from yanerf_tpu_torch.datasets import DATASETS, LLFFDataset
+    from yanerf_tpu_torch.utils import Config
+    from yanerf_tpu_torch.utils.images import load_image_u8
+
+    fern, real_360 = (FERN_CONFIG, REAL_360_CONFIG) if configs is None else configs
+    capture = tmp / "llff_jpeg"
+    shutil.copytree(JPEG_CAPTURE, capture)
+    digests = json.loads((JPEG_CAPTURE / "digests.json").read_text())
+    t = time.perf_counter()
+    LLFFDataset._minify(str(capture), factors=[JPEG_FACTOR])
+    minify_s = time.perf_counter() - t
+    pngs = sorted((capture / digests["minify_dir"]).iterdir())
+    images = [load_image_u8(png) for png in pngs]
+    checks = {"minify_digests": [hashlib.sha256(img.tobytes()).hexdigest() for img in images]
+              == [digests["minify"][png.name] for png in pngs] and len(pngs) == len(digests["minify"]),
+              "fern_size": all(img.shape[:2] == LLFF_HW for img in images)}
+    say(card_line, "jpeg capture", minify_s=minify_s, views=len(pngs), hw=list(images[0].shape[:2]), checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"jpeg capture phase failed: {checks}")
+
+    paths = {}
+    numbers, paths["fern_jpeg_train_fused"] = fused_train(
+        torch, K1, K3, capture, tmp / "results_fern_jpeg", fern, steps, JPEG_STEPS_PER_CALL,
+        extra_options=[*(f"datasets.{i}.factor={factor}" for i in range(3)), "runner.cache_dataset_on_device=True"],
+        train_frames=JPEG_TRAIN_VIEWS)
+    say(card_line, "fused", source="JPEG capture", **numbers)
+    if not all(numbers["checks"].values()):
+        raise SystemExit(f"{Path(fern).name} fused phase on the JPEG capture failed: {numbers['checks']}")
+    torch.cuda.empty_cache()
+
+    service, nerf_mlps = build_service(real_360)
+    cfg = Config.fromfile(str(real_360))
+    pose, focal, _, lo, hi = DATASETS.build(dict(cfg.datasets[2], base_dir=str(capture), factor=factor))[0]
+    paths["real_360_jpeg_frame"] = frame(torch, K1, service, card_line, Path(real_360).name, with_k2=False,
+                                         view=(pose[:3, :4], float(focal[0]), float(lo[0]), float(hi[0])),
+                                         k1_per_frame=frame_chunks(cfg) * len(nerf_mlps))
+    del service, nerf_mlps
+    torch.cuda.empty_cache()
+
+    for config in (fern, real_360):
+        family = family_check(torch, capture, config, FAMILY_EVAL_RAYS, FAMILY_TRAIN_RAYS,
+                              {"datasets.0.factor": factor}, density_bias=1.0)
+        say(card_line, "family", source="JPEG capture", **family)
+        if not all(family["checks"].values()):
+            raise SystemExit(f"{Path(config).name} family phase on the JPEG capture failed: {family['checks']}")
+        torch.cuda.empty_cache()
+    return paths
+
+
+def mask_phase(torch, card_line: str, scene: Path, config=None, n_rays: int = TRAIN_RAYS) -> dict:
+    """One flagship train step with a two-layer ``sampling_prob_mask`` and one with ``mask_crop``, K1 + K3:
+    every drawn pixel of positive weight, K1 and K3 once per NeRFMLP, and the step against the eager model's
+    (``step_equivalence``). ``config`` / ``n_rays`` (its rays per step) stand in for the flagship in the
+    tests. Returns the kernels' launches on each path."""
+    from yanerf_tpu_torch.pipelines.ray_sampler import pixel_weights, resize_nearest
+    from yanerf_tpu_torch.utils import Config
+
+    config = CONFIG if config is None else config
+    sampler = Config.fromfile(str(config)).pipeline.ray_sampler
+    h, w = sampler.image_height, sampler.image_width
+    gen = torch.Generator().manual_seed(11)
+    prob = torch.rand((1, MASK_LAYERS, h, w), generator=gen)
+    prob[:, 0, : h // 2] = 0.0  # layer 0 draws from the lower half, layer 1 from the upper
+    prob[:, 1, h // 2:] = 0.0
+    crop = torch.zeros((1, 1, h // 2, w // 2))  # nearest-resized to the image's grid
+    crop[..., h // 8: 3 * h // 8, w // 8: 3 * w // 8] = 1.0
+    kinds = {"sampling_prob_mask": {"sampling_prob_mask": prob.to(DEVICE),
+                                    "n_rays_per_image": [n_rays // MASK_LAYERS] * MASK_LAYERS},
+             "mask_crop": {"mask_crop": crop.to(DEVICE)}}
+    paths = {}
+    for kind, masks in kinds.items():
+        step = step_equivalence(torch, scene, config, masks=masks)
+        xy = step.pop("drawn_xys")
+        mask = masks.get("mask_crop")
+        weights, _ = pixel_weights(1, h, w, masks.get("n_rays_per_image", n_rays),
+                                   None if mask is None else resize_nearest(mask, h, w)[:, 0],
+                                   masks.get("sampling_prob_mask"), DEVICE)
+        layers = weights.shape[1] if weights.ndim == 3 else 1
+        flat = xy[:, 0] + w * xy[:, 1]
+        layer = torch.arange(layers, device=DEVICE).repeat_interleave(n_rays // layers)
+        drawn = weights[0, layer, flat] if weights.ndim == 3 else weights[0, flat]
+        launches = step["launches_kernels"]
+        paths[f"masks_{kind}_train"] = launches
+        step["checks"].update({
+            "drawn_pixels_weighted": bool((drawn > 0).all()) and flat.numel() == n_rays,
+            "k1_k3_once": launches["nerf_mlp_fwd"] == launches["nerf_mlp_bwd"] == step["nerf_mlps"] > 0,
+            "eager_launches_none": step["launches_eager"] == NO_LAUNCHES,
+        })
+        say(card_line, "masks", kind=kind, rays=int(flat.numel()), layers=layers, **step)
+        if not all(step["checks"].values()):
+            raise SystemExit(f"masks phase ({kind}) failed: {step['checks']}")
+        torch.cuda.empty_cache()
+    return paths
+
+
+def parity_smoke_phase(card_line: str, tmp: Path, smoke_args=()) -> dict:
+    """``python -m yanerf_tpu_torch.repro_parity --smoke --device cuda``: its JSON with every stage ok and the
+    time-to-quality stage at its target. Returns the kernels' launches its runs logged (``run.log``)."""
+    work, out = tmp / "parity_smoke", tmp / "parity_smoke.json"
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "yanerf_tpu_torch.repro_parity", "--smoke", "--device", DEVICE,
+                           "--smoke_dir", str(work), "--out", str(out), *smoke_args], cwd=REPO, capture_output=True,
+                          text=True, timeout=900)
+    seconds = time.perf_counter() - t
+    record = json.loads(out.read_text()) if out.exists() else {}
+    stages = record.get("stages", {})
+    launches = {"nerf_mlp_fwd": 0, "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0}
+    for log in work.rglob("run.log"):
+        lines = [ln for ln in log.read_text().splitlines() if "kernel launches: " in ln]
+        if lines:
+            for k, v in json.loads(lines[-1].split("kernel launches: ", 1)[1]).items():
+                launches[k] += v
+    checks = {"exit_0": proc.returncode == 0, "ok": record.get("ok") is True,
+              "stages_ok": bool(stages) and all(stage.get("ok") for stage in stages.values()),
+              "time_to_quality_reached": bool(stages.get("time_to_quality", {}).get("reached"))}
+    say(card_line, "parity smoke", seconds=seconds, stages=stages, launches=launches, checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"parity smoke phase failed: {checks}\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return {"parity_smoke_train": launches}
+
+
 def payloads_equal(torch, a, b) -> bool:
     """Two checkpoint payloads equal tensor for tensor (dtype, device and bits), and in every other value."""
     if isinstance(a, torch.Tensor):
@@ -1851,14 +2071,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    # 1. build: one nvcc per kernel source, all started together
+    # 1. build: one nvcc per kernel source and g++ for the host JPEG decoder, all started together
+    from yanerf_tpu_torch import native
+
     libraries = {"nerf_mlp_fwd": K1.LIBRARY, "nerf_mlp_fwd_pipelined": K1.PIPELINED_LIBRARY,
                  "nerf_mlp_bwd": K3.LIBRARY}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libraries)) as pool:
+    with ThreadPoolExecutor(len(libraries) + 1) as pool:
+        host_build = pool.submit(native.LIBRARY.load)
         build_s = dict(zip(libraries, pool.map(lambda lib: lib.load(), libraries.values())))
     say(card_line, "build", seconds=time.perf_counter() - t0, per_kernel_s=build_s,
-        ptxas={name: lib.build_report() for name, lib in libraries.items()})
+        ptxas={name: lib.build_report() for name, lib in libraries.items()}, jpeg_decoder_gxx_s=host_build.result())
 
     service, nerf_mlps = build_service(CONFIG)
     nerf_mlp = nerf_mlps[-1]
@@ -1992,6 +2215,12 @@ def main() -> int:
                                                                       Path(tmp) / "async_save")
         torch.cuda.empty_cache()
 
+        # real captures from JPEGs (fern.yml, real_360.yml), sampling masks, the parity runbook's smoke
+        jpeg_decode_phase(card_line)
+        capture_paths = jpeg_capture_phases(torch, K1, K3, card_line, Path(tmp))
+        capture_paths.update(mask_phase(torch, card_line, scene))
+        capture_paths.update(parity_smoke_phase(card_line, Path(tmp)))
+
     def entry(name, source, replaces, numbers, launches_by_path):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2011,6 +2240,7 @@ def main() -> int:
         paths.update({name: launches.get(kernel, 0) for name, launches in llff_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in slice_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in checkpoint_paths.items()})
+        paths.update({name: launches.get(kernel, 0) for name, launches in capture_paths.items()})
         return paths
 
     record = {
@@ -2055,6 +2285,12 @@ def main() -> int:
     if idle:
         raise SystemExit(f"a NeRF-MLP kernel did not run on a path of the checkpoints, the export, --debug, "
                          f"lego_tpu.yml or the async saves: {idle}")
+    # K1 on every path of the JPEG captures, the masks and the parity smoke; K3 on their training
+    idle = {name: launches for name, launches in capture_paths.items()
+            if launches.get("nerf_mlp_fwd", 0) == 0 or (launches.get("nerf_mlp_bwd", 0) > 0) != ("_train" in name)}
+    if idle:
+        raise SystemExit(f"a NeRF-MLP kernel did not run on a path of the JPEG captures, the masks or the parity "
+                         f"smoke: {idle}")
     say(card_line, "total", seconds=time.perf_counter() - t_start)
     print(json.dumps(record))
     print(card_line)

@@ -238,8 +238,8 @@ def test_multipass_renderer_matches_jax(mode, monkeypatch):
             np.testing.assert_allclose(getattr(g, name).numpy(), np.asarray(getattr(r, name)), rtol=1e-4, atol=1e-4,
                                        err_msg=f"stage {k} {name}")
         np.testing.assert_allclose(g.aux["weights"].numpy(), np.asarray(r.aux["weights"]), rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="eval_compositing_dtype"):
-        RENDERERS.build(dict(RENDERER, eval_compositing_dtype="bfloat16"))
+    # eval_compositing_dtype is ported (tests/test_torch_switches.py holds its frames to JAX's)
+    assert RENDERERS.build(dict(RENDERER, eval_compositing_dtype="bfloat16")).eval_compositing_dtype == torch.bfloat16
     if training:
         with pytest.raises(ValueError, match="generator"):
             renderer(*map(torch.from_numpy, rays), None, implicit_functions=fns, evaluation_mode=port_mode,

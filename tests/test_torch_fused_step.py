@@ -357,6 +357,7 @@ def test_training_draws_come_from_the_spec_alone(monkeypatch):
             pipeline(evaluation_mode=training, **batch)
         spec = pipeline.training_draws
         for key in ("pixel_idx", "strata_u", "pdf_u"):
-            monkeypatch.setattr(pipeline, "training_draws", lambda b, key=key: [d for d in spec(b) if d.key != key])
+            monkeypatch.setattr(pipeline, "training_draws",
+                                lambda b, key=key, **kw: [d for d in spec(b, **kw) if d.key != key])
             with pytest.raises(ValueError, match="generator"):
                 pipeline(evaluation_mode=training, generator=torch.Generator().manual_seed(0), **batch)

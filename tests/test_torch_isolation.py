@@ -78,3 +78,19 @@ def test_the_port_needs_no_imaging_package():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+IMAGING_HEADER = re.compile(r'^\s*#\s*include\s*[<"](?:jpeglib\.h|turbojpeg\.h|png\.h|opencv2/[^>"]*)[>"]', re.MULTILINE)
+
+
+def test_the_native_sources_link_no_imaging_library():
+    """The JPEG decoder is the port's own (native/src/jpeg.cpp): no libjpeg, libpng or OpenCV header or library."""
+    from yanerf_tpu_torch.ops.kernels._build import GXX_FLAGS, NVCC_FLAGS
+
+    sources = [p for ext in ("*.cpp", "*.cu", "*.cuh", "*.h") for p in PORT.rglob(ext)]
+    assert any(p.name == "jpeg.cpp" for p in sources)
+    offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}" for p in sources
+                 for m in IMAGING_HEADER.finditer(p.read_text())]
+    assert not offenders, offenders
+    assert not [f for f in GXX_FLAGS + NVCC_FLAGS if f.startswith("-l") and f != "-lpthread"]
+    assert IMAGING_HEADER.search("#include <jpeglib.h>") and IMAGING_HEADER.search('#include "png.h"')

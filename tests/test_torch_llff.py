@@ -81,7 +81,7 @@ from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose, service_from_con
 from yanerf_tpu_torch.synth_llff import write_llff_scene
 from yanerf_tpu_torch.synth_scene import write_scene
 from yanerf_tpu_torch.utils import Config
-from yanerf_tpu_torch.utils.images import load_image_u8, png_shape, resize_area
+from yanerf_tpu_torch.utils.images import image_shape, load_image_u8, resize_area
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -284,12 +284,25 @@ def test_llff_dataset_refusals_and_other_sizes_match_jax(llff_pair):
         for a, b in zip(got[2], ref[2]):
             assert Path(a).name == Path(b).name
             np.testing.assert_array_equal(load_image_u8(a), load_image_u8(b))
-    jpeg = llff_pair / "jpeg"
-    (jpeg / "images").mkdir(parents=True)
-    shutil.copy(llff_pair / "port" / "poses_bounds.npy", jpeg)
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(jpeg / "images" / "img_000.JPG")
-    with pytest.raises(NotImplementedError, match="img_000.JPG"):
-        LLFFDataset(str(jpeg), "train", factor=1)
+    # JPEG sources load as the JAX loader loads them (tests/test_torch_native.py holds the decoder itself);
+    # a progressive JPEG is refused by name
+    n_views = np.load(llff_pair / "port" / "poses_bounds.npy").shape[0]
+    for root in ("jpeg_jax", "jpeg_port"):
+        (llff_pair / root / "images").mkdir(parents=True)
+        shutil.copy(llff_pair / "port" / "poses_bounds.npy", llff_pair / root)
+        for i in range(n_views):
+            img = (np.random.RandomState(i).rand(20, 28, 3) * 255).astype(np.uint8)
+            Image.fromarray(img).save(llff_pair / root / "images" / f"img_{i:03d}.JPG", quality=90)
+    ref = JaxLLFFDataset(str(llff_pair / "jpeg_jax"), "train", factor=2)
+    got = LLFFDataset(str(llff_pair / "jpeg_port"), "train", factor=2)
+    np.testing.assert_array_equal(got.poses, ref.poses)
+    for i in range(len(got)):
+        for a, b in zip(got[i], ref[i]):
+            np.testing.assert_array_equal(a, b)
+    Image.fromarray(np.zeros((20, 28, 3), np.uint8)).save(llff_pair / "jpeg_port" / "images" / "img_000.JPG",
+                                                        progressive=True)
+    with pytest.raises(NotImplementedError, match="img_000.JPG.*progressive"):
+        LLFFDataset(str(llff_pair / "jpeg_port"), "train", factor=1)
 
 
 @pytest.mark.parametrize("hw,factor", [((40, 32), 2), ((41, 33), 2), ((60, 45), 4), ((64, 48), 3), ((50, 50), 1.5)])
@@ -303,7 +316,7 @@ def test_resize_area_is_opencv_inter_area(hw, factor):
 
 def test_png_shape_reads_the_header(tmp_path):
     Image.fromarray(np.zeros((7, 11, 4), np.uint8)).save(tmp_path / "a.png")
-    assert png_shape(tmp_path / "a.png") == (7, 11, 3) == cv2.imread(str(tmp_path / "a.png")).shape
+    assert image_shape(tmp_path / "a.png") == (7, 11, 3) == cv2.imread(str(tmp_path / "a.png")).shape
 
 
 def test_depth_fields_stay_float32_on_the_uint8_cache(llff_pair):

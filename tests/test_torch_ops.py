@@ -244,8 +244,12 @@ def test_view_metrics_serving_case():
     assert tm.view_metrics(_t(grid), images=None, images_pred=_t(pred)) == {}
     assert jm.view_metrics(jnp.asarray(grid), images=None, images_pred=jnp.asarray(pred)) == {}
     assert set(tm.view_metrics(_t(grid), images=_t(pred), images_pred=_t(pred))) == {"loss_rgb_mse", "loss_rgb_huber"}
-    with pytest.raises(NotImplementedError):
-        tm.view_metrics(_t(grid), depths=_t(pred[..., :1]), depths_pred=_t(pred[..., :1]))
+    # the depth metrics are ported: the serving case's depth MAE equals the JAX one
+    got = tm.view_metrics(_t(grid), depths=_t(pred[..., :1] + 0.5), depths_pred=_t(pred[..., 1:2]))
+    ref = jm.view_metrics(jnp.asarray(grid), depths=jnp.asarray(pred[..., :1] + 0.5),
+                          depths_pred=jnp.asarray(pred[..., 1:2]))
+    assert set(got) == set(ref) == {"loss_depth_abs"}
+    np.testing.assert_allclose(got["loss_depth_abs"].numpy(), np.asarray(ref["loss_depth_abs"]), rtol=1e-6, atol=1e-6)
 
 
 def test_sample_grid_gathers_pixels():

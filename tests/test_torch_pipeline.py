@@ -110,9 +110,14 @@ def test_training_mode_is_the_next_slice():
                                                generator=torch.Generator().manual_seed(0))
     assert bool(torch.isfinite(preds["objective"]).all())
     pipeline = PIPELINES.build(dict(_cfg()), device="cpu")
-    with pytest.raises(NotImplementedError, match="mask"):
-        pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING,
-                 mask_crop=torch.ones(1, HW, HW))
+    # sampling masks are ported (tests/test_torch_masks.py): every drawn pixel lies in the mask
+    mask = torch.zeros(1, 1, HW, HW)
+    mask[..., 2:6, 1:5] = 1.0
+    preds = pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]),
+                     evaluation_mode=EvaluationMode.TRAINING, image_rgb=torch.rand(1, HW, HW, 3), mask_crop=mask,
+                     output_rasterized_mc=True, generator=torch.Generator().manual_seed(0))
+    assert bool(torch.isfinite(preds["objective"]).all())
+    assert bool((preds["rendered_alpha_masks"][mask[:, 0] == 0] == 0).all())
     # the training vis's rasterization is ported: the Monte-Carlo samples land on the image grid
     preds = pipeline(poses=torch.eye(4)[None], focal_lengths=torch.tensor([10.0]), evaluation_mode=EvaluationMode.TRAINING,
                      output_rasterized_mc=True, generator=torch.Generator().manual_seed(0))

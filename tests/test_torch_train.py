@@ -256,8 +256,15 @@ def test_psnr_and_masked_mse_match_jax():
 
 
 def test_depth_metrics_are_refused():
-    with pytest.raises(NotImplementedError, match="depth"):
-        metrics.view_metrics(torch.zeros(1, 2, 1, 2), depths=torch.zeros(1, 4, 4, 1), depths_pred=torch.zeros(1, 2, 1, 1))
+    """No longer refused: the depth metrics are ported (tests/test_torch_masks.py holds ``eval_depth``)."""
+    rng = np.random.RandomState(6)
+    grid = rng.randint(0, 4, size=(1, 2, 1, 2)).astype(np.float32)
+    depths, depths_pred = rng.rand(1, 4, 4, 1).astype(np.float32) + 0.5, rng.rand(1, 2, 1, 1).astype(np.float32)
+    got = metrics.view_metrics(torch.from_numpy(grid), depths=torch.from_numpy(depths),
+                               depths_pred=torch.from_numpy(depths_pred))
+    ref = jax_metrics.view_metrics(jnp.asarray(grid), depths=jnp.asarray(depths), depths_pred=jnp.asarray(depths_pred))
+    assert set(got) == set(ref) == {"loss_depth_abs"}
+    np.testing.assert_allclose(got["loss_depth_abs"].numpy(), np.asarray(ref["loss_depth_abs"]), rtol=1e-6, atol=1e-6)
 
 
 # --- schedules and Adam ---------------------------------------------------

@@ -18,9 +18,12 @@ numpy pose math:
 ``factor`` / ``width`` / ``height`` read (and first write, when missing)
 the ``images_{factor}/`` or ``images_{W}x{H}/`` cache of PNGs, resized
 with ``utils/images.py::resize_area``, the JAX package's ``cv2.INTER_AREA``
-byte for byte. Image shapes come from the PNG header. JPEG sources (real
-LLFF captures ship ``.JPG``) raise ``NotImplementedError``: the port has no
-JPEG decoder yet.
+byte for byte. The sources may be PNG or JPEG (real LLFF and 360 captures
+ship ``.JPG``): JPEGs are decoded by the port's own baseline decoder
+(``yanerf_tpu_torch/native``), which equals the JAX package's libjpeg
+decode. Image shapes come from the file headers, turned by a JPEG's EXIF
+orientation as the JAX loader's ``cv2.imread`` returns them; the pixels are
+decoded unturned, as its ``cv2.IMREAD_UNCHANGED`` and ``native`` reads are.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 
-from ..utils.images import load_image, load_image_u8, png_bytes, png_shape, resize_area
+from ..utils.images import image_shape, load_image, load_image_u8, png_bytes, resize_area
 from .blender import CAM_CALIBRATION
 from .builder import DATASETS
 
@@ -249,7 +252,7 @@ class LLFFDataset:
         bds = poses_arr[:, -2:].transpose([1, 0])
 
         img0 = cls._list_images(osp.join(basedir, "images"))[0]
-        sh = png_shape(img0)
+        sh = image_shape(img0, exif_orientation=True)
 
         sfx = ""
         if factor is not None and factor != 1:
@@ -276,7 +279,7 @@ class LLFFDataset:
         if poses.shape[-1] != len(imgfiles):
             raise RuntimeError(f"Mismatch between imgs {len(imgfiles)} and poses {poses.shape[-1]}")
 
-        sh = png_shape(imgfiles[0])
+        sh = image_shape(imgfiles[0], exif_orientation=True)
         poses[:2, 4, :] = np.array(sh[:2]).reshape([2, 1])
         poses[2, 4, :] = poses[2, 4, :] / factor
         return poses, bds, imgfiles

@@ -1,6 +1,7 @@
-"""Build a CUDA source of ``csrc/`` with nvcc into a shared library and load it with ctypes.
+"""Build a CUDA source of ``csrc/`` with nvcc (or a C++ source with the host's g++) into a shared library and load
+it with ctypes.
 
-One ``nvcc`` per source, cached by content under ``yanerf_tpu_torch/_build/``
+One compiler run per source, cached by content under ``yanerf_tpu_torch/_build/``
 (listed in ``.gitignore``), with the compiler's report kept beside the
 library. The content is that of the source and of every header it
 includes from its directory (``#include "..."``, followed recursively), so
@@ -32,6 +33,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+# host code: no -march=native, the cache key does not name the machine
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
 
 def _nvcc() -> str:
@@ -41,12 +44,25 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _gxx() -> str:
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise RuntimeError("g++ was not found: the native host code cannot be built")
+    return gxx
+
+
 class CudaLibrary:
     """A ``csrc/*.cu`` source, its cached build and its ctypes handle.
 
     ``bind`` sets the ``argtypes``/``restype`` of the library's entry points
-    once it is loaded.
+    once it is loaded. A relative ``source`` is taken from ``csrc/``.
     """
+
+    flags = NVCC_FLAGS
+    compiler_name = "nvcc"
+
+    def _compiler(self) -> List[str]:
+        return [_nvcc(), *self.flags]
 
     def __init__(self, source: str, bind: Callable[[ctypes.CDLL], None]) -> None:
         self.source = CSRC_DIR / source
@@ -70,7 +86,7 @@ class CudaLibrary:
         return order
 
     def path(self) -> Path:
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(self.flags).encode())
         for path in self.sources():
             digest.update(path.name.encode() + b"\0" + path.read_bytes())
         return BUILD_DIR / f"lib{self.source.stem}_{digest.hexdigest()[:16]}.so"
@@ -83,10 +99,11 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)], capture_output=True, text=True)
+        proc = subprocess.run([*self._compiler(), "-o", tmp, str(self.source)], capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {self.source.name} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+            raise RuntimeError(f"{self.compiler_name} failed on {self.source.name} ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
         return out
@@ -110,3 +127,13 @@ class CudaLibrary:
         t0 = time.perf_counter()
         self.library()
         return time.perf_counter() - t0
+
+
+class HostLibrary(CudaLibrary):
+    """A C++ source for the host, built with ``g++`` (no CUDA) and cached the same way."""
+
+    flags = GXX_FLAGS
+    compiler_name = "g++"
+
+    def _compiler(self) -> List[str]:
+        return [_gxx(), *self.flags]

@@ -56,3 +56,11 @@ def replayed(tally: Counter) -> None:
 def per_replay(tally: Counter) -> Dict[str, int]:
     """``tally`` as ``{"module.attribute": launches per replay}``, for logs and records."""
     return {f"{module.__name__.rsplit('.', 1)[-1]}.{attribute}": n for (module, attribute), n in tally.items()}
+
+
+def totals() -> Dict[str, int]:
+    """Every kernel's launches in this process so far, by kernel."""
+    from . import nerf_mlp_bwd, nerf_mlp_fwd
+
+    return {"nerf_mlp_fwd": nerf_mlp_fwd.launches, "nerf_mlp_fwd_pipelined": nerf_mlp_fwd.pipelined_launches,
+            "nerf_mlp_bwd": nerf_mlp_bwd.launches}

@@ -201,6 +201,9 @@ def pack_weights(model) -> PackedNerfMlp:
     """
     if model.latent_dim != 0 or not model.input_xyz or not model.input_dir:
         raise NotImplementedError("the fused kernel covers the standard xyz+dir NeRFMLP")
+    for switch in ("skip_affine_trans", "no_last_relu"):
+        if getattr(model.xyz_encoder, switch):
+            raise NotImplementedError(f"the fused kernel covers the concatenating ReLU trunk, not {switch}")
     h = model.n_hidden_neurons_xyz
     weights: List[torch.Tensor] = []
     biases: List[torch.Tensor] = []

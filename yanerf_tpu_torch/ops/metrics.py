@@ -1,9 +1,10 @@
 """Per-sample view metrics (reductions happen in the runner).
 
 Counterpart of ``yanerf_tpu/ops/metrics.py``: every loss keeps the batch
-dimension, ``(B,)``. The RGB metrics, PSNR and SSIM against ground truth
-are ported; the depth metrics raise ``NotImplementedError`` (no ported
-dataset has depth maps). SSIM's Gaussian blur is written as a sum of
+dimension, ``(B,)``. The RGB metrics, PSNR, SSIM and the depth metrics
+(``eval_depth``: MSE / MAE over the pixels with a positive ground-truth
+depth, optionally after the least-squares scale) against ground truth.
+SSIM's Gaussian blur is written as a sum of
 shifted slices, elementwise float32, so it never takes the card's TF32
 convolution path (the JAX package pins that convolution to HIGHEST).
 """
@@ -11,13 +12,16 @@ convolution path (the JAX package pins that convolution to HIGHEST).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .sampling import sample_grid
 
-__all__ = ["calc_mse", "calc_psnr", "calc_ssim", "huber", "mse2psnr", "rgb_metrics", "sample_grid", "view_metrics"]
+__all__ = [
+    "calc_mse", "calc_psnr", "calc_ssim", "estimate_depth_scale_factor", "eval_depth", "huber", "mse2psnr",
+    "rgb_metrics", "sample_grid", "view_metrics",
+]
 
 
 def safe_sqrt(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
@@ -61,6 +65,51 @@ def rgb_metrics(
     return {"rgb_huber": huber(rgb_squared, scaling=huber_scaling), "rgb_mse": rgb_squared}
 
 
+def estimate_depth_scale_factor(
+    pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, clamp_thr: float
+) -> torch.Tensor:
+    """Per sample the scale ``s`` that minimises ``|mask * (gt - s * pred)|^2``, its denominator clamped below."""
+    reduce_dims = tuple(range(1, pred.ndim))
+    xy = torch.mean(pred * gt * mask, dim=reduce_dims)
+    xx = torch.mean(pred * pred * mask, dim=reduce_dims)
+    return xy / torch.clamp(xx, min=clamp_thr)
+
+
+def eval_depth(
+    pred: torch.Tensor,
+    gt: torch.Tensor,
+    crop: int = 1,
+    mask: Optional[torch.Tensor] = None,
+    get_best_scale: bool = True,
+    mask_thr: float = 0.5,
+    best_scale_clamp_thr: float = 1e-4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample depth MSE and MAE, ``(B,)`` each, with optional best-scale alignment.
+
+    ``pred`` / ``gt`` are ``(B, *spatial, 1)``; ``crop`` removes a border
+    from the first two spatial dims; ``mask`` zeroes the ground truth where
+    it is at most ``mask_thr``. Only pixels with a positive ground truth
+    count.
+    """
+    if crop > 0:
+        gt = gt[:, crop:-crop, crop:-crop]
+        pred = pred[:, crop:-crop, crop:-crop]
+        if mask is not None:
+            mask = mask[:, crop:-crop, crop:-crop]
+    if mask is not None:
+        gt = gt * (mask > mask_thr).to(gt.dtype)
+    dmask = (gt > 0.0).to(gt.dtype)
+    reduce_dims = tuple(range(1, pred.ndim))
+    dmask_mass = torch.clamp(torch.sum(dmask, dim=reduce_dims), min=1e-4)
+    if get_best_scale:
+        scale_best = estimate_depth_scale_factor(pred, gt, dmask, best_scale_clamp_thr)
+        pred = pred * scale_best.reshape((-1,) + (1,) * (pred.ndim - 1))
+    df = gt - pred
+    mse_depth = torch.sum(dmask * (df**2), dim=reduce_dims) / dmask_mass
+    abs_depth = torch.sum(dmask * torch.abs(df), dim=reduce_dims) / dmask_mass
+    return mse_depth, abs_depth
+
+
 def calc_ssim(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -98,18 +147,29 @@ def view_metrics(
     images_pred: Optional[torch.Tensor] = None,
     depths: Optional[torch.Tensor] = None,
     depths_pred: Optional[torch.Tensor] = None,
+    loss_reweight_masks: Optional[torch.Tensor] = None,
     keys_prefix: str = "loss_",
 ) -> Dict[str, torch.Tensor]:
-    """Gather the ground truth ``(B, H, W, C)`` at the sampled pixels and compute per-sample losses."""
-    if depths is not None:
-        raise NotImplementedError("depth metrics (eval_depth) are not ported yet")
+    """Gather the ground truth ``(B, H, W, C)`` at the sampled pixels and compute per-sample losses.
+
+    With depths, ``depth_abs`` is ``eval_depth``'s MAE at the best scale,
+    uncropped, as in the JAX package.
+    """
+
+    def _maybe_sample(tensor):
+        return None if tensor is None else sample_grid(tensor, image_sampling_grid)
+
+    images, depths = _maybe_sample(images), _maybe_sample(depths)
+    loss_reweight_masks = _maybe_sample(loss_reweight_masks)
     preds: Dict[str, torch.Tensor] = {}
     if images is not None and images_pred is not None:
-        images = sample_grid(images, image_sampling_grid)
-        preds.update(rgb_metrics(images, images_pred))
+        preds.update(rgb_metrics(images, images_pred, loss_reweight_masks))
         # SSIM only on full image grids (FULL_GRID eval); MC samples are (B, N, 1, C)
         if images_pred.ndim == 4 and images_pred.shape[1] >= 11 and images_pred.shape[2] >= 11:
             preds["rgb_ssim"] = calc_ssim(images_pred, images)
+    if depths is not None and depths_pred is not None:
+        _, abs_depth = eval_depth(depths_pred, depths, get_best_scale=True, mask=None, crop=0)
+        preds["depth_abs"] = abs_depth
     if keys_prefix is not None:
         preds = {keys_prefix + k: v for k, v in preds.items()}
     return preds

@@ -2,11 +2,12 @@
 
 Counterpart of ``yanerf_tpu/ops/sampling.py`` for what the lego configs'
 training needs: uniform pixel indices drawn with replacement (a bare
-``randint``), weighted sampling without replacement by the Gumbel top-k,
-and ``sample_grid`` and its inverse, ``scatter_rays_to_image`` (the training
-vis's Monte-Carlo rasterization). Where the JAX package takes the
-approximate top-k (``lax.approx_max_k``), the port takes the exact one;
-weighted sampling with replacement is not ported yet.
+``randint``), weighted sampling with replacement by the inverse CDF (the
+masked ``pixel_replacement`` case), weighted sampling without replacement
+by the Gumbel top-k (with or without a mask), and ``sample_grid`` and its
+inverse, ``scatter_rays_to_image`` (the training vis's Monte-Carlo
+rasterization). Where the JAX package takes the approximate top-k
+(``lax.approx_max_k``), the port takes the exact one.
 """
 
 from __future__ import annotations
@@ -42,10 +43,41 @@ def weighted_sample_without_replacement(
     if gumbel is None:
         if generator is None:
             raise ValueError("pixels without replacement require a generator or fed-in pixel draws")
-        u = torch.rand(weights.shape, generator=generator, dtype=weights.dtype, device=weights.device)
-        gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        gumbel = gumbel_from_uniform(
+            torch.rand(weights.shape, generator=generator, dtype=weights.dtype, device=weights.device)
+        )
     keys = torch.where(weights > 0, torch.log(torch.clamp(weights, min=tiny)) + gumbel, float("-inf"))
     return torch.topk(keys, num_samples, dim=-1).indices
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel draws from uniform ones: ``-log(-log(max(u, tiny)))``."""
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
+
+
+def weighted_sample_with_replacement(
+    weights: torch.Tensor,
+    num_samples: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``(B, num_samples)`` indices per row of ``(B, N)`` non-negative weights, WITH replacement.
+
+    The inverse CDF: per row the first index whose cumulative weight
+    exceeds ``u * total`` (``searchsorted`` on the right side, so a draw of
+    exactly 0 never picks a zero-weight pixel), clipped to ``N - 1``. The
+    uniform draws are ``u`` ``(B, num_samples)`` if given, else drawn from
+    ``generator``; with neither the call raises.
+    """
+    cdf = torch.cumsum(weights, dim=-1)
+    total = cdf[..., -1:]
+    if u is None:
+        if generator is None:
+            raise ValueError("weighted pixels with replacement require a generator or fed-in pixel draws")
+        u = torch.rand((*weights.shape[:-1], num_samples), generator=generator, dtype=weights.dtype,
+                       device=weights.device)
+    idx = torch.searchsorted(cdf.contiguous(), (u * total).contiguous(), right=True)
+    return torch.clamp(idx, 0, weights.shape[-1] - 1)
 
 
 def uniform_sample_with_replacement(

@@ -12,9 +12,15 @@ rendered in one call, and the NeRF-MLP's kernel switch is
 ``output_rasterized_mc`` the Monte-Carlo samples are also splatted back
 onto the image (``scatter_rays_to_image``) for the training vis.
 
-``training_draws`` lists what one TRAINING call draws, in the order it
-draws it, and ``make_draws`` makes those draws from a generator, into
-given buffers if asked: the train loops make a step's draws ahead and feed
+A TRAINING call takes the JAX package's pixel masks: ``mask_crop`` ``(B,
+1, H0, W0)`` (in ``mask_sample`` mode, resized to the sampling grid) and
+``sampling_prob_mask`` ``(B, H, W)``, or ``(B, L, H, W)`` with
+``n_rays_per_image`` a list of one ray count per layer
+(``ray_sampler.py::pixel_weights``). ``training_draws`` lists what one
+TRAINING call draws, in the order it draws it (with a mask the raw pixel
+draws ``pixel_u`` / ``pixel_gumbel``, from which the sampler picks the
+pixels by the mask), and ``make_draws`` makes those draws from a
+generator, into given buffers if asked: the train loops make a step's draws ahead and feed
 them in through ``draws``. It is the one place that decides a TRAINING
 call's draws: the stages below get no generator in TRAINING, so a draw it
 does not list raises.
@@ -30,7 +36,12 @@ import torch.nn as nn
 
 from ..models import MODELS
 from ..ops.metrics import sample_grid, view_metrics
-from ..ops.sampling import scatter_rays_to_image, uniform_sample_with_replacement, weighted_sample_without_replacement
+from ..ops.sampling import (
+    gumbel_from_uniform,
+    scatter_rays_to_image,
+    uniform_sample_with_replacement,
+    weighted_sample_without_replacement,
+)
 from ..ops.structures import EvaluationMode, RendererOutput, RenderSamplingMode
 from ..utils import resolve_device
 from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS
@@ -41,7 +52,7 @@ class Draw(NamedTuple):
 
     key: str
     shape: Tuple[int, ...]
-    kind: str  # "uniform", "normal", "pixels" (randint below ``high``), "pixels_without_replacement"
+    kind: str  # "uniform", "normal", "gumbel", "pixels" (randint below ``high``), "pixels_without_replacement"
     listed: bool = False
     high: int = 0
     approx: bool = False
@@ -64,6 +75,8 @@ def make_draws(
             value = torch.rand(spec.shape, generator=generator, device=device, out=target)
         elif spec.kind == "normal":
             value = torch.randn(spec.shape, generator=generator, device=device, out=target)
+        elif spec.kind == "gumbel":
+            value = gumbel_from_uniform(torch.rand(spec.shape, generator=generator, device=device))
         elif spec.kind == "pixels":
             value = uniform_sample_with_replacement(spec.shape[0], spec.high, spec.shape[1], generator, device)
         else:
@@ -142,6 +155,7 @@ class NeRFPipeline(nn.Module):
         max_depth=None,
         mask_crop: Optional[torch.Tensor] = None,
         sampling_prob_mask: Optional[torch.Tensor] = None,
+        n_rays_per_image: Union[None, int, List[int]] = None,
         bg_image_rgb: Optional[torch.Tensor] = None,
         image_rgb: Optional[torch.Tensor] = None,
         depth_map: Optional[torch.Tensor] = None,
@@ -159,21 +173,27 @@ class NeRFPipeline(nn.Module):
         refinement (per proposal pass, or per coarse -> fine step), and
         ``density_noise``, the ``(B, n_rays, 1, P_k)`` standard normal draws
         of the density noise of each compositing pass (the multipass
-        renderer's passes; the proposal renderer's main pass). Without
-        ``draws`` a TRAINING call makes them from ``generator``
-        (``make_draws``); EVALUATION draws from ``generator`` where it draws.
+        renderer's passes; the proposal renderer's main pass). With a mask
+        the pixels come from ``pixel_u`` / ``pixel_gumbel`` in place of
+        ``pixel_idx`` (``training_draws(masked=True)``). Without ``draws`` a
+        TRAINING call makes them from ``generator`` (``make_draws``);
+        EVALUATION draws from ``generator`` where it draws.
         """
         training = evaluation_mode == EvaluationMode.TRAINING
         sampling_mode = self.sampling_mode_training if training else self.sampling_mode_evaluation
-        if (mask_crop is not None and sampling_mode == RenderSamplingMode.MASK_SAMPLE) or (
-            sampling_prob_mask is not None and training
-        ):
-            raise NotImplementedError("sampling masks (mask_crop, sampling_prob_mask) are not ported yet")
+        mask = mask_crop if (mask_crop is not None and sampling_mode == RenderSamplingMode.MASK_SAMPLE) else None
+        sampling_prob_mask = sampling_prob_mask if training else None
+        n_rays_per_image = n_rays_per_image if training else None
+        masked = mask is not None or sampling_prob_mask is not None
         if training:
             if draws is None:
                 if generator is None:
                     raise ValueError("a TRAINING call takes its draws, or a generator to make them from")
-                draws = make_draws(self.training_draws(poses.shape[0]), generator, poses.device)
+                specs = self.training_draws(poses.shape[0], n_rays_per_image=n_rays_per_image, masked=masked)
+                draws = make_draws(specs, generator, poses.device)
+            if masked and "pixel_idx" in draws:
+                raise ValueError("a masked TRAINING call draws its pixels by the mask: its draws carry pixel_u / "
+                                 "pixel_gumbel (training_draws(masked=True)), not pixel_idx")
             generator = None  # every draw of a TRAINING call is one of training_draws
         draws = draws or {}
         rasterize_mc = self.output_rasterized_mc if output_rasterized_mc is None else output_rasterized_mc
@@ -189,6 +209,11 @@ class NeRFPipeline(nn.Module):
             generator=generator,
             pixel_idx=draws.get("pixel_idx"),
             strata_u=draws.get("strata_u"),
+            mask=mask,
+            sampling_prob_mask=sampling_prob_mask,
+            n_rays_per_image=n_rays_per_image,
+            pixel_u=draws.get("pixel_u"),
+            pixel_gumbel=draws.get("pixel_gumbel"),
         )
         xys = ray_bundle.xys
         bg_color = sample_grid(bg_image_rgb, xys) if bg_image_rgb is not None else None
@@ -224,20 +249,43 @@ class NeRFPipeline(nn.Module):
             preds["objective"] = objective
         return preds
 
-    def training_draws(self, batch_size: int) -> List[Draw]:
+    def masked_training(self, batch: Dict[str, Any]) -> bool:
+        """Whether a TRAINING call of ``batch`` draws its pixels by a mask (``training_draws(masked=True)``)."""
+        return batch.get("sampling_prob_mask") is not None or (
+            batch.get("mask_crop") is not None and self.sampling_mode_training == RenderSamplingMode.MASK_SAMPLE
+        )
+
+    def training_draws(
+        self, batch_size: int, n_rays_per_image: Union[None, int, List[int]] = None, masked: bool = False
+    ) -> List[Draw]:
         """What one TRAINING call of ``batch_size`` images draws, in the order it draws it from a generator.
 
         The ray sampler's pixels and depth jitter, then the renderer's
         (``training_draw_shapes``). Images are the ray sampler's size.
+        ``n_rays_per_image`` is the call's ray count (a list: one per layer
+        of a multi-layer probability mask). Without a mask the pixels are
+        drawn as indices (``pixel_idx``); with one (``masked``) as the raw
+        draws the sampler turns into indices by the mask, per layer:
+        ``pixel_u`` ``(B, n)`` uniforms (with replacement) or
+        ``pixel_gumbel`` ``(B, H * W)`` Gumbel draws (without).
         """
         sampler = self.ray_sampler.sampler(EvaluationMode.TRAINING)
-        if sampler.n_rays_per_image is None:
+        n_rays = n_rays_per_image if n_rays_per_image is not None else sampler.n_rays_per_image
+        if n_rays is None:
             raise NotImplementedError("draws are made ahead for Monte-Carlo (mask_sample) training only")
-        n_rays, n_pixels = sampler.n_rays_per_image, self.render_image_height * self.render_image_width
-        lead = (batch_size, n_rays, 1)
+        counts = [int(n_rays)] if isinstance(n_rays, int) else [int(n) for n in n_rays]
+        n_pixels = self.render_image_height * self.render_image_width
+        lead = (batch_size, sum(counts), 1)
         replacement = sampler.pixel_replacement
-        specs = [Draw("pixel_idx", (batch_size, n_rays), "pixels" if replacement else "pixels_without_replacement",
-                      high=n_pixels, approx=sampler.approx_top_k)]
+        if masked:
+            specs = [Draw("pixel_u", (batch_size, n), "uniform", listed=True) if replacement
+                     else Draw("pixel_gumbel", (batch_size, n_pixels), "gumbel", listed=True) for n in counts]
+        else:
+            if not isinstance(n_rays, int):
+                raise ValueError(f"n_rays_per_image={n_rays!r} is a list, which requires a (B, L, H, W) multi-layer "
+                                 "sampling_prob_mask (one ray budget per probability layer)")
+            specs = [Draw("pixel_idx", (batch_size, counts[0]), "pixels" if replacement
+                          else "pixels_without_replacement", high=n_pixels, approx=sampler.approx_top_k)]
         if sampler.stratified_sampling:
             specs.append(Draw("strata_u", (*lead, sampler.n_pts_per_ray), "uniform"))
         for key, n in self.renderer.training_draw_shapes(sampler.n_pts_per_ray, len(self.implicit_functions)):

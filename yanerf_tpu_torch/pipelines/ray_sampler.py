@@ -1,11 +1,19 @@
 """Camera -> RayBundle sampling stage.
 
 Counterpart of ``yanerf_tpu/pipelines/ray_sampler.py``: the full-grid
-EVALUATION half (every pixel) and the Monte-Carlo TRAINING half without a
-mask, stratified depth jitter and uniform pixel indices, drawn with
-replacement (``pixel_replacement``) or without (the Gumbel top-k over one
-weight of 1 per pixel, the exact ``topk``). The pixel indices and the
-jitter draws are optional inputs (``pixel_idx``, ``strata_u``), else
+EVALUATION half (every pixel) and the Monte-Carlo TRAINING half,
+stratified depth jitter and pixel indices drawn with replacement
+(``pixel_replacement``: a bare ``randint``, or the inverse CDF of the
+weights when there is a mask) or without (the Gumbel top-k over the
+weights, the exact ``topk``). The weights are 1 per pixel, times a
+``mask`` (the pipeline's ``mask_crop``, ``(B, 1, H0, W0)``, resized to the
+sampling grid by nearest neighbour as ``jax.image.resize`` does), times a
+``sampling_prob_mask`` ``(B, H, W)``; a ``(B, L, H, W)`` probability mask
+draws one ray budget per layer (``n_rays_per_image`` a list of L counts)
+and concatenates them. The pixel indices (``pixel_idx``), or with a mask
+the raw pixel draws (``pixel_u``: per layer the ``(B, n)`` uniforms of the
+inverse CDF; ``pixel_gumbel``: per layer the ``(B, H * W)`` Gumbel draws of
+the top-k), and the jitter draws (``strata_u``) are optional inputs, else
 drawn from ``generator``. The depth range is the call's bounds (a batch's
 per-image ``min_depth`` / ``max_depth``), else the constructor's, else,
 with ``scene_extent > 0``, the cameras' distance to ``scene_center`` +-
@@ -21,8 +29,7 @@ the exact march (``occupancy_coarse_factor`` and ``occupancy_block`` both
 on a decimated image (``ops/occupancy.py::OccupancyBoundsSpec``). The grids
 reach a device once, at the first call there, and are reused (also by a
 captured step). ``approx_top_k`` takes the exact top-k
-(``ops/sampling.py``); masks and sampling-probability masks raise
-``NotImplementedError``.
+(``ops/sampling.py``).
 
 As in the reference, the principal point comes from the constructor's
 ``image_width/height`` even when a call overrides the grid size.
@@ -30,7 +37,7 @@ As in the reference, the principal point comes from the constructor's
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,9 +45,77 @@ import torch
 from ..ops.occupancy import OccupancyBoundsSpec, coarsen_occupancy, load_occupancy, occupancy_on_device
 from ..ops.rays import get_min_max_depth_bounds, get_xy_grid, ndc_ray_bundle, xy_to_ray_bundle
 from ..utils import device_constant
-from ..ops.sampling import uniform_sample_with_replacement, weighted_sample_without_replacement
+from ..ops.sampling import (
+    uniform_sample_with_replacement,
+    weighted_sample_with_replacement,
+    weighted_sample_without_replacement,
+)
 from ..ops.structures import EvaluationMode, RayBundle, RenderSamplingMode
 from .builder import RAY_SAMPLERS
+
+
+def resize_nearest(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Nearest-neighbour resize of the last two dims, ``jax.image.resize(method="nearest")``'s indices:
+    ``floor((i + 0.5) * in / out)`` in float32."""
+    for dim, n in ((-2, height), (-1, width)):
+        m = image.shape[dim]
+        if m != n:
+            idx = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * m / n).to(torch.int64)
+            image = image.index_select(dim, idx.to(image.device))
+    return image
+
+
+def pixel_weights(
+    batch_size: int,
+    image_height: int,
+    image_width: int,
+    num_rays: Union[int, List[int]],
+    mask: Optional[torch.Tensor] = None,
+    sampling_prob_mask: Optional[torch.Tensor] = None,
+    device: Union[str, torch.device] = "cpu",
+) -> Tuple[Optional[torch.Tensor], Union[int, List[int]]]:
+    """The pixel weights of a Monte-Carlo draw and its ray count(s), checked as the JAX ray sampler checks them.
+
+    ``None`` without a mask (uniform pixels); ``(B, H * W)`` for a mask and
+    a ``(B, H, W)`` probability mask; ``(B, L, H * W)`` for a ``(B, L, H,
+    W)`` probability mask, with ``num_rays`` as a list of L counts.
+    """
+    grid_shape = (batch_size, image_height, image_width)
+    weights = None
+    if mask is not None:
+        assert tuple(mask.shape) == grid_shape, f"{tuple(mask.shape)} vs {grid_shape}"
+        weights = mask.reshape(batch_size, -1)
+    if sampling_prob_mask is not None:
+        if weights is None:
+            weights = torch.ones((batch_size, image_height * image_width), dtype=torch.float32, device=device)
+        if tuple(sampling_prob_mask.shape) == grid_shape:
+            weights = weights * sampling_prob_mask.reshape(batch_size, -1)
+        elif sampling_prob_mask.ndim == 4:
+            if isinstance(num_rays, (int, np.integer)):
+                num_rays = [num_rays]
+            if tuple(sampling_prob_mask[:, 0].shape) != grid_shape:
+                raise ValueError(
+                    f"Invalid sampling_prob_mask shape {tuple(sampling_prob_mask.shape)}; must align with "
+                    f"{(*grid_shape, 2)}"
+                )
+            if sampling_prob_mask.shape[1] != len(num_rays):
+                raise ValueError(
+                    f"sampling_prob_mask has {sampling_prob_mask.shape[1]} layers but len(n_rays_per_image) == "
+                    f"{len(num_rays)}"
+                )
+            weights = weights[:, None, :] * sampling_prob_mask.reshape(batch_size, len(num_rays), -1)
+        else:
+            raise ValueError(
+                f"Invalid sampling_prob_mask of shape {tuple(sampling_prob_mask.shape)}; want (B, H, W) or (B, L, H, W)"
+            )
+    if weights is not None and weights.ndim == 3:
+        return weights, [int(n) for n in num_rays]
+    if not isinstance(num_rays, (int, np.integer)):
+        raise ValueError(
+            f"n_rays_per_image={num_rays!r} is a list, which requires a (B, L, H, W) multi-layer "
+            "sampling_prob_mask (one ray budget per probability layer); pass an int for single-layer sampling"
+        )
+    return weights, int(num_rays)
 
 
 class _RaySampler:
@@ -88,6 +163,38 @@ class _RaySampler:
             self._occupancy_on[device] = occupancy_on_device(self.occupancy, device)
         return self._occupancy_on[device]
 
+    def _draw_pixels(
+        self,
+        batch_size: int,
+        n_pixels: int,
+        weights: Optional[torch.Tensor],
+        num_rays: Union[int, List[int]],
+        generator: Optional[torch.Generator],
+        pixel_u: Optional[Sequence[torch.Tensor]],
+        pixel_gumbel: Optional[Sequence[torch.Tensor]],
+        device: torch.device,
+    ) -> torch.Tensor:
+        """``(B, sum of the ray counts)`` pixel indices, layer after layer, as the JAX ``select`` draws them."""
+        if weights is None:  # no mask: one weight of 1 per pixel
+            if self.pixel_replacement:
+                return uniform_sample_with_replacement(batch_size, n_pixels, num_rays, generator, device)
+            weights = torch.ones((batch_size, n_pixels), dtype=torch.float32, device=device)
+            gumbel = None if pixel_gumbel is None else pixel_gumbel[0]
+            return weighted_sample_without_replacement(weights, num_rays, generator, gumbel=gumbel,
+                                                       approx=self.approx_top_k)
+        layers = [weights] if weights.ndim == 2 else list(weights.unbind(1))
+        counts = [num_rays] if isinstance(num_rays, int) else list(num_rays)
+        picks = []
+        for i, (w, n) in enumerate(zip(layers, counts)):
+            if self.pixel_replacement:
+                u = None if pixel_u is None else pixel_u[i]
+                picks.append(weighted_sample_with_replacement(w, int(n), generator, u=u))
+            else:
+                gumbel = None if pixel_gumbel is None else pixel_gumbel[i]
+                picks.append(weighted_sample_without_replacement(w, int(n), generator, gumbel=gumbel,
+                                                                 approx=self.approx_top_k))
+        return torch.cat(picks, dim=-1)
+
     def __call__(
         self,
         poses: torch.Tensor,
@@ -100,6 +207,11 @@ class _RaySampler:
         generator: Optional[torch.Generator] = None,
         pixel_idx: Optional[torch.Tensor] = None,
         strata_u: Optional[torch.Tensor] = None,
+        mask: Optional[torch.Tensor] = None,
+        sampling_prob_mask: Optional[torch.Tensor] = None,
+        n_rays_per_image: Union[None, int, List[int]] = None,
+        pixel_u: Optional[Sequence[torch.Tensor]] = None,
+        pixel_gumbel: Optional[Sequence[torch.Tensor]] = None,
     ) -> RayBundle:
         batch_size = poses.shape[0]
         if image_height is None or image_width is None:
@@ -107,16 +219,19 @@ class _RaySampler:
         xy_grid = get_xy_grid(image_height, image_width, device=poses.device).expand(
             batch_size, image_height, image_width, 2
         )
-        if self.n_rays_per_image is not None:
-            n_pixels = image_height * image_width
-            if pixel_idx is None and self.pixel_replacement:
-                pixel_idx = uniform_sample_with_replacement(
-                    batch_size, n_pixels, self.n_rays_per_image, generator, poses.device
-                )
-            elif pixel_idx is None:
-                weights = torch.ones((batch_size, n_pixels), dtype=torch.float32, device=poses.device)
-                pixel_idx = weighted_sample_without_replacement(
-                    weights, self.n_rays_per_image, generator, approx=self.approx_top_k
+        num_rays = n_rays_per_image if n_rays_per_image is not None else self.n_rays_per_image
+        if mask is not None and num_rays is None:
+            raise ValueError(
+                "A sampling mask requires a static ray count: set `n_rays_per_image` (per call or in the config)."
+            )
+        if num_rays is not None:
+            weights, num_rays = pixel_weights(
+                batch_size, image_height, image_width, num_rays, mask, sampling_prob_mask, poses.device
+            )
+            if pixel_idx is None:
+                pixel_idx = self._draw_pixels(
+                    batch_size, image_height * image_width, weights, num_rays, generator, pixel_u, pixel_gumbel,
+                    poses.device,
                 )
             xy_flat = xy_grid.reshape(batch_size, -1, 2)
             xy_grid = torch.gather(xy_flat, 1, pixel_idx.to(torch.int64)[..., None].expand(-1, -1, 2))[:, :, None]
@@ -253,8 +368,18 @@ class RaySampler:
         generator: Optional[torch.Generator] = None,
         pixel_idx: Optional[torch.Tensor] = None,
         strata_u: Optional[torch.Tensor] = None,
+        mask: Optional[torch.Tensor] = None,
+        sampling_prob_mask: Optional[torch.Tensor] = None,
+        n_rays_per_image: Union[None, int, List[int]] = None,
+        pixel_u: Optional[Sequence[torch.Tensor]] = None,
+        pixel_gumbel: Optional[Sequence[torch.Tensor]] = None,
     ) -> RayBundle:
-        """Rays of ``evaluation_mode``; ``pixel_idx`` ``(B, n_rays)`` and ``strata_u`` replace the draws."""
+        """Rays of ``evaluation_mode``; ``pixel_idx`` ``(B, n_rays)`` (or with a mask ``pixel_u`` /
+        ``pixel_gumbel``) and ``strata_u`` replace the draws."""
+        if self._sampling_mode[evaluation_mode] == RenderSamplingMode.MASK_SAMPLE and mask is not None:
+            mask = resize_nearest(mask, image_height or self.image_height, image_width or self.image_width)[:, 0]
+        else:
+            mask = None
         if self.use_ndc:
             # the NDC parameter spans [0, 1] from the near plane to infinity; metric bounds do not apply
             min_depth, max_depth = 0.0, 1.0
@@ -272,6 +397,11 @@ class RaySampler:
             generator=generator,
             pixel_idx=pixel_idx,
             strata_u=strata_u,
+            mask=mask,
+            sampling_prob_mask=sampling_prob_mask,
+            n_rays_per_image=n_rays_per_image,
+            pixel_u=pixel_u,
+            pixel_gumbel=pixel_gumbel,
         )
         if self.use_ndc:
             bundle = ndc_ray_bundle(bundle, self.image_width, self.image_height, focal_lengths, near=self.ndc_near)

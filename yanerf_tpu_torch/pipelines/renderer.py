@@ -14,7 +14,10 @@ The resampled depths are detached where the JAX package has
 ``stop_gradient``. The random draws are optional inputs, else drawn from
 ``generator``: ``pdf_u``, the u's of each refinement's ``sample_pdf``, and
 ``density_noise``, the training density noise of each compositing pass.
-The eval-compositing dtype experiment is not ported.
+``eval_compositing_dtype`` (both renderers) casts the densities and
+features entering each compositing to that dtype in EVALUATION only, and
+the composited outputs back to float32, as the JAX package's
+``_compositing_cast`` does; TRAINING is unchanged.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..models.nerf_mlp import as_torch_dtype
 from ..ops.proposal import distortion_loss, interlevel_loss
 from ..ops.raymarch import emission_absorption, emission_absorption_weights
 from ..ops.sample_pdf import sample_pdf
@@ -66,6 +70,19 @@ def refine_ray_points(
     return RayBundle(origins=origins, directions=directions, lengths=z_vals, xys=xys)
 
 
+def _compositing_cast(
+    eval_compositing_dtype: Optional[torch.dtype], evaluation_mode: EvaluationMode, model_out: Dict[str, Any]
+) -> Dict[str, Any]:
+    """``model_out`` with its densities and features in ``eval_compositing_dtype``, at evaluation only."""
+    if eval_compositing_dtype is None or evaluation_mode == EvaluationMode.TRAINING:
+        return model_out
+    out = dict(model_out)
+    out["rays_densities"] = model_out["rays_densities"].to(eval_compositing_dtype)
+    if "rays_features" in out:
+        out["rays_features"] = model_out["rays_features"].to(eval_compositing_dtype)
+    return out
+
+
 @RENDERERS.register_module()
 class MultipassEmissionAbsorpsionRenderer:
     """Coarse -> fine rendering (NeRF's hierarchical sampling) over ``implicit_functions``, one per pass."""
@@ -91,9 +108,8 @@ class MultipassEmissionAbsorpsionRenderer:
         surface_thickness: int = 1,
         eval_compositing_dtype: str = None,
     ) -> None:
-        if eval_compositing_dtype is not None:
-            raise NotImplementedError("eval_compositing_dtype is not ported yet")
         self.density_noise_std_train = density_noise_std_train
+        self.eval_compositing_dtype = as_torch_dtype(eval_compositing_dtype) if eval_compositing_dtype else None
         self.append_coarse_samples_to_fine = append_coarse_samples_to_fine
         self._refiner_cfg = {
             EvaluationMode.TRAINING: (n_pts_per_ray_fine_training, stratified_sampling_coarse_training),
@@ -167,9 +183,10 @@ class MultipassEmissionAbsorpsionRenderer:
                     u=None if pdf_u is None else pdf_u[k - 1],
                 ).lengths
             model_out = implicit_function(origins, directions, lengths, **kwargs)
+            cast_out = _compositing_cast(self.eval_compositing_dtype, evaluation_mode, model_out)
             features, depths, alpha_masks, weights = emission_absorption(
-                model_out["rays_densities"],
-                model_out["rays_features"],
+                cast_out["rays_densities"],
+                cast_out["rays_features"],
                 ray_lengths=lengths,
                 ray_directions=directions,
                 density_noise_std=density_noise_std,
@@ -178,6 +195,10 @@ class MultipassEmissionAbsorpsionRenderer:
                 bg_color=bg_color,
                 **self.raymarcher_kwargs,
             )
+            if self.eval_compositing_dtype is not None:
+                features, depths, alpha_masks, weights = (
+                    x.to(torch.float32) for x in (features, depths, alpha_masks, weights)
+                )
             aux = dict(model_out.get("aux", {}))
             aux["weights"] = weights
             output = RendererOutput(
@@ -214,9 +235,8 @@ class ProposalEmissionAbsorpsionRenderer:
         distortion_in_disparity: bool = False,
         eval_compositing_dtype: str = None,
     ) -> None:
-        if eval_compositing_dtype is not None:
-            raise NotImplementedError("eval_compositing_dtype is not ported yet")
         self.density_noise_std_train = density_noise_std_train
+        self.eval_compositing_dtype = as_torch_dtype(eval_compositing_dtype) if eval_compositing_dtype else None
         self.distortion_in_disparity = distortion_in_disparity
         self._final_cfg = {
             EvaluationMode.TRAINING: (n_pts_per_ray_final_training, stratified_sampling_training),
@@ -290,6 +310,7 @@ class ProposalEmissionAbsorpsionRenderer:
         histograms = []
         for k in range(n_props):
             prop_out = implicit_functions[k](origins, directions, lengths, **kwargs)
+            prop_out = _compositing_cast(self.eval_compositing_dtype, evaluation_mode, prop_out)
             prop_weights, _ = emission_absorption_weights(
                 prop_out["rays_densities"], lengths, directions, **self.weights_kwargs
             )
@@ -312,9 +333,10 @@ class ProposalEmissionAbsorpsionRenderer:
 
         density_noise_std = self.density_noise_std_train if evaluation_mode == EvaluationMode.TRAINING else 0.0
         model_out = implicit_functions[-1](origins, directions, lengths, **kwargs)
+        cast_out = _compositing_cast(self.eval_compositing_dtype, evaluation_mode, model_out)
         features, depths, alpha_masks, weights = emission_absorption(
-            model_out["rays_densities"],
-            model_out["rays_features"],
+            cast_out["rays_densities"],
+            cast_out["rays_features"],
             ray_lengths=lengths,
             ray_directions=directions,
             density_noise_std=density_noise_std,
@@ -323,6 +345,10 @@ class ProposalEmissionAbsorpsionRenderer:
             bg_color=bg_color,
             **self.raymarcher_kwargs,
         )
+        if self.eval_compositing_dtype is not None:
+            features, depths, alpha_masks, weights = (
+                x.to(torch.float32) for x in (features, depths, alpha_masks, weights)
+            )
 
         loss = None
         for prop_lengths, prop_weights in histograms:

@@ -27,7 +27,10 @@ resumes from a checkpoint of this runner, or takes the weights of a
 reference-layout ``.pth`` (``import_torch_checkpoint``) with a fresh
 optimizer at epoch 0. ``--debug`` (``runner.debug``) logs at DEBUG and
 cuts the run to one iteration over ``batch_size + 1`` items of each split
-(``setup_debug_env``). Distributed training is not ported yet.
+(``setup_debug_env``). The last line of ``run.log`` gives the kernels'
+launches in the process (``kernel launches: {...}``), so that a run
+started by another program reports its kernel use. Distributed training
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .ops.kernels import launch_count
 from .utils import resolve_device
 from .utils.config import Config, DictAction
 
@@ -129,6 +133,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ``"train_step_fused"`` (the fused trainer, or None); a preempted run
     returns ``"preempted"`` (its emergency checkpoint) and skips the test.
     """
+    try:
+        return _main(argv)
+    finally:
+        logging.getLogger("yanerf_tpu_torch").info(f"kernel launches: {json.dumps(launch_count.totals())}")
+
+
+def _main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
     config = Config.fromfile(args.config)
     if args.cfg_options is not None:

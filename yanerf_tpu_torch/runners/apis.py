@@ -81,10 +81,15 @@ def step_generator(device: torch.device, seed: int, step: int) -> torch.Generato
     return torch.Generator(device=device).manual_seed((int(seed) << 32) + int(step))
 
 
-def make_step_draws(pipeline, batch_size: int, seed: int, step: int, out: Optional[Dict[str, Any]] = None):
-    """The random draws of train step ``step`` (``pipeline.training_draws``), into ``out`` if given."""
+def make_step_draws(
+    pipeline, batch_size: int, seed: int, step: int, out: Optional[Dict[str, Any]] = None, masked: bool = False,
+    n_rays_per_image=None,
+):
+    """The random draws of train step ``step`` (``pipeline.training_draws``), into ``out`` if given; ``masked``
+    for a batch whose pixels are drawn by a mask (``pipeline.masked_training``), with its ray count(s)."""
     device = pipeline.device
-    return make_draws(pipeline.training_draws(batch_size), step_generator(device, seed, step), device, out)
+    specs = pipeline.training_draws(batch_size, n_rays_per_image=n_rays_per_image, masked=masked)
+    return make_draws(specs, step_generator(device, seed, step), device, out)
 
 
 def loss_keys(preds: Dict[str, Any]) -> List[str]:
@@ -119,7 +124,9 @@ def make_train_step(pipeline, runner_config, seed: int, rasterize_mc: bool = Fal
 
     def step(state: TrainState, batch: Dict[str, Any], draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         if draws is None:
-            draws = make_step_draws(pipeline, batch["poses"].shape[0], seed, state.step)
+            draws = make_step_draws(pipeline, batch["poses"].shape[0], seed, state.step,
+                                    masked=pipeline.masked_training(batch),
+                                    n_rays_per_image=batch.get("n_rays_per_image"))
         set_learning_rates(runner_config, state.optimizer, state.step)
         preds = update(pipeline, state.optimizer, batch, draws, rasterize_mc)
         state.step += 1
@@ -191,7 +198,7 @@ class FusedTrainStep:
         self._lr = torch.zeros((k, len(state.optimizer.param_groups)), dtype=torch.float32, device=device)
         self._draws: Dict[str, Any] = {}
         for spec in self.pipeline.training_draws(batch_size):
-            dtype = torch.float32 if spec.kind in ("uniform", "normal") else torch.int64
+            dtype = torch.float32 if spec.kind in ("uniform", "normal", "gumbel") else torch.int64
             buf = torch.zeros((k, *spec.shape), dtype=dtype, device=device)
             if spec.listed:
                 self._draws.setdefault(spec.key, []).append(buf)
@@ -203,6 +210,9 @@ class FusedTrainStep:
         """One train step, all of its inputs read from the static buffers at the device counter."""
         row = self._row
         batch = _gather_batch(self._arrays, self.data_wrapper, self._idx.index_select(0, row)[0])
+        if self.pipeline.masked_training(batch):
+            raise NotImplementedError("the fused dispatch makes each step's pixel draws ahead, without a mask: a "
+                                      "batch with mask_crop / sampling_prob_mask trains per step")
         draws = {
             key: [t.index_select(0, row)[0] for t in buf] if isinstance(buf, list) else buf.index_select(0, row)[0]
             for key, buf in self._draws.items()

@@ -6,9 +6,12 @@ scanlines, a GIF is LZW over a fixed 3-3-2 palette. ``decode_png`` reads
 the five scanline filters (not interlaced), and returns RGB with the alpha
 dropped and grey repeated, as ``yanerf_tpu``'s loader does
 (``native/src/image_io.cpp``: no compositing; 16-bit keeps the high byte).
-``png_shape`` reads the size from the header alone; a JPEG raises
-``NotImplementedError`` (no decoder yet). ``resize_area`` is OpenCV's
-``INTER_AREA`` downscale, byte for byte; ``resize_linear`` its
+JPEGs go through the port's own decoder (``yanerf_tpu_torch/native``);
+``load_image_u8`` / ``load_image`` read either format, told apart by the
+file's first bytes. ``image_shape`` reads the size from the PNG header or
+the JPEG frame header alone, optionally turned by the JPEG's EXIF
+orientation as ``cv2.imread(path)`` returns it. ``resize_area`` is
+OpenCV's ``INTER_AREA`` downscale, byte for byte; ``resize_linear`` its
 ``INTER_LINEAR`` resize of float32 images.
 """
 
@@ -119,32 +122,43 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
-def _read_png(path: Union[str, Path], n_bytes: int = -1) -> bytes:
-    """The first ``n_bytes`` (all with -1) of a PNG file; a JPEG raises ``NotImplementedError`` naming it."""
+def png_header_shape(path: Union[str, Path]) -> Tuple[int, int, int]:
+    """``(H, W, 3)`` of a PNG file, from its IHDR chunk."""
     with open(path, "rb") as fp:
-        data = fp.read(n_bytes) if n_bytes >= 0 else fp.read()
-    if data[:3] == b"\xff\xd8\xff" or Path(path).suffix.lower() in (".jpg", ".jpeg"):
-        raise NotImplementedError(f"{path}: JPEG images are not decoded yet (the port reads PNG only)")
-    return data
-
-
-def png_shape(path: Union[str, Path]) -> Tuple[int, int, int]:
-    """``(H, W, 3)`` of a PNG file, from its header (the shape ``load_image`` returns)."""
-    data = _read_png(path, 24)
+        data = fp.read(24)
     if data[:8] != _PNG_SIGNATURE or data[12:16] != b"IHDR":
         raise ValueError(f"{path}: not a PNG file")
     w, h = struct.unpack(">II", data[16:24])
     return h, w, 3
 
 
+def image_shape(path: Union[str, Path], exif_orientation: bool = False) -> Tuple[int, int, int]:
+    """``(H, W, 3)`` of a PNG or JPEG file from its header: the shape ``load_image`` returns.
+
+    With ``exif_orientation`` a JPEG whose EXIF orientation is 5-8 (a
+    quarter turn) gives ``(W, H, 3)``, the shape ``cv2.imread(path)``
+    (``IMREAD_COLOR``, which applies the tag) returns.
+    """
+    from .. import native
+
+    if native.image_format(path) == "png":
+        return png_header_shape(path)
+    h, w, _, orientation = native.jpeg_info(path)
+    if exif_orientation and orientation >= 5:
+        h, w = w, h
+    return h, w, 3
+
+
 def load_image_u8(path: Union[str, Path]) -> np.ndarray:
-    """A PNG file as uint8 RGB, ``(H, W, 3)``."""
-    return decode_png(_read_png(path))
+    """A PNG or JPEG file as uint8 RGB, ``(H, W, 3)`` (no EXIF rotation, as ``cv2.IMREAD_UNCHANGED``)."""
+    from .. import native
+
+    return native.decode_image_u8(path)
 
 
 def load_image(path: Union[str, Path]) -> np.ndarray:
-    """A PNG file as float32 RGB in [0, 1], ``(H, W, 3)``."""
-    return load_image_u8(path).astype(np.float32) / 255.0
+    """A PNG or JPEG file as float32 RGB in [0, 1], ``(H, W, 3)``."""
+    return load_image_u8(path).astype(np.float32) / np.float32(255.0)
 
 
 def _area_taps(ssize: int, dsize: int) -> Tuple[np.ndarray, np.ndarray]:
