@@ -26,7 +26,8 @@ program, ``--debug``, configs/nerf/lego_tpu.yml (the classic pair at
 16,384 rays with ``approx_top_k``) and the async checkpoint saves; then
 real phone captures from JPEGs, configs/nerf/fern.yml and real_360.yml
 on the committed capture ``tests/data/llff_jpeg``, sampling masks on the
-flagship, and the parity runbook's smoke. Phases,
+flagship, and the parity runbook's smoke; then the kernel arms' training
+trajectories and the fused CLI in a one-rank process group. Phases,
 each printing its numbers on a line of its own with the card's name and
 power limit:
   1. build   compile every kernel of the serving and training paths from
@@ -137,16 +138,17 @@ power limit:
              ``.pth`` (``export_torch_checkpoint``) and served from it by a
              service of another seed: the 800x800 frame bit for bit the
              directly loaded one, K1 626 times;
- 14. export  lego_proposal.yml at ``chunk_size_grid=4194304`` (10 chunks;
-             the program unrolls the chunk loop, and tracing 40 chunks
-             takes two minutes):
-             the serve frame, then ``export.build_render_fn`` of the same
-             seed traced by ``torch.export`` (seconds, graph nodes, one
-             operator node per chunk, no parameter among the inputs) and
-             saved (MB); a fresh ``python3`` loads the ``.pt2``
-             (``load_artifact``) and renders the camera twice: the frame
-             within 1e-6 of the serve frame (bitwise printed), its K1
-             launches and seconds;
+ 14. export  lego_proposal.yml at its shipped ``chunk_size_grid`` (313
+             chunks): the serve frame, then ``export.build_render_fn`` of
+             the same seed traced by ``torch.export`` (``export.trace``:
+             the chunk loop kept as one map node; seconds, graph nodes with
+             the loop body's, one operator node, no parameter among the
+             inputs; the nodes equal to the same trace at 10 chunks; under
+             60 s), its direct frame (seconds, K1 launches, equal to the
+             serve frame) and saved (MB, under 20); a fresh ``python3``
+             loads the ``.pt2`` (``load_artifact``, seconds) and renders
+             the camera twice: the frame within 1e-6 of the serve frame
+             (bitwise printed), its K1 launches and seconds;
  15. debug   ``run --debug`` on a 2 / 2 / 2-view 800x800 scene: two steps,
              val, test, ``ckpts_-001`` and ``ckpts_0000``;
  16. lego_tpu  lego_tpu.yml as it ships (16,384 rays, ``approx_top_k``,
@@ -177,13 +179,27 @@ power limit:
              step against the eager model's at the tolerances of "step";
  21. parity smoke  ``python -m yanerf_tpu_torch.repro_parity --smoke
              --device cuda``: every stage ok, the time-to-quality stage at
-             its target, the kernels' launches read from its runs' logs.
+             its target, the kernels' launches read from its runs' logs;
+ 22. trajectory  ``yanerf_tpu_torch.trajectory`` on the 40-frame scene:
+             the flagship trained 1,000 steps on the fused dispatch along
+             the eager model, K1 + K3, K1 alone (the eager backward), K3
+             alone (the eager forward) and the eager model one float32 ulp
+             off, from one init and one draw stream; for every NeRF-MLP
+             tensor the step-0 gradient's cosine, relative error and sign
+             agreement against the eager arm, its error against the
+             float32 gradient, and the weights' distance from the eager
+             arm at 10, 100 and 1,000 steps; K1 and K3 on their arms only;
+ 23. distributed  the fused flagship CLI (40 steps at 20 per dispatch) in a
+             process group of one rank on this card (NCCL, a free local
+             port): the runner's one-rank mesh, the gradient all-reduce
+             captured in the CUDA graph, the evals' gather; weights, Adam's
+             moments and test stats bit for bit the run without a group.
 
 Any failure exits non-zero, and so does a run in which K1 or K3 did not
 launch on an LLFF training path or K1 on an LLFF frame, K1 or K3 on the
 multi-scene control's training, K1 on a tool or the occupancy frame, or
 either of them on the latent path, or K1 on a path of phases 13-21 (K3
-on their training paths). Imports nothing of JAX or of
+on their training paths), or K1 or K3 on phases 22-23. Imports nothing of JAX or of
 yanerf_tpu. The
 last three lines are the kernels' JSON record, the card's name and power
 limit, and the result:
@@ -267,7 +283,9 @@ LATTICE_CHUNK = 65536  # the tools' --chunk: one K1 launch per chunk of lattice 
 OCCUPANCY_BALL = (128, 1.5, 1.0)  # the constructed grid: 128^3 voxels over [-1.5, 1.5]^3, a ball of radius 1
 LEGO_TPU_CONFIG = REPO / "configs" / "nerf" / "lego_tpu.yml"
 PTH_SEED = 1  # the .pth service's own seed: its weights must come from the file
-EXPORT_CHUNK_SIZE_GRID = 4194304  # 10 chunks of the 800x800 flagship frame: the program unrolls the chunk loop
+EXPORT_CHUNK_SIZE_GRID = 4194304  # 10 chunks of the 800x800 flagship frame: the export's node count at 10 chunks
+EXPORT_MAX_S = 60.0  # the flagship at its shipped 313 chunks: traced in under a minute ...
+EXPORT_MAX_MB = 20.0  # ... to an artifact under 20 MB (the loop kept, not unrolled)
 EXPORT_MAX_ERR = 1e-6  # the restored frame against the serve frame
 ASYNC_EPOCHS = 3  # the async-save runs: three epochs of the 40-frame scene, a checkpoint after each
 FERN_CONFIG = REPO / "configs" / "nerf" / "fern.yml"
@@ -279,6 +297,7 @@ JPEG_STEPS_PER_CALL = 8
 JPEG_TRAIN_STEPS = 40  # four epochs of 10 steps
 JPEG_DECODE_REPEATS = 3  # each decode timing is the fastest of this many passes over the capture
 MASK_LAYERS = 2  # the multi-layer sampling_prob_mask: one ray budget per layer
+TRAJECTORY_STEPS = 1000  # the four arms' weights compared at 10, 100 and 1,000 steps
 
 
 def card() -> str:
@@ -1610,15 +1629,18 @@ def pth_serve_phase(torch, K1, K3, service, card_line: str, tmp: Path, config=No
     return launches
 
 
-def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None) -> dict:
+def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None, small_options=None) -> dict:
     """"export": the config's EVALUATION frame as a ``torch.export`` program, loaded in a fresh process.
 
     The serve frame first (K1 once per chunk), then ``export.build_render_fn``
-    of the same seed, traced (seconds, graph nodes, operator nodes) and
-    saved (MB); a new ``python3`` loads it (``export.load_artifact``) and
-    renders the same camera twice, K1 counted on the second frame. The
-    restored frame must be within 1e-6 of the serve frame. Returns the
-    launches of the serve frame and of the restored one.
+    of the same seed, traced (``export.trace``: seconds, graph nodes with the
+    loop body's, operator nodes), its direct frame timed and counted, and
+    saved (MB); a new ``python3`` loads it (``export.load_artifact``,
+    seconds) and renders the same camera twice, K1 counted on the second
+    frame. The same trace at ``small_options`` (10 chunks) must have the same
+    nodes: the chunk loop is one node whatever the count. The restored frame
+    must be within 1e-6 of the serve frame, the direct one equal to it.
+    Returns the launches of the serve frame and of the restored one.
     """
     import numpy as np
 
@@ -1626,10 +1648,12 @@ def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None
     from yanerf_tpu_torch.serve import service_from_config
 
     config = CONFIG if config is None else config
-    options = {"pipeline.chunk_size_grid": EXPORT_CHUNK_SIZE_GRID} if options is None else options
+    options = {} if options is None else options
+    small_options = {"pipeline.chunk_size_grid": EXPORT_CHUNK_SIZE_GRID} if small_options is None else small_options
     cfg = kernel_config(config, options)
-    chunks = frame_chunks(cfg)
+    chunks, small_chunks = frame_chunks(cfg), frame_chunks(kernel_config(config, small_options))
     service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
+    n_kernel_mlps = sum(int(getattr(fn, "use_pallas", False)) for fn in service._pipeline.implicit_functions)
     pose, focal = orbit_view(service)
     service.render(pose, focal)  # warm-up
     sync(torch)
@@ -1640,24 +1664,35 @@ def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None
     serve_launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches}
     del service
 
-    render, _ = export.build_render_fn(cfg, None, seed=0, device=DEVICE)
     poses = torch.eye(4, dtype=torch.float32)[None].clone()
     poses[0, :3, :4] = torch.from_numpy(pose)
     focals = torch.tensor([[focal]], dtype=torch.float32)
     inputs = (poses.to(DEVICE), focals.to(DEVICE))
+    small_render, _ = export.build_render_fn(kernel_config(config, small_options), None, seed=0, device=DEVICE)
+    small = export.trace(small_render, inputs)
+    small_numbers = dict(chunks=small_chunks, nodes=len(export.graph_nodes(small)), op_nodes=export.op_nodes(small))
+    del small, small_render
+
+    render, _ = export.build_render_fn(cfg, None, seed=0, device=DEVICE)
     t = time.perf_counter()
-    program = torch.export.export(render, inputs)
+    program = export.trace(render, inputs)
     export_s = time.perf_counter() - t
     artifact = tmp / "render.pt2"
     t = time.perf_counter()
     torch.export.save(program, artifact)
     save_s = time.perf_counter() - t
-    numbers = dict(chunks=chunks, export_s=export_s, save_s=save_s, nodes=len(program.graph.nodes),
-                   op_nodes=export.op_nodes(program), mb=artifact.stat().st_size / 1e6,
-                   user_inputs=len(program.graph_signature.user_inputs),
+    numbers = dict(chunks=chunks, export_s=export_s, save_s=save_s, nodes=len(export.graph_nodes(program)),
+                   top_level_nodes=len(program.graph.nodes), op_nodes=export.op_nodes(program),
+                   mb=artifact.stat().st_size / 1e6, user_inputs=len(program.graph_signature.user_inputs),
                    parameters=len(program.graph_signature.parameters))
     with torch.inference_mode():
+        render(*inputs)
+        sync(torch)
+        K1.launches = 0
+        t = time.perf_counter()
         direct = render(*inputs)[0].cpu().numpy()
+        direct_s = time.perf_counter() - t
+        direct_launches = K1.launches
     del program, render
     np.save(tmp / "poses.npy", poses.numpy())
     np.save(tmp / "focals.npy", focals.numpy())
@@ -1672,20 +1707,25 @@ def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None
     restored = np.load(tmp / "restored.npy")[0]
     err = float(np.abs(restored - rgb).max())
     restored_launches = restored_numbers.pop("launches")
+    on_card = DEVICE == "cuda"  # the fresh process counts the card's launches; on the CPU the plain version counts none
     checks = {
         "restored_within_1e-6_of_serve": restored.shape == rgb.shape and err <= EXPORT_MAX_ERR,
         "direct_equals_serve": bool(np.array_equal(direct, rgb)),
-        "one_operator_node_per_chunk": numbers["op_nodes"] == chunks,
+        "nodes_independent_of_chunks": numbers["nodes"] == small_numbers["nodes"]
+        and numbers["op_nodes"] == small_numbers["op_nodes"] == n_kernel_mlps,
         "no_parameter_input": numbers["parameters"] == 0 and numbers["user_inputs"] == 2,
-        # the fresh process counts the card's launches; on the CPU (the tests) the plain version counts none
-        "k1_once_per_chunk": serve_launches["nerf_mlp_fwd"] == chunks
-        and restored_launches["nerf_mlp_fwd"] == (chunks if DEVICE == "cuda" else 0)
+        "k1_once_per_chunk": serve_launches["nerf_mlp_fwd"] == n_kernel_mlps * chunks
+        and direct_launches == restored_launches["nerf_mlp_fwd"] == (n_kernel_mlps * chunks if on_card else 0)
         and serve_launches["nerf_mlp_fwd_pipelined"] == restored_launches["nerf_mlp_fwd_pipelined"] == 0,
     }
+    if on_card:  # the exported renderer as a deliverable: written in seconds, a few MB
+        checks["export_under_60_s"] = export_s < EXPORT_MAX_S
+        checks["artifact_under_20_mb"] = numbers["mb"] < EXPORT_MAX_MB
     say(card_line, "export", config=Path(config).name, options=options, frame_hw=list(rgb.shape[:2]),
-        serve_frame_s=serve_s, serve_launches=serve_launches, restored_launches=restored_launches,
-        restored_max_abs_err=err, restored_bit_equal=bool(np.array_equal(restored, rgb)),
-        fresh_process_s=process_s, **restored_numbers, **numbers, checks=checks)
+        serve_frame_s=serve_s, direct_frame_s=direct_s, direct_launches=direct_launches,
+        serve_launches=serve_launches, restored_launches=restored_launches, restored_max_abs_err=err,
+        restored_bit_equal=bool(np.array_equal(restored, rgb)), fresh_process_s=process_s, **restored_numbers,
+        **numbers, small=small_numbers, checks=checks)
     if not all(checks.values()):
         raise SystemExit(f"export phase failed: {checks}")
     return {"export_serve": serve_launches, "export_restored": restored_launches}
@@ -2040,6 +2080,131 @@ def parity_smoke_phase(card_line: str, tmp: Path, smoke_args=()) -> dict:
     return {"parity_smoke_train": launches}
 
 
+def trajectory_phase(torch, K1, K3, card_line: str, scene: Path, steps: int = TRAJECTORY_STEPS, config=None) -> dict:
+    """"trajectory": the flagship trained along the eager model and the three kernel arms from one init.
+
+    ``yanerf_tpu_torch.trajectory`` at ``steps`` steps on the fused dispatch
+    (``steps_per_call: 20``): eager, K1 + K3, K1 alone (the eager
+    backward), K3 alone (the eager forward) and the eager model one float32
+    ulp off, each tensor of the NeRFMLP against the eager arm: the step-0
+    gradient's cosine, relative error and sign agreement, its error against
+    the float32 gradient, and the weights' distance at 10, 100 and
+    ``steps`` steps. K1 must launch on the K1 + K3 and K1 arms only, K3 on
+    the K1 + K3 and K3 arms only, once per step each (the step-0 gradient
+    included), and every arm's train PSNR must be finite.
+    """
+    from yanerf_tpu_torch import trajectory
+
+    cfg = trajectory.flagship_config(CONFIG if config is None else config)
+    K1.launches = K1.pipelined_launches = K3.launches = 0
+    t = time.perf_counter()
+    record = trajectory.trajectory(cfg, scene, steps, DEVICE, checkpoints=(10, 100, steps))
+    seconds = time.perf_counter() - t
+    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                "nerf_mlp_bwd": K3.launches}
+    per_kernel = 2 * (steps + 1) if DEVICE == "cuda" else 0  # two arms each, a launch per step and the step 0 gradient
+    keys = ("grad_cosine", "grad_rel_err", "sign_agreement", "grad_rel_err_f32",
+            *(f"rel_update_{c}" for c in record["checkpoints"]))
+    per_tensor = {arm: {name: [row.get(k) for k in keys] for name, row in rows.items()}
+                  for arm, rows in record["per_tensor"].items()}
+    checks = {
+        "k1_on_its_arms": launches["nerf_mlp_fwd"] == per_kernel and launches["nerf_mlp_fwd_pipelined"] == 0,
+        "k3_on_its_arms": launches["nerf_mlp_bwd"] == per_kernel,
+        "finite": all(math.isfinite(row["tail_psnr"]) for row in record["summary"].values()),
+    }
+    say(card_line, "trajectory", steps=steps, seconds=seconds, launches=launches, summary=record["summary"],
+        columns=list(keys), per_tensor=per_tensor, checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"trajectory phase failed: {checks}")
+    return {"trajectory_train_fused": launches}
+
+
+def distributed_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, config=None, steps=None) -> dict:
+    """"distributed": the fused flagship CLI in a process group of one rank on this card, against no group.
+
+    ``python -m yanerf_tpu_torch.run``'s ``main`` with ``steps_per_call``
+    20 for ``steps`` steps, first with no process group (twice: the first
+    run warms the process up), then inside an NCCL
+    group of one rank made here (``init_process_group`` on a free local
+    port; gloo on the CPU): the runner makes its one-rank mesh, the train
+    step reduces its gradients over it, captured in the CUDA graph with the
+    step (the all-reduce is counted where the stream is capturing), and the
+    val / test evals gather their losses over the data group. The weights,
+    Adam's moments and the test stats must equal the run without a group
+    bit for bit. More than one rank is checked on the CPU only, with gloo
+    (tests/test_torch_multiprocess.py).
+    """
+    import socket
+
+    import torch.distributed as dist
+
+    from yanerf_tpu_torch import run
+
+    config = CONFIG if config is None else config
+    steps = FUSED_TRAIN_FRAMES if steps is None else steps
+
+    def cli(name):
+        argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir / name), "--cfg_options",
+                *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(config)), f"runner.num_iters={steps}",
+                f"runner.steps_per_call={FUSED_STEPS_PER_CALL}", *(f"datasets.{i}.base_dir={scene}" for i in range(3))]
+        K1.launches = K1.pipelined_launches = K3.launches = 0
+        t = time.perf_counter()
+        result = run.main(argv)
+        sync(torch)
+        result["run_s"] = time.perf_counter() - t
+        result["launches"] = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                              "nerf_mlp_bwd": K3.launches}
+        return result
+
+    warm = cli("warm_up")  # the process's first run of this config pays its one-off costs
+    alone = cli("no_group")
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    reductions = {"captured": 0, "eager": 0}
+    all_reduce = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+        reductions["captured" if capturing else "eager"] += 1
+        return all_reduce(*args, **kwargs)
+
+    gathers = []
+    all_gather = dist.all_gather
+    try:
+        with mock.patch.object(dist, "all_reduce", counted), \
+                mock.patch.object(dist, "all_gather", lambda *a, **kw: gathers.append(1) or all_gather(*a, **kw)):
+            grouped = cli("one_rank_group")
+    finally:
+        dist.destroy_process_group()
+    pa, pb = dict(alone["state"].pipeline.named_parameters()), dict(grouped["state"].pipeline.named_parameters())
+    sa, sb = alone["state"].optimizer.state_dict()["state"], grouped["state"].optimizer.state_dict()["state"]
+    trainer = grouped["train_step_fused"]
+    on_card = DEVICE == "cuda"
+    pw = dict(warm["state"].pipeline.named_parameters())
+    checks = {
+        "weights_bit_equal": all(torch.equal(pa[k], pb[k]) for k in pa),
+        "adam_bit_equal": all(torch.equal(sa[i][m], sb[i][m]) for i in sa for m in ("exp_avg", "exp_avg_sq")),
+        "test_stats_equal": alone["test_stats"] == grouped["test_stats"],
+        "reduction_captured": (reductions["captured"] == 1) == on_card and reductions["eager"] >= 1
+        and trainer is not None and (trainer.graph is not None) == on_card,
+        "eval_gathered": len(gathers) > 0,
+        "k1_k3_per_step": grouped["launches"]["nerf_mlp_fwd"] == grouped["launches"]["nerf_mlp_bwd"]
+        == (steps if on_card else 0) == alone["launches"]["nerf_mlp_bwd"],
+    }
+    say(card_line, "distributed", config=Path(config).name, steps=steps, backend="nccl" if on_card else "gloo",
+        world_size=1, reductions=reductions, eval_gathers=len(gathers),
+        warm_up_bit_equal=all(torch.equal(pa[k], pw[k]) for k in pa),
+        run_s={"warm_up": warm["run_s"], "no_group": alone["run_s"], "one_rank_group": grouped["run_s"]},
+        launches=grouped["launches"], test_stats=grouped["test_stats"], checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"distributed phase failed: {checks}")
+    return {"distributed_train_fused": grouped["launches"]}
+
+
 def payloads_equal(torch, a, b) -> bool:
     """Two checkpoint payloads equal tensor for tensor (dtype, device and bits), and in every other value."""
     if isinstance(a, torch.Tensor):
@@ -2215,6 +2380,12 @@ def main() -> int:
                                                                       Path(tmp) / "async_save")
         torch.cuda.empty_cache()
 
+        # the kernel arms' trajectories from one init; the fused CLI in a one-rank process group
+        split_paths = trajectory_phase(torch, K1, K3, card_line, fused_scene)
+        torch.cuda.empty_cache()
+        split_paths.update(distributed_phase(torch, K1, K3, card_line, fused_scene, Path(tmp) / "distributed"))
+        torch.cuda.empty_cache()
+
         # real captures from JPEGs (fern.yml, real_360.yml), sampling masks, the parity runbook's smoke
         jpeg_decode_phase(card_line)
         capture_paths = jpeg_capture_phases(torch, K1, K3, card_line, Path(tmp))
@@ -2241,6 +2412,7 @@ def main() -> int:
         paths.update({name: launches.get(kernel, 0) for name, launches in slice_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in checkpoint_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in capture_paths.items()})
+        paths.update({name: launches.get(kernel, 0) for name, launches in split_paths.items()})
         return paths
 
     record = {
@@ -2291,6 +2463,11 @@ def main() -> int:
     if idle:
         raise SystemExit(f"a NeRF-MLP kernel did not run on a path of the JPEG captures, the masks or the parity "
                          f"smoke: {idle}")
+    # K1 and K3 on the trajectory's arms and on the one-rank group's training
+    idle = {name: launches for name, launches in split_paths.items()
+            if launches.get("nerf_mlp_fwd", 0) == 0 or launches.get("nerf_mlp_bwd", 0) == 0}
+    if idle:
+        raise SystemExit(f"a NeRF-MLP kernel did not run on the trajectory or the distributed path: {idle}")
     say(card_line, "total", seconds=time.perf_counter() - t_start)
     print(json.dumps(record))
     print(card_line)

@@ -6,8 +6,9 @@
     its output bit for bit the plain version's, and the wrapper, the model's
     eval path and ``FusedNerfMlp`` all calling it;
   * the export: tests/test_export.py's ``TINY_CFG`` with ``use_pallas`` on
-    its NeRFMLP, so the operator is in the graph. One operator node per
-    chunk, no parameter among the program's inputs, the baked module's
+    its NeRFMLP, so the operator is in the graph. One operator node for the
+    NeRFMLP in the chunk loop's body (the loop is kept, not unrolled), no
+    parameter among the program's inputs, the baked module's
     caches left holding real tensors; the ``.pt2`` written, then loaded in a
     fresh process that imports neither JAX nor the port's config-driven
     modules, reproduces the direct render at 1e-6 and the JAX package's
@@ -40,7 +41,7 @@ REPO = Path(__file__).resolve().parent.parent
 TINY_CFG = re.search(r'TINY_CFG = """(.*?)"""', (REPO / "tests" / "test_export.py").read_text(), re.S).group(1)
 # the NeRFMLP on the fused kernel: the exported graph records the operator
 PALLAS_CFG = TINY_CFG.replace("      color_dim: 3\n  ray_sampler", "      color_dim: 3\n      use_pallas: true\n  ray_sampler")
-CHUNKS = 6  # 8 x 8 rays x 6 proposal points at chunk_size_grid 64
+CHUNKS = 6  # 8 x 8 rays x 6 proposal points at chunk_size_grid 64: one map over 6 chunks, one body
 MODEL = dict(type="NeRFMLP", n_layers=3, input_skips=[2], n_harmonic_functions_xyz=3, n_harmonic_functions_dir=2,
              n_hidden_neurons_xyz=32, n_hidden_neurons_dir=16)
 
@@ -144,7 +145,9 @@ def exported(tmp_path_factory):
 
 def test_exported_graph_holds_one_operator_node_per_chunk_and_no_parameter(exported):
     program = exported["program"]
-    assert port_export.op_nodes(program) == CHUNKS
+    assert port_export.op_nodes(program) == 1  # the body's one NeRFMLP; the loop is not unrolled
+    maps = [n for n in program.graph.nodes if n.op == "call_function" and "map_impl" in str(n.target)]
+    assert len(maps) == 1 and maps[0].args[1][0].meta["val"].shape[0] == CHUNKS
     signature = program.graph_signature
     assert len(signature.parameters) == 0 and len(signature.user_inputs) == 2
     assert {"pipeline.implicit_functions.1.packed_flat", "pipeline.implicit_functions.1.packed_biases"} <= set(
@@ -189,8 +192,8 @@ def test_export_cli_validates_on_the_cpu(exported, capsys):
     out = exported["tmp"] / "cli.pt2"
     result = port_export.main(["--config", str(exported["cfg"]), "--checkpoint", str(exported["npz"]), "--out",
                                str(out), "--device", "cpu", "--validate"])
-    assert out.exists() and result["op_nodes"] == CHUNKS and result["validate_max_abs_err"] < 1e-6
-    assert result["nodes"] == len(exported["program"].graph.nodes)
+    assert out.exists() and result["op_nodes"] == 1 and result["validate_max_abs_err"] < 1e-6
+    assert result["nodes"] == len(port_export.graph_nodes(exported["program"]))
     assert "validate OK" in capsys.readouterr().out
 
 

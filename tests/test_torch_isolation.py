@@ -46,6 +46,18 @@ def test_no_port_source_imports_jax_or_yanerf_tpu():
     assert not offenders, offenders
 
 
+def test_the_walk_reaches_the_parallel_layer_and_the_diagnostics():
+    import pkgutil
+
+    import yanerf_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(yanerf_tpu_torch.__path__, "yanerf_tpu_torch.")}
+    assert {"yanerf_tpu_torch.parallel.distributed", "yanerf_tpu_torch.parallel.mesh",
+            "yanerf_tpu_torch.parallel.sharding", "yanerf_tpu_torch.trajectory"} <= names
+    scanned = {str(path.relative_to(REPO)) for path in _port_sources()}
+    assert {"yanerf_tpu_torch/parallel/sharding.py", "yanerf_tpu_torch/trajectory.py", "chip_smoke.py"} <= scanned
+
+
 def test_the_scan_tells_the_packages_apart():
     assert FORBIDDEN_IMPORT.search("from yanerf_tpu.ops import rays")
     assert FORBIDDEN_IMPORT.search("import jax.numpy as jnp")

@@ -17,14 +17,21 @@ artifact embeds its Mosaic kernel; this one names the operator
 ``yanerf_tpu_torch::nerf_mlp_fwd`` (``ops/kernels/nerf_mlp_fwd.py``), and
 :func:`load_artifact` brings it: importing that module registers the
 operator, whose CUDA kernel (K1) is built from ``csrc/`` at its first
-launch. A NeRFMLP with ``use_pallas`` is recorded as one operator node per
-chunk; without it its eager layers are recorded.
+launch.
+
+The chunk loop stays a loop, as ``lax.map`` does in the JAX artifact: the
+pipeline maps its chunk body over the stacked chunk axis
+(``nerf_pipeline.chunk_map``), which a trace records as one
+``torch._higher_order_ops.map`` node whose body graph is written once. So
+the program's size and its nodes do not depend on the number of chunks,
+and a NeRFMLP with ``use_pallas`` is one operator node in the body
+(``op_nodes`` counts the body's nodes too); without it its eager layers
+are recorded there.
 
 The pipeline's parameters are not inputs of the program: every NeRFMLP on
 the kernel holds its packed weights as two buffers
 (``NeRFMLP.bake_packed_weights``) and every other parameter becomes a
-buffer. The chunk loop is a Python loop and is unrolled: a frame of
-``n_chunks`` chunks is ``n_chunks`` copies of the chunk's graph.
+buffer.
 ``--checkpoint`` takes a reference-layout ``.pth``, a checkpoint of the
 port's runner or an ``.npz`` of the JAX param tree (``serve.load_pipeline``).
 ``--device cuda`` (the default) records the CUDA program and raises without
@@ -100,9 +107,30 @@ def example_inputs(batch: int, width: int, device) -> Tuple[torch.Tensor, torch.
     return poses.to(device), focals.to(device)
 
 
+def trace(render: RenderFn, inputs: Tuple[torch.Tensor, ...]) -> torch.export.ExportedProgram:
+    """``torch.export.export`` of ``render`` on ``inputs``, after one eager frame.
+
+    The eager frame makes the pipeline's cached constants
+    (``utils.device_constant``: frequencies, pixel grids, bounds, colors),
+    which the traced loop body then reads as inputs of the program; a
+    tensor made inside a traced body would be a constant of the body's
+    graph, which ``torch.export.save`` cannot write.
+    """
+    with torch.inference_mode():
+        render(*inputs)
+    return torch.export.export(render, inputs)
+
+
+def graph_nodes(program: torch.export.ExportedProgram) -> list:
+    """Every node of ``program``: its graph's and those of the subgraphs it calls (the chunk loop's body)."""
+    return [node for module in program.graph_module.modules() if isinstance(module, torch.fx.GraphModule)
+            for node in module.graph.nodes]
+
+
 def op_nodes(program: torch.export.ExportedProgram) -> int:
-    """How many nodes of ``program``'s graph call the NeRF-MLP operator."""
-    return sum(1 for node in program.graph.nodes if node.op == "call_function" and str(node.target).startswith(OP_NAME))
+    """How many nodes of ``program`` (subgraphs included) call the NeRF-MLP operator."""
+    return sum(1 for node in graph_nodes(program)
+               if node.op == "call_function" and str(node.target).startswith(OP_NAME))
 
 
 def load_artifact(path: Union[str, Path]) -> nn.Module:
@@ -138,11 +166,11 @@ def main(argv=None):
     render, (h, w) = build_render_fn(config, args.checkpoint, args.seed, args.device)
     inputs = example_inputs(args.batch, w, args.device)
     t0 = time.perf_counter()
-    program = torch.export.export(render, inputs)
+    program = trace(render, inputs)
     export_s = time.perf_counter() - t0
     torch.export.save(program, args.out)
     size_mb = Path(args.out).stat().st_size / 1e6
-    result = dict(out=args.out, export_s=export_s, nodes=len(program.graph.nodes), op_nodes=op_nodes(program),
+    result = dict(out=args.out, export_s=export_s, nodes=len(graph_nodes(program)), op_nodes=op_nodes(program),
                   mb=size_mb, out_shape=[args.batch, h, w, 3])
     print(f"exported {args.out}: {size_mb:.2f} MB, {result['nodes']} graph nodes ({result['op_nodes']} NeRF-MLP "
           f"operator nodes), {export_s:.1f} s, out_shape=({args.batch}, {h}, {w}, 3)")

@@ -60,6 +60,8 @@ def as_torch_dtype(name) -> torch.dtype:
 
 @MODELS.register_module()
 class NeRFMLP(nn.Module):
+    kernel_arm = "k1k3"  # the training path's halves under use_pallas_train (fused_mlp.ARMS)
+
     def __init__(
         self,
         n_layers: int = 8,
@@ -167,6 +169,7 @@ class NeRFMLP(nn.Module):
         for layer in fused.kernel_layers(self):
             layer._parameters.clear()
         self._baked, self._packed = packed, None
+        self._baked_layout = packed.op_layout  # ints and int lists: all a traced launch reads besides the buffers
 
     def params_changed(self) -> None:
         """The parameters changed where ``_version`` cannot see it (a graph replay): repack at the next use."""
@@ -211,6 +214,16 @@ class NeRFMLP(nn.Module):
         rays_colors = self._get_colors(features, directions)
         return dict(rays_densities=raw_densities, rays_features=rays_colors, aux={})
 
+    def eager_flat(self, points: torch.Tensor, dirs: torch.Tensor, pts_per_ray: int) -> torch.Tensor:
+        """The eager model on the kernel's inputs: ``(N, 3)`` ray points (contracted where the model contracts)
+        and ``(N / pts_per_ray, 3)`` dirs -> ``(N, 1 + C)`` float32, density | rgb."""
+        embeds = harmonic_embedding(
+            points.reshape(-1, pts_per_ray, 3), self.n_harmonic_functions_xyz,
+            append_input=self.harmonic_functions_xyz_append_intput,
+        )
+        out = self._from_embedding(embeds, dirs)
+        return torch.cat([out["rays_densities"], out["rays_features"]], dim=-1).reshape(points.shape[0], -1)
+
     def forward(
         self,
         origins: torch.Tensor,
@@ -236,11 +249,15 @@ class NeRFMLP(nn.Module):
             points = self._points(origins, directions, lengths)
             *lead, n_pts, _ = points.shape
             points, dirs = points.reshape(-1, 3).contiguous(), directions.reshape(-1, 3).contiguous()
-            if self._baked is not None or not torch.is_grad_enabled():
+            if self._baked is not None:
+                # the two buffers and the layout: a traced program's body reads no other tensor of the pack
+                out = fused.nerf_mlp_fwd_op(points, dirs, self.packed_flat, self.packed_biases, *self._baked_layout,
+                                            n_pts, False)
+            elif not torch.is_grad_enabled():
                 # no gradient to carry: the operator alone, as the Function's forward calls it
                 out = fused.nerf_mlp_fwd(self.packed_weights(), points, dirs, n_pts)
             else:
-                out = fused_nerf_mlp(self, points, dirs, n_pts)
+                out = fused_nerf_mlp(self, points, dirs, n_pts, self.kernel_arm)
             return dict(
                 rays_densities=out[:, :1].reshape(*lead, n_pts, 1),
                 rays_features=out[:, 1:].reshape(*lead, n_pts, self.color_dim),

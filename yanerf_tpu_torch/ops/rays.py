@@ -54,11 +54,17 @@ def linspace01(n: int, dtype: torch.dtype = torch.float32, device: Union[str, to
     ``jnp.linspace`` computes ``iota * (1 / (n - 1))`` and appends the exact
     endpoint; ``torch.linspace`` differs from it by one ulp in places, which
     would move the deterministic ``sample_pdf`` u's off the reference.
+    Made once per ``n`` (``device_constant``), so a traced body holds no
+    tensor constant of its own.
     """
     if n == 1:
         return torch.zeros(1, dtype=dtype, device=device)
-    step = torch.arange(n - 1, dtype=dtype, device=device) * torch.tensor(1.0 / (n - 1), dtype=dtype)
-    return torch.cat([step, torch.ones(1, dtype=dtype, device=device)])
+
+    def make() -> torch.Tensor:
+        step = torch.arange(n - 1, dtype=dtype) * torch.tensor(1.0 / (n - 1), dtype=dtype)
+        return torch.cat([step, torch.ones(1, dtype=dtype)])
+
+    return device_constant(("linspace01", n), make, dtype, device)
 
 
 def jiggle_within_stratas(

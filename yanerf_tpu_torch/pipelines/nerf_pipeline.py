@@ -5,8 +5,13 @@ EVALUATION and TRAINING mode. The pipeline is an ``nn.Module`` holding the impli
 functions, so its state dict keys are the JAX param tree's dotted paths
 (``implicit_functions.2.xyz_encoder.mlp.0.w``). The full grid renders in
 chunks with the reference's arithmetic, ``n_chunks = ceil(n_rays * P /
-chunk_size_grid)``, edge-padded to equal size; a Python loop over the
-chunks replaces ``lax.map``. In TRAINING the rays are Monte-Carlo samples,
+chunk_size_grid)``, edge-padded to equal size and mapped over by
+``chunk_map``: a loop over the chunk axis eagerly, one
+``torch._higher_order_ops.map`` node (its body recorded once) in a traced
+program, as ``lax.map`` is in the JAX package. Under a (data x rays) mesh
+(``parallel/``) each process renders its slice of the rays of a TRAINING
+call and of every chunk, and the slices are gathered where the JAX package
+constrains the ray axis. In TRAINING the rays are Monte-Carlo samples,
 rendered in one call, and the NeRF-MLP's kernel switch is
 ``use_pallas_train`` (as ``_bind_model`` does in the JAX package); with
 ``output_rasterized_mc`` the Monte-Carlo samples are also splatted back
@@ -43,6 +48,7 @@ from ..ops.sampling import (
     weighted_sample_without_replacement,
 )
 from ..ops.structures import EvaluationMode, RendererOutput, RenderSamplingMode
+from ..parallel.sharding import gather_rays, ray_parallel, shard_rays
 from ..utils import resolve_device
 from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS
 
@@ -89,6 +95,47 @@ def make_draws(
         else:
             draws[spec.key] = value
     return draws
+
+
+def chunk_map(body: Callable[[Dict[str, torch.Tensor]], Any], xs: Dict[str, torch.Tensor]) -> Any:
+    """``body`` over the leading axis of every tensor of ``xs``, its outputs stacked on a new leading axis: the
+    semantics of ``lax.map`` and of ``torch._higher_order_ops.map``.
+
+    Traced (``torch.export``), the loop is that operator, one node whose
+    body the graph records once, whatever the number of chunks. Eager, the
+    same body runs once per chunk on the same slices (a frame's kernels
+    launch as they are called, and a generator's draws follow one another
+    across the chunks as in one loop).
+    """
+    if torch.compiler.is_compiling():
+        from torch._higher_order_ops.map import map as traced_map
+
+        return traced_map(body, xs)
+    n = next(iter(xs.values())).shape[0]
+    outs = [body({k: x[i] for k, x in xs.items()}) for i in range(n)]
+    return torch.utils._pytree.tree_map(lambda *leaves: torch.stack(leaves), *outs)
+
+
+def _shard_each(draws: Optional[Sequence[torch.Tensor]]) -> Optional[List[torch.Tensor]]:
+    """This process's slice of the ray axis of each draw of a list (``parallel.shard_rays``)."""
+    return None if draws is None else [shard_rays(t) for t in draws]
+
+
+def _output_tree(out: RendererOutput) -> Dict[str, Any]:
+    """A renderer output as a tree of dicts and tensors (what ``chunk_map`` stacks)."""
+    tree = {"features": out.features, "depths": out.depths, "alpha_masks": out.alpha_masks, "aux": dict(out.aux)}
+    if out.prev_stage is not None:
+        tree["prev_stage"] = _output_tree(out.prev_stage)
+    return tree
+
+
+def _output_from_tree(tree: Dict[str, Any], leaf_fn: Callable[[torch.Tensor], torch.Tensor]) -> RendererOutput:
+    """:func:`_output_tree` undone, ``leaf_fn`` applied to every tensor."""
+    return RendererOutput(
+        features=leaf_fn(tree["features"]), depths=leaf_fn(tree["depths"]), alpha_masks=leaf_fn(tree["alpha_masks"]),
+        prev_stage=_output_from_tree(tree["prev_stage"], leaf_fn) if "prev_stage" in tree else None,
+        aux={k: leaf_fn(v) for k, v in tree["aux"].items()},
+    )
 
 
 @PIPELINES.register_module()
@@ -223,11 +270,13 @@ class NeRFPipeline(nn.Module):
         if sampling_mode == RenderSamplingMode.FULL_GRID and self.chunk_size_grid > 0:
             rendered = self._render_chunked(*ray_bundle, bg_color, implicit_functions, evaluation_mode, generator)
         else:
+            # under a ray split each process renders its slice of the rays; then every process holds them all
             rendered = self.renderer(
-                *ray_bundle, bg_color, implicit_functions=implicit_functions,
-                evaluation_mode=evaluation_mode, generator=generator, pdf_u=draws.get("pdf_u"),
-                density_noise=draws.get("density_noise"),
+                *(shard_rays(t) for t in (*ray_bundle, bg_color)), implicit_functions=implicit_functions,
+                evaluation_mode=evaluation_mode, generator=generator, pdf_u=_shard_each(draws.get("pdf_u")),
+                density_noise=_shard_each(draws.get("density_noise")),
             )
+            rendered = _output_from_tree(_output_tree(rendered), gather_rays)
 
         preds = self._get_view_metrics(rendered, xys, image_rgb, depth_map)
         # renderer losses (the interlevel loss) reduce per sample like every other loss
@@ -335,50 +384,52 @@ class NeRFPipeline(nn.Module):
         evaluation_mode: EvaluationMode,
         generator: Optional[torch.Generator],
     ) -> RendererOutput:
-        """Render a full grid chunk by chunk, the last chunk edge-padded and sliced away."""
+        """Render a full grid chunk by chunk (``chunk_map``), the last chunk edge-padded and sliced away.
+
+        The chunks are the leading axis of the mapped inputs, as the JAX
+        package's ``lax.map`` takes them. A traced frame draws nothing: it
+        refuses a generator.
+        """
         batch_size = origins.shape[0]
         spatial = origins.shape[1:-1]
         n_pts = lengths.shape[-1]
         n_rays = math.prod(spatial)
         n_chunks = -(-n_rays * max(n_pts, 1) // self.chunk_size_grid)
         chunk_rays = -(-n_rays // n_chunks)
+        chunk_rays = -(-chunk_rays // ray_parallel()) * ray_parallel()  # a ray split takes equal slices
         n_padded = n_chunks * chunk_rays
 
         def to_chunks(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
             if t is None:
                 return None
             t = t.reshape(batch_size, n_rays, 1, t.shape[-1])
-            if n_padded != n_rays:
-                t = torch.cat([t, t[:, -1:].expand(batch_size, n_padded - n_rays, 1, t.shape[-1])], dim=1)
-            return t.reshape(batch_size, n_chunks, chunk_rays, 1, t.shape[-1])
+            # padded even by 0 rays: a traced frame has the same nodes at every chunk count
+            t = torch.cat([t, t[:, -1:].expand(batch_size, n_padded - n_rays, 1, t.shape[-1])], dim=1)
+            return t.reshape(batch_size, n_chunks, chunk_rays, 1, t.shape[-1]).movedim(1, 0)
 
-        chunks = [to_chunks(t) for t in (origins, directions, lengths, xys, bg_color)]
-        outputs = [
-            self.renderer(
-                *(None if t is None else t[:, i] for t in chunks),
+        xs = {k: to_chunks(t) for k, t in (("origins", origins), ("directions", directions), ("lengths", lengths),
+                                           ("xys", xys), ("bg_color", bg_color)) if t is not None}
+        if generator is not None and torch.compiler.is_compiling():
+            raise ValueError("a traced frame draws nothing: render it without a generator")
+
+        def render_one(chunk: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+            # under a ray split each process renders its slice of the chunk, and the slices are gathered
+            chunk = {k: shard_rays(v) for k, v in chunk.items()}
+            out = self.renderer(
+                chunk["origins"], chunk["directions"], chunk["lengths"], chunk["xys"], chunk.get("bg_color"),
                 implicit_functions=implicit_functions,
                 evaluation_mode=evaluation_mode,
                 generator=generator,
             )
-            for i in range(n_chunks)
-        ]
+            return torch.utils._pytree.tree_map(gather_rays, _output_tree(out))
 
-        def collate(leaves: List[torch.Tensor]) -> torch.Tensor:
-            # (B, chunk_rays, 1, *rest) per chunk -> (B, *spatial, *rest)
-            leaf = torch.cat(leaves, dim=1)
-            rest = leaf.shape[3:]
-            return leaf.reshape(batch_size, n_padded, *rest)[:, :n_rays].reshape(batch_size, *spatial, *rest)
+        def collate(leaf: torch.Tensor) -> torch.Tensor:
+            # (n_chunks, B, chunk_rays, 1, *rest) -> (B, *spatial, *rest)
+            rest = leaf.shape[4:]
+            leaf = leaf.movedim(0, 1).reshape(batch_size, n_padded, *rest)
+            return leaf[:, :n_rays].reshape(batch_size, *spatial, *rest)
 
-        def merge(outs: List[RendererOutput]) -> RendererOutput:
-            return RendererOutput(
-                features=collate([o.features for o in outs]),
-                depths=collate([o.depths for o in outs]),
-                alpha_masks=collate([o.alpha_masks for o in outs]),
-                prev_stage=None if outs[0].prev_stage is None else merge([o.prev_stage for o in outs]),
-                aux={k: collate([o.aux[k] for o in outs]) for k in outs[0].aux},
-            )
-
-        return merge(outputs)
+        return _output_from_tree(chunk_map(render_one, xs), collate)
 
     def _get_view_metrics(
         self,

@@ -26,8 +26,10 @@ Counterpart of ``yanerf_tpu/runners/apis.py`` on one GPU:
   * eval keeps ``eval_frames_in_flight`` frames dispatched before the
     oldest one's losses are fetched, writes the frames on a thread
     (``AsyncVisWriter``), and truncates to the dataset length before the
-    mean.
-Distributed training is not ported.
+    mean;
+  * under a (data x rays) mesh (``parallel/``) a step reduces the
+    gradients over the mesh before Adam (captured with the step on the
+    card), and eval gathers the per-sample losses over the data group.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..datasets.loader import decode_cached_field
 from ..ops.kernels import launch_count
 from ..ops.metrics import mse2psnr
 from ..ops.structures import EvaluationMode
+from ..parallel import active_mesh, concat_all_gather, is_dist_avail_and_initialized, is_main_process, reduce_gradients
 from ..pipelines.nerf_pipeline import make_draws
 from .hooks import EvalDataHook, EvalOutputsHook, TrainDataHook, TrainOutputsHook
 from .optim import TrainState, apply_learning_rates, learning_rates, set_learning_rates
@@ -99,7 +102,8 @@ def loss_keys(preds: Dict[str, Any]) -> List[str]:
 
 def update(pipeline, optimizer, batch: Dict[str, Any], draws: Dict[str, Any], rasterize_mc: bool = False):
     """One update at the rates already in ``optimizer``'s groups: the TRAINING forward of ``batch`` with
-    ``draws``, ``backward()`` of the mean objective and the optimizer's step. Returns the predictions.
+    ``draws``, ``backward()`` of the mean objective, the gradients reduced over the active mesh
+    (``parallel.reduce_gradients``) and the optimizer's step. Returns the predictions.
 
     Both train paths run this, so the fused step is the per-step loop's
     step bit for bit.
@@ -110,6 +114,7 @@ def update(pipeline, optimizer, batch: Dict[str, Any], draws: Dict[str, Any], ra
         raise KeyError("In train mode, but no loss (`objective`) is found.")
     optimizer.zero_grad(set_to_none=True)
     torch.mean(preds["objective"]).backward()
+    reduce_gradients(pipeline.parameters())  # over the mesh, when one is installed: in a captured step too
     optimizer.step()
     return preds
 
@@ -405,7 +410,7 @@ def _train_one_epoch_fused(
             batch = _gather_batch(arrays, dataloader.data_wrapper, torch.as_tensor(rows[i], device=device))
             preds = train_step_vis(state, batch)
             last_losses = {k: preds[k] for k in loss_keys(preds)}
-            if config.get("output_dir"):
+            if config.get("output_dir") and is_main_process():
                 logger.info("save training image to check sanity.")
                 vis_batch_img(preds, run_type, config["output_dir"], 0, batch_size, f"{epoch:05d}/")
             j = i + 1
@@ -530,7 +535,7 @@ def train_one_epoch(
                 + [f"{k}: {v:.3f}" for k, v in stats.items()]
             )
             logger.info(f"{header}: {log_string}")
-        if want_vis and config.get("output_dir"):
+        if want_vis and config.get("output_dir") and is_main_process():
             logger.info("save training image to check sanity.")
             vis_batch_img(preds, run_type, config["output_dir"], 0, dataloader.batch_size, f"{epoch:05d}/")
         passed_iter += 1
@@ -559,6 +564,11 @@ def eval_one_epoch(
     fetches, logs and hands the frame to the vis writer (with an
     ``output_dir``); the stats do not depend on the depth. The per-sample
     losses are concatenated, truncated to the dataset length, then meaned.
+    Under a mesh (``parallel.mesh_context``) each data index renders its
+    shard of the frames (each frame's rays split over its ray group), the
+    per-sample losses of each batch are gathered over the data group in
+    rank order (``concat_all_gather``), and the first process of each data
+    index writes its frames' vis at their dataset indices.
     """
     run_type = RunType(run_type)
     if dataloader.drop_last:
@@ -569,20 +579,27 @@ def eval_one_epoch(
     batch_size = dataloader.batch_size
     pipeline.eval()
     metric_stats: Dict[str, list] = defaultdict(list)
-    vis_writer = AsyncVisWriter() if config.get("output_dir") else None
+    mesh = active_mesh()
+    gathered = mesh is not None and is_dist_avail_and_initialized()
+    data_group = mesh.data_group if gathered else None
+    data_parallel, data_index = (mesh.data_parallel, mesh.data_index) if mesh is not None else (1, 0)
+    # one writer per frame: the first process of each data index writes its shard's frames
+    writes = config.get("output_dir") and (mesh is None or mesh.ray_index == 0)
+    vis_writer = AsyncVisWriter() if writes else None
 
     def process_frame(preds: Dict[str, Any], i: int) -> Dict[str, Any]:
         for hook in hooks:
             if isinstance(hook, EvalOutputsHook):
                 preds = hook(outputs=preds, config=config, iter=i, epoch=epoch)
         for key in loss_keys(preds):
-            metric_stats[key].append(preds[key].detach().double().cpu().numpy())
+            value = preds[key].detach().double().cpu().numpy()
+            metric_stats[key].append(concat_all_gather(value, data_group) if gathered else value)
         if i % print_per_iter == 0:
             stats = create_stats(preds)
             logger.info(f"{header}: sampler: [{i * batch_size}/{len(dataloader.dataset)}]\t"
                         + "\t".join(f"{k}: {v:.3f}" for k, v in stats.items()))
         if vis_writer is not None:
-            start_idx = i * batch_size
+            start_idx = (i * data_parallel + data_index) * batch_size
             end_idx = min(len(dataloader.dataset), start_idx + batch_size)
             vis_writer.submit(preds, run_type, config["output_dir"], start_idx, end_idx,
                               "" if run_type == RunType.TEST else f"{epoch:05d}/")

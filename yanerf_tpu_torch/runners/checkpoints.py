@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..convert import export_jax_params, flatten_tree, load_jax_params, unflatten_tree
+from ..parallel import is_main_process
 from .optim import TrainState
 
 # one writer thread: async saves are written in the order they were made, one at a time
@@ -91,9 +92,13 @@ def save_checkpoint(
     returns (the fused dispatch's CUDA graph writes both in place at its
     next replay); with ``async_save`` the writer thread then does the
     ``torch.save`` and the rename. A synchronous save first waits for the
-    async ones, so two writes never meet at one path.
+    async ones, so two writes never meet at one path. In a multi-process
+    run every process calls it and the main one writes; the others return
+    the path.
     """
     path = Path(output_dir).resolve() / "ckpts" / (name or ckpt_name(epoch))
+    if not is_main_process():  # every process calls it, the main one writes (the replicas hold the same state)
+        return path
     path.parent.mkdir(parents=True, exist_ok=True)
     if not async_save:
         wait_for_async_saves()
