@@ -25,7 +25,8 @@ with occupancy bounds; the classic frame served from the reference's
 program, ``--debug``, configs/nerf/lego_tpu.yml (the classic pair at
 16,384 rays with ``approx_top_k``) and the async checkpoint saves; then
 real phone captures from JPEGs, configs/nerf/fern.yml and real_360.yml
-on the committed capture ``tests/data/llff_jpeg``, sampling masks on the
+on the committed captures ``tests/data/llff_jpeg`` (baseline JPEGs) and
+``tests/data/llff_jpeg_progressive`` (progressive), sampling masks on the
 flagship, and the parity runbook's smoke; then the kernel arms' training
 trajectories and the fused CLI in a one-rank process group. Phases,
 each printing its numbers on a line of its own with the card's name and
@@ -159,20 +160,23 @@ power limit:
              after each, saved async and sync: the seconds each save holds
              the loop, the CLI's ms per step, and each async file equal to
              a sync save of the same state made right after it;
- 18. jpeg decode  the committed capture ``tests/data/llff_jpeg`` (12 views
-             at 1008x756, baseline 4:2:0 JPEGs with restart markers)
-             decoded by ``yanerf_tpu_torch.native`` (built with g++ in
-             phase 1) on this machine's host: each array's sha256 equal to
-             the JAX package's libjpeg decode committed beside the files;
-             the decode rate one file at a time and batched (MB/s of JPEG,
-             megapixels/s);
- 19. jpeg capture  a copy of the capture: the ``images_2/`` PNG cache
+ 18. jpeg decode  the committed captures ``tests/data/llff_jpeg`` (12 views
+             at 1008x756, baseline 4:2:0 JPEGs with restart markers) and
+             ``tests/data/llff_jpeg_progressive`` (the same views as
+             progressive JPEGs, 10 scans) decoded by
+             ``yanerf_tpu_torch.native`` (built with g++ in phase 1) on this
+             machine's host: each array's sha256 equal to the JAX package's
+             libjpeg decode committed beside the files; the decode rates
+             one file at a time and batched (MB/s of JPEG, megapixels/s),
+             the captures in turns, and their ratio;
+ 19. jpeg capture  a copy of each capture: the ``images_2/`` PNG cache
              written from the JPEGs equal to the JAX ``_minify`` digests;
              configs/nerf/fern.yml fused (steps_per_call 8, 40 steps) at its
              published widths (8x256, 1024 rays, 64 + 64 points) on K1 / K3
              against two per-step runs; a 504x378 test view of
              configs/nerf/real_360.yml (spherified) on K1 against its plain
-             version; "family" for both (+1 on the density biases);
+             version; for the baseline capture "family" for both (+1 on
+             the density biases);
  20. masks   one flagship train step with a two-layer
              ``sampling_prob_mask`` and one with ``mask_crop``, K1 + K3:
              every drawn pixel of positive weight, the objective finite, the
@@ -291,6 +295,7 @@ ASYNC_EPOCHS = 3  # the async-save runs: three epochs of the 40-frame scene, a c
 FERN_CONFIG = REPO / "configs" / "nerf" / "fern.yml"
 REAL_360_CONFIG = REPO / "configs" / "nerf" / "real_360.yml"
 JPEG_CAPTURE = REPO / "tests" / "data" / "llff_jpeg"  # 12 views at 1008x756: baseline 4:2:0 JPEGs with restarts
+JPEG_PROGRESSIVE_CAPTURE = REPO / "tests" / "data" / "llff_jpeg_progressive"  # the same views, progressive (SOF2)
 JPEG_FACTOR = 2  # the capture's views at the LLFF configs' 504x378
 JPEG_TRAIN_VIEWS = 10  # 12 views, every 8th held out (fern.yml's test_skip)
 JPEG_STEPS_PER_CALL = 8
@@ -1916,46 +1921,35 @@ def async_save_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, 
 
 
 def jpeg_decode_phase(card_line: str) -> None:
-    """Decode the committed capture with ``native`` on this machine's host: every array's sha256 against the
-    digest of the JAX package's libjpeg decode (``digests.json``), and the decode rate, one thread and batched."""
-    import hashlib
+    """Decode both committed captures (baseline and progressive JPEGs of the same views) with ``native`` on this
+    machine's host: every array's sha256 against the digest of the JAX package's libjpeg decode
+    (``digests.json``), and the decode rates, one thread and batched, the captures in turns
+    (``decode_rate.measure``)."""
     import os
 
-    from yanerf_tpu_torch import native
+    from yanerf_tpu_torch import decode_rate
 
-    digests = json.loads((JPEG_CAPTURE / "digests.json").read_text())["decode"]
-    files = sorted((JPEG_CAPTURE / "images").iterdir())
-    jpeg_mb = sum(f.stat().st_size for f in files) / 1e6
-    one_s, batch_s = [], []
-    for _ in range(JPEG_DECODE_REPEATS):
-        t = time.perf_counter()
-        single = [native.decode_image(f) for f in files]
-        one_s.append(time.perf_counter() - t)
-        t = time.perf_counter()
-        batched = native.decode_batch(files)
-        batch_s.append(time.perf_counter() - t)
-    sha = [hashlib.sha256(img.tobytes()).hexdigest() for img in single]
-    megapixels = sum(img.shape[0] * img.shape[1] for img in single) / 1e6
-    checks = {
-        "decode_digests": sha == [digests[f.name] for f in files],
-        "batch_digests": [hashlib.sha256(img.tobytes()).hexdigest() for img in batched] == sha,
-        "files": len(files) == len(digests) > 0,
-    }
-    say(card_line, "jpeg decode", where="the card machine's host CPU", cpus=os.cpu_count(), files=len(files),
-        jpeg_mb=jpeg_mb, megapixels=megapixels, one_thread_s=min(one_s), batched_s=min(batch_s),
-        one_thread_mb_per_s=jpeg_mb / min(one_s), batched_mb_per_s=jpeg_mb / min(batch_s),
-        one_thread_megapixels_per_s=megapixels / min(one_s), batched_megapixels_per_s=megapixels / min(batch_s),
-        checks=checks)
+    captures = {"baseline": JPEG_CAPTURE, "progressive": JPEG_PROGRESSIVE_CAPTURE}
+    rates = decode_rate.measure(captures, JPEG_DECODE_REPEATS)["this"]
+    checks = {}
+    for name, entry in rates.items():
+        checks[f"{name}_decode_digests"] = entry.get("decode_digests", False)
+        checks[f"{name}_batch_digests"] = entry.get("batch_digests", False)
+        say(card_line, "jpeg decode", capture=name, where="the card machine's host CPU", cpus=os.cpu_count(),
+            **{k: v for k, v in entry.items() if not k.endswith("_all")})
+    ratio = decode_rate.progressive_ratio(rates) if all(checks.values()) else None
+    say(card_line, "jpeg decode", progressive_over_baseline=ratio, checks=checks)
     if not all(checks.values()):
         raise SystemExit(f"jpeg decode phase failed: {checks}")
 
 
 def jpeg_capture_phases(torch, K1, K3, card_line: str, tmp: Path, configs=None, factor: int = JPEG_FACTOR,
-                        steps: int = JPEG_TRAIN_STEPS) -> dict:
-    """fern.yml and real_360.yml from the JPEG capture: the PNG cache against the JAX ``_minify`` digests,
-    fern.yml trained fused on K1 / K3 at its published widths, a real_360.yml frame on K1, both held to their
-    eager twins on the CPU. ``configs`` (the pair) and ``factor`` (the views' size) stand in for the
-    published ones in the tests. Returns the kernels' launches on each path."""
+                        steps: int = JPEG_TRAIN_STEPS, capture: Path = JPEG_CAPTURE, family: bool = True) -> dict:
+    """fern.yml and real_360.yml from a JPEG capture: the PNG cache against the JAX ``_minify`` digests,
+    fern.yml trained fused on K1 / K3 at its published widths, a real_360.yml frame on K1, and with ``family``
+    both held to their eager twins on the CPU. ``configs`` (the pair) and ``factor`` (the views' size) stand in
+    for the published ones in the tests. Returns the kernels' launches on each path, named after the capture
+    (``fern_jpeg_train_fused``; ``fern_jpeg_progressive_train_fused`` for ``llff_jpeg_progressive``)."""
     import hashlib
     import shutil
 
@@ -1964,9 +1958,9 @@ def jpeg_capture_phases(torch, K1, K3, card_line: str, tmp: Path, configs=None, 
     from yanerf_tpu_torch.utils.images import load_image_u8
 
     fern, real_360 = (FERN_CONFIG, REAL_360_CONFIG) if configs is None else configs
-    capture = tmp / "llff_jpeg"
-    shutil.copytree(JPEG_CAPTURE, capture)
-    digests = json.loads((JPEG_CAPTURE / "digests.json").read_text())
+    source, label = capture.name, capture.name.replace("llff_", "")  # "jpeg" or "jpeg_progressive"
+    digests = json.loads((capture / "digests.json").read_text())
+    capture = shutil.copytree(capture, tmp / source)
     t = time.perf_counter()
     LLFFDataset._minify(str(capture), factors=[JPEG_FACTOR])
     minify_s = time.perf_counter() - t
@@ -1975,16 +1969,17 @@ def jpeg_capture_phases(torch, K1, K3, card_line: str, tmp: Path, configs=None, 
     checks = {"minify_digests": [hashlib.sha256(img.tobytes()).hexdigest() for img in images]
               == [digests["minify"][png.name] for png in pngs] and len(pngs) == len(digests["minify"]),
               "fern_size": all(img.shape[:2] == LLFF_HW for img in images)}
-    say(card_line, "jpeg capture", minify_s=minify_s, views=len(pngs), hw=list(images[0].shape[:2]), checks=checks)
+    say(card_line, "jpeg capture", capture=source, minify_s=minify_s, views=len(pngs), hw=list(images[0].shape[:2]),
+        checks=checks)
     if not all(checks.values()):
         raise SystemExit(f"jpeg capture phase failed: {checks}")
 
     paths = {}
-    numbers, paths["fern_jpeg_train_fused"] = fused_train(
-        torch, K1, K3, capture, tmp / "results_fern_jpeg", fern, steps, JPEG_STEPS_PER_CALL,
+    numbers, paths[f"fern_{label}_train_fused"] = fused_train(
+        torch, K1, K3, capture, tmp / f"results_fern_{label}", fern, steps, JPEG_STEPS_PER_CALL,
         extra_options=[*(f"datasets.{i}.factor={factor}" for i in range(3)), "runner.cache_dataset_on_device=True"],
         train_frames=JPEG_TRAIN_VIEWS)
-    say(card_line, "fused", source="JPEG capture", **numbers)
+    say(card_line, "fused", source=source, **numbers)
     if not all(numbers["checks"].values()):
         raise SystemExit(f"{Path(fern).name} fused phase on the JPEG capture failed: {numbers['checks']}")
     torch.cuda.empty_cache()
@@ -1992,16 +1987,16 @@ def jpeg_capture_phases(torch, K1, K3, card_line: str, tmp: Path, configs=None, 
     service, nerf_mlps = build_service(real_360)
     cfg = Config.fromfile(str(real_360))
     pose, focal, _, lo, hi = DATASETS.build(dict(cfg.datasets[2], base_dir=str(capture), factor=factor))[0]
-    paths["real_360_jpeg_frame"] = frame(torch, K1, service, card_line, Path(real_360).name, with_k2=False,
+    paths[f"real_360_{label}_frame"] = frame(torch, K1, service, card_line, Path(real_360).name, with_k2=False,
                                          view=(pose[:3, :4], float(focal[0]), float(lo[0]), float(hi[0])),
                                          k1_per_frame=frame_chunks(cfg) * len(nerf_mlps))
     del service, nerf_mlps
     torch.cuda.empty_cache()
 
-    for config in (fern, real_360):
+    for config in (fern, real_360) if family else ():
         family = family_check(torch, capture, config, FAMILY_EVAL_RAYS, FAMILY_TRAIN_RAYS,
                               {"datasets.0.factor": factor}, density_bias=1.0)
-        say(card_line, "family", source="JPEG capture", **family)
+        say(card_line, "family", source=source, **family)
         if not all(family["checks"].values()):
             raise SystemExit(f"{Path(config).name} family phase on the JPEG capture failed: {family['checks']}")
         torch.cuda.empty_cache()
@@ -2386,9 +2381,13 @@ def main() -> int:
         split_paths.update(distributed_phase(torch, K1, K3, card_line, fused_scene, Path(tmp) / "distributed"))
         torch.cuda.empty_cache()
 
-        # real captures from JPEGs (fern.yml, real_360.yml), sampling masks, the parity runbook's smoke
+        # real captures from JPEGs (fern.yml, real_360.yml; baseline, then progressive files of the same views,
+        # whose data path the baseline's card-vs-CPU family check already covers), sampling masks, the parity
+        # runbook's smoke
         jpeg_decode_phase(card_line)
         capture_paths = jpeg_capture_phases(torch, K1, K3, card_line, Path(tmp))
+        capture_paths.update(jpeg_capture_phases(torch, K1, K3, card_line, Path(tmp),
+                                                 capture=JPEG_PROGRESSIVE_CAPTURE, family=False))
         capture_paths.update(mask_phase(torch, card_line, scene))
         capture_paths.update(parity_smoke_phase(card_line, Path(tmp)))
 

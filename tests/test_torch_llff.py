@@ -284,8 +284,8 @@ def test_llff_dataset_refusals_and_other_sizes_match_jax(llff_pair):
         for a, b in zip(got[2], ref[2]):
             assert Path(a).name == Path(b).name
             np.testing.assert_array_equal(load_image_u8(a), load_image_u8(b))
-    # JPEG sources load as the JAX loader loads them (tests/test_torch_native.py holds the decoder itself);
-    # a progressive JPEG is refused by name
+    # JPEG sources load as the JAX loader loads them (tests/test_torch_native.py holds the decoder itself),
+    # progressive ones too; an arithmetic-coded JPEG is refused by name
     n_views = np.load(llff_pair / "port" / "poses_bounds.npy").shape[0]
     for root in ("jpeg_jax", "jpeg_port"):
         (llff_pair / root / "images").mkdir(parents=True)
@@ -299,9 +299,18 @@ def test_llff_dataset_refusals_and_other_sizes_match_jax(llff_pair):
     for i in range(len(got)):
         for a, b in zip(got[i], ref[i]):
             np.testing.assert_array_equal(a, b)
-    Image.fromarray(np.zeros((20, 28, 3), np.uint8)).save(llff_pair / "jpeg_port" / "images" / "img_000.JPG",
-                                                        progressive=True)
-    with pytest.raises(NotImplementedError, match="img_000.JPG.*progressive"):
+    for root in ("jpeg_jax", "jpeg_port"):
+        Image.fromarray(np.random.RandomState(9).randint(0, 256, (20, 28, 3)).astype(np.uint8)).save(
+            llff_pair / root / "images" / "img_000.JPG", quality=90, progressive=True)
+    ref = JaxLLFFDataset(str(llff_pair / "jpeg_jax"), "train", factor=1)
+    got = LLFFDataset(str(llff_pair / "jpeg_port"), "train", factor=1)
+    for i in range(len(got)):
+        for a, b in zip(got[i], ref[i]):
+            np.testing.assert_array_equal(a, b)
+    arith = bytearray((llff_pair / "jpeg_port" / "images" / "img_001.JPG").read_bytes())
+    arith[arith.index(b"\xff\xc0") + 1] = 0xC9  # the frame header of an arithmetic-coded file
+    (llff_pair / "jpeg_port" / "images" / "img_000.JPG").write_bytes(bytes(arith))
+    with pytest.raises(NotImplementedError, match="img_000.JPG.*SOF9"):
         LLFFDataset(str(llff_pair / "jpeg_port"), "train", factor=1)
 
 

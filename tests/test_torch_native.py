@@ -76,8 +76,9 @@ def test_grey_and_other_layouts_decode_as_libjpeg(tmp_path, hw):
 
 
 def test_unsupported_jpegs_raise_naming_the_file(tmp_path):
+    """Arithmetic coding and CMYK wait for a later slice; DNL, hierarchical frames and 12-bit samples are refused
+    by the JAX package's libjpeg too. (Progressive files decode: tests/test_torch_jpeg_progressive.py.)"""
     picture = _picture(24, 40)
-    Image.fromarray(picture).save(tmp_path / "progressive.jpg", "JPEG", progressive=True)
     Image.fromarray(picture).convert("CMYK").save(tmp_path / "cmyk.jpg", "JPEG")
     base = tmp_path / "base.jpg"
     Image.fromarray(picture).save(base, "JPEG")
@@ -89,15 +90,25 @@ def test_unsupported_jpegs_raise_naming_the_file(tmp_path):
     twelve = bytearray(data)
     twelve[sof + 4] = 12  # 12-bit samples
     (tmp_path / "twelve.jpg").write_bytes(twelve)
-    for name, what in (("progressive", "SOF2"), ("arith", "SOF9"), ("cmyk", "4 components"),
-                       ("twelve", "12-bit")):
+    dnl = bytearray(data)
+    dnl[sof + 5:sof + 7] = b"\x00\x00"  # height 0: the height would follow the scan in a DNL marker
+    (tmp_path / "dnl.jpg").write_bytes(dnl)
+    sof5 = bytearray(data)
+    sof5[sof + 1] = 0xC5  # a differential (hierarchical) frame
+    (tmp_path / "sof5.jpg").write_bytes(sof5)
+    for name, what in (("arith", "SOF9"), ("cmyk", "4 components"), ("twelve", "12-bit"), ("dnl", "height 0 .DNL"),
+                       ("sof5", "SOF5")):
         path = tmp_path / f"{name}.jpg"
         with pytest.raises(NotImplementedError, match=f"{name}.jpg.*{what}"):
             native.decode_image(path)
         with pytest.raises(NotImplementedError, match=f"{name}.jpg"):
             native.decode_batch([path])
-    with pytest.raises(NotImplementedError, match="progressive.jpg.*progressive"):
-        load_image(tmp_path / "progressive.jpg")
+        if name in ("dnl", "sof5"):  # the JAX package refuses these too
+            with pytest.raises(IOError):
+                jax_native.decode_image(str(path))
+            assert cv2.imread(str(path), cv2.IMREAD_UNCHANGED) is None, name
+    with pytest.raises(NotImplementedError, match="arith.jpg.*arithmetic"):
+        load_image(tmp_path / "arith.jpg")
 
 
 def _with_huffman_table(data, tc, th, counts, values):

@@ -19,9 +19,9 @@ numpy pose math:
 the ``images_{factor}/`` or ``images_{W}x{H}/`` cache of PNGs, resized
 with ``utils/images.py::resize_area``, the JAX package's ``cv2.INTER_AREA``
 byte for byte. The sources may be PNG or JPEG (real LLFF and 360 captures
-ship ``.JPG``): JPEGs are decoded by the port's own baseline decoder
-(``yanerf_tpu_torch/native``), which equals the JAX package's libjpeg
-decode. Image shapes come from the file headers, turned by a JPEG's EXIF
+ship ``.JPG``): JPEGs, baseline or progressive, are decoded by the port's
+own decoder (``yanerf_tpu_torch/native``), which equals the JAX package's
+libjpeg decode. Image shapes come from the file headers, turned by a JPEG's EXIF
 orientation as the JAX loader's ``cv2.imread`` returns them; the pixels are
 decoded unturned, as its ``cv2.IMREAD_UNCHANGED`` and ``native`` reads are.
 """

@@ -6,14 +6,16 @@ contracts: ``available()``, ``image_dims(path)`` -> ``(H, W)``,
 ``decode_batch(paths, n_threads)`` -> ``(N, H, W, 3)`` for same-sized
 images. The format is read from the file's first bytes, not its name.
 
-* JPEG goes through ``src/jpeg.cpp``, a baseline decoder written for the
-  port that links no imaging library and reproduces libjpeg-turbo's
-  default decode (integer IDCT, fancy upsampling, its YCbCr tables) byte
-  for byte. It is built with ``g++ -O3 -shared -fPIC -std=c++17`` at first
-  use into ``yanerf_tpu_torch/_build/`` (cached by content) and bound with
-  ctypes; ``decode_batch`` decodes on ``std::thread`` s, outside the GIL.
-  Progressive, arithmetic-coded, 12-bit and CMYK files raise
-  ``NotImplementedError`` naming the file and the frame type.
+* JPEG goes through ``src/jpeg.cpp``, a decoder written for the port that
+  links no imaging library and reproduces libjpeg-turbo's default decode
+  (integer IDCT, fancy upsampling, its YCbCr tables; for progressive files
+  cut short, its 3.x block smoothing) byte for byte: baseline and
+  progressive Huffman files, with or without their own Huffman tables. It
+  is built with ``g++ -O3 -shared -fPIC -std=c++17`` at first use into
+  ``yanerf_tpu_torch/_build/`` (cached by content) and bound with ctypes;
+  ``decode_batch`` decodes on ``std::thread`` s, outside the GIL.
+  Arithmetic-coded, lossless, hierarchical, 12-bit, CMYK and DNL files
+  raise ``NotImplementedError`` naming the file and the frame type.
 * PNG goes through the numpy decoder ``utils/images.py::decode_png``; zlib
   releases the GIL, so ``decode_batch`` runs PNGs on a thread pool.
 
@@ -87,11 +89,14 @@ def image_format(path: PathLike) -> str:
     raise IOError(f"{path}: neither a PNG nor a JPEG file")
 
 
-def jpeg_info(path: PathLike) -> Tuple[int, int, int, int]:
-    """``(H, W, components, EXIF orientation)`` of a JPEG, from its headers (orientation 1 when absent)."""
+def jpeg_info(path: PathLike, library: HostLibrary = LIBRARY) -> Tuple[int, int, int, int]:
+    """``(H, W, components, EXIF orientation)`` of a JPEG, from its headers (orientation 1 when absent).
+
+    ``library`` (here and below) is the decoder's build: another ``jpeg.cpp``
+    can be timed beside this one (``decode_rate.py --against``)."""
     h, w, nc, orient = (ctypes.c_int() for _ in range(4))
     err = ctypes.create_string_buffer(_ERR_LEN)
-    rc = LIBRARY.library().yt_jpeg_info(
+    rc = library.library().yt_jpeg_info(
         str(path).encode(), ctypes.byref(h), ctypes.byref(w), ctypes.byref(nc), ctypes.byref(orient), err, _ERR_LEN
     )
     if rc != 0:
@@ -108,17 +113,17 @@ def image_dims(path: PathLike) -> Tuple[int, int]:
     return jpeg_info(path)[:2]
 
 
-def decode_image_u8(path: PathLike) -> np.ndarray:
+def decode_image_u8(path: PathLike, library: HostLibrary = LIBRARY) -> np.ndarray:
     """A PNG or JPEG as uint8 RGB, ``(H, W, 3)`` (alpha dropped, grey repeated; no EXIF rotation)."""
     if image_format(path) == "png":
         from ..utils.images import decode_png
 
         with open(path, "rb") as fp:
             return decode_png(fp.read())
-    h, w = jpeg_info(path)[:2]
+    h, w = jpeg_info(path, library)[:2]
     out = np.empty((h, w, 3), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
-    rc = LIBRARY.library().yt_jpeg_decode(
+    rc = library.library().yt_jpeg_decode(
         str(path).encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, err, _ERR_LEN
     )
     if rc != 0:
@@ -126,12 +131,12 @@ def decode_image_u8(path: PathLike) -> np.ndarray:
     return out
 
 
-def decode_image(path: PathLike) -> np.ndarray:
+def decode_image(path: PathLike, library: HostLibrary = LIBRARY) -> np.ndarray:
     """A PNG or JPEG as float32 RGB in [0, 1], ``(H, W, 3)``."""
-    return decode_image_u8(path).astype(np.float32) / np.float32(255.0)
+    return decode_image_u8(path, library).astype(np.float32) / np.float32(255.0)
 
 
-def decode_batch(paths: Sequence[PathLike], n_threads: int = 0) -> np.ndarray:
+def decode_batch(paths: Sequence[PathLike], n_threads: int = 0, library: HostLibrary = LIBRARY) -> np.ndarray:
     """Decode same-sized images in parallel -> ``(N, H, W, 3)`` float32; JPEGs on C++ threads, PNGs on a pool."""
     if not paths:
         raise ValueError("empty batch")
@@ -146,7 +151,7 @@ def decode_batch(paths: Sequence[PathLike], n_threads: int = 0) -> np.ndarray:
         names = (ctypes.c_char_p * len(jpegs))(*[str(paths[i]).encode() for i in jpegs])
         status = (ctypes.c_int * len(jpegs))()
         err = ctypes.create_string_buffer(_ERR_LEN)
-        rc = LIBRARY.library().yt_jpeg_decode_batch(
+        rc = library.library().yt_jpeg_decode_batch(
             names, len(jpegs), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), h, w, n_threads, status, err, _ERR_LEN
         )
         if rc != 0:

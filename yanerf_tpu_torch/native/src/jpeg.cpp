@@ -1,19 +1,37 @@
-// A self-contained baseline JPEG decoder for the host data pipeline.
+// A self-contained JPEG decoder for the host data pipeline.
 //
-// It reads baseline Huffman JPEGs (SOF0, and SOF1 at 8 bits) with one or
-// three components, any integer chroma sampling (4:4:4, 4:2:2, 4:2:0,
-// 4:4:0, ...), interleaved or per-component scans and restart markers, and
-// writes 8-bit RGB. The arithmetic is libjpeg-turbo's with its default
-// decompression settings, so the output is that library's byte for byte:
+// It reads Huffman-coded 8-bit JPEGs with one or three components, any
+// integer chroma sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...) and restart
+// markers, and writes 8-bit RGB:
+//   * sequential files (SOF0, and SOF1 at 8 bits), interleaved or with one
+//     scan per component, decoded and inverse-transformed block by block;
+//   * progressive files (SOF2): every scan of the script (DC first and
+//     refinement, AC first and refinement with end-of-band runs) fills a
+//     coefficient buffer per component, as jdphuff.c decodes them; after
+//     the last scan each block is dequantised with the table the component
+//     had at its first scan and inverse-transformed. A file that ends
+//     before every coefficient is refined (a truncated upload, or a scan
+//     script that stops above Al = 0) gets libjpeg-turbo 3.x's block
+//     smoothing (jdcoefct.c smoothing_ok / decompress_smooth_data): the
+//     missing low-frequency coefficients are estimated from a 5x5
+//     neighbourhood of DC values. A complete file never smooths;
+//   * a scan whose Huffman table slot 0 or 1 no DHT defined takes the
+//     standard tables of ITU T.81 Annex K.3 (Motion-JPEG frames carry
+//     none), as jstdhuff.c does; a file's own DHT always wins.
+// The arithmetic is libjpeg-turbo's with its default decompression
+// settings, so the output is that library's byte for byte:
 //   * the integer inverse DCT of jidctint.c (JDCT_ISLOW: CONST_BITS 13,
 //     PASS1_BITS 2, the post-IDCT range-limit table of jdmaster.c);
 //   * "fancy" triangular upsampling (jdsample.c: h2v1, h1v2, h2v2 with
 //     their rounding biases; plain replication when the downsampled width
 //     is 2 or less, or for other integer ratios);
 //   * the fixed-point YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16).
-// Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-// samples and four-component (CMYK / YCCK) files are refused with
-// kUnsupported and a message naming the frame type.
+// Refused with kUnsupported and a message naming the frame type:
+// arithmetic coding (SOF9-11, DAC) and lossless frames (SOF3), which no
+// encoder at hand writes to test against; four-component (CMYK / YCCK)
+// files, which the reference converts two different ways; and what
+// libjpeg-turbo refuses too: hierarchical frames (SOF5-7, SOF13-15),
+// 12-bit samples and a height left to a DNL marker.
 //
 // C ABI for ctypes (every call returns 0 or a negative error code, with a
 // message in `err` when one is given):
@@ -27,6 +45,8 @@
 // Build: g++ -O3 -shared -fPIC -std=c++17 jpeg.cpp -lpthread (no libjpeg).
 
 #include <algorithm>
+#include <array>
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -57,6 +77,35 @@ const int kNaturalOrder[64 + 16] = {
     40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
     29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
     47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// T.81 Annex K.3: the standard tables, as jstdhuff.c loads them (counts of
+// code lengths 1-16, then the symbols): luminance DC / AC into slot 0,
+// chrominance DC / AC into slot 1.
+const uint8_t kStdDcLumCounts[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kStdDcChromCounts[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kStdDcValues[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdAcLumCounts[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kStdAcLumValues[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71,
+    0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37,
+    0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kStdAcChromCounts[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kStdAcChromValues[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22,
+    0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36,
+    0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 // ------------------------------------------------------------- Huffman ----
 
@@ -115,19 +164,25 @@ struct HuffTable {
 };
 
 // The entropy-coded segment's bit reader. Like libjpeg it stops at a
-// marker and then feeds zero bits; 0xFF00 is a stuffed 0xFF.
+// marker (or the end of the file) and then feeds zero bits; 0xFF00 is a
+// stuffed 0xFF. `pad` counts the zero bits fed since, so the segment's data
+// ran out (libjpeg's insufficient_data) once fewer than `pad` bits remain.
 struct BitReader {
   const uint8_t* data;
   size_t size;
   size_t pos;
   uint64_t acc = 0;
   int nbits = 0;
+  int pad = 0;
   bool at_marker = false;
 
+  bool starved() const { return nbits < pad; }
   void fill() {
     while (nbits <= 56) {
       uint8_t byte = 0;
-      if (!at_marker && pos < size) {
+      if (at_marker || pos >= size) {
+        pad += 8;
+      } else {
         byte = data[pos];
         if (byte == 0xFF) {
           size_t q = pos + 1;
@@ -137,6 +192,7 @@ struct BitReader {
           } else {
             at_marker = true;  // leave pos on the marker's first 0xFF
             byte = 0;
+            pad += 8;
           }
         } else {
           ++pos;
@@ -178,16 +234,22 @@ struct BitReader {
     if (l > 16) return 0;  // corrupt data: libjpeg warns and takes 0
     return t.vals[(t.valoffset[l] + code) & 0xFF];
   }
-  // Byte-align at a restart interval's end and consume its RSTn marker.
-  void restart() {
+  // Byte-align at a restart interval's end and consume its RSTn marker;
+  // false when another marker (or the end of the file) comes first.
+  bool restart() {
     acc = 0;
     nbits = 0;
+    pad = 0;
     at_marker = false;
     while (pos + 1 < size && !(data[pos] == 0xFF && data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7)) {
       if (data[pos] == 0xFF && data[pos + 1] != 0x00 && data[pos + 1] != 0xFF) break;  // another marker
       ++pos;
     }
-    if (pos + 1 < size && data[pos] == 0xFF && data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7) pos += 2;
+    if (pos + 1 < size && data[pos] == 0xFF && data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7) {
+      pos += 2;
+      return true;
+    }
+    return false;
   }
 };
 
@@ -366,6 +428,17 @@ struct Component {
   int dw = 0, dh = 0;         // downsampled width / height (jdinput.c)
   std::vector<uint8_t> plane; // bw*8 x bh*8 samples
   int dc_pred = 0;
+  // Progressive only: bw x bh blocks of 64 coefficients in natural order,
+  // allocated at the first scan that names the component, with the
+  // quantization table latched then (jdinput.c latch_quant_tables).
+  std::vector<int16_t> coef;
+  uint16_t qt[64];
+  // jdphuff.c's progression status per zigzag coefficient: the Al of the
+  // last scan that coded it (-1: none yet), and its value before the
+  // latest scan that named the component.
+  int coef_bits[64];
+  int prev_bits[64];
+  int16_t* block(int bx, int by) { return coef.data() + (size_t(by) * bw + bx) * 64; }
 };
 
 struct Frame {
@@ -376,6 +449,9 @@ struct Frame {
   bool quant_defined[4] = {false, false, false, false};
   HuffTable dc[4], ac[4];
   int restart_interval = 0;
+  bool progressive = false;
+  int scans = 0;                 // SOS markers read (libjpeg's input_scan_number)
+  int last_good_row = INT_MAX;   // the last iMCU row the latest scan decoded before its data ran out
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   int orientation = 1;
@@ -447,9 +523,16 @@ class Decoder {
       }
       if (m >= 0xD0 && m <= 0xD7) continue;  // stray RSTn
       if (m == 0x01) continue;              // TEM
-      if (pos_ + 2 > size_) fail(kErrDecode, "truncated marker segment");
+      // A file cut after its first scan ends there, as libjpeg ends it.
+      if (pos_ + 2 > size_) {
+        if (scanned_) break;
+        fail(kErrDecode, "truncated marker segment");
+      }
       int len = be16(data_ + pos_);
-      if (len < 2 || pos_ + len > size_) fail(kErrDecode, "truncated marker segment");
+      if (len < 2 || pos_ + len > size_) {
+        if (scanned_ && len >= 2) break;
+        fail(kErrDecode, "truncated marker segment");
+      }
       const uint8_t* body = data_ + pos_ + 2;
       size_t blen = size_t(len) - 2;
       size_t next = pos_ + len;
@@ -485,6 +568,7 @@ class Decoder {
     }
     if (f_.sof < 0) fail(kErrDecode, "no frame header (SOF)");
     if (!header_only && !scanned_) fail(kErrDecode, "no scan (SOS)");
+    if (!header_only && f_.progressive) finish_progressive();
   }
 
   const Frame& frame() const { return f_; }
@@ -540,7 +624,7 @@ class Decoder {
   }
 
   void read_sof(int m, const uint8_t* p, size_t n) {
-    if (m != 0xC0 && m != 0xC1) fail(kUnsupported, sof_name(m));
+    if (m != 0xC0 && m != 0xC1 && m != 0xC2) fail(kUnsupported, sof_name(m));
     if (f_.sof >= 0) fail(kErrDecode, "two frame headers");
     if (n < 6) fail(kErrDecode, "bad SOF");
     f_.precision = p[0];
@@ -548,11 +632,13 @@ class Decoder {
     f_.height = be16(p + 1);
     f_.width = be16(p + 3);
     int nc = p[5];
-    if (f_.height <= 0 || f_.width <= 0) fail(kErrDecode, "zero image size (DNL is not supported)");
+    if (f_.height <= 0) fail(kUnsupported, std::string(sof_name(m)) + " with height 0 (DNL)");
+    if (f_.width <= 0) fail(kErrDecode, "zero image width");
     if (nc == 4) fail(kUnsupported, std::string(sof_name(m)) + " with 4 components (CMYK / YCCK)");
     if (nc != 1 && nc != 3) fail(kUnsupported, std::string(sof_name(m)) + " with " + std::to_string(nc) + " components");
     if (n < 6 + 3 * size_t(nc)) fail(kErrDecode, "bad SOF");
     f_.sof = m;
+    f_.progressive = m == 0xC2;
     f_.comps.resize(nc);
     for (int c = 0; c < nc; ++c) {
       Component& cp = f_.comps[c];
@@ -561,6 +647,8 @@ class Decoder {
       cp.v = p[7 + 3 * c] & 15;
       cp.tq = p[8 + 3 * c];
       if (cp.h < 1 || cp.h > 4 || cp.v < 1 || cp.v > 4 || cp.tq > 3) fail(kErrDecode, "bad component");
+      std::fill(cp.coef_bits, cp.coef_bits + 64, -1);
+      std::fill(cp.prev_bits, cp.prev_bits + 64, 0);
       f_.hmax = std::max(f_.hmax, cp.h);
       f_.vmax = std::max(f_.vmax, cp.v);
     }
@@ -609,6 +697,7 @@ class Decoder {
     if (n < 1) fail(kErrDecode, "bad SOS");
     int ns = p[0];
     if (ns < 1 || ns > 4 || n < 4 + 2 * size_t(ns)) fail(kErrDecode, "bad SOS");
+    if (!scanned_) load_standard_tables();
     std::vector<Component*> sc;
     for (int s = 0; s < ns; ++s) {
       int id = p[1 + 2 * s];
@@ -619,15 +708,21 @@ class Decoder {
       cp->td = p[2 + 2 * s] >> 4;
       cp->ta = p[2 + 2 * s] & 15;
       if (cp->td > 3 || cp->ta > 3) fail(kErrDecode, "bad SOS table");
+      sc.push_back(cp);
+    }
+    int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
+    if (f_.progressive) {
+      progressive_scan(sc, ss, se, ah, al);
+      return;
+    }
+    for (Component* cp : sc) {
       if (!f_.dc[cp->td].defined || !f_.ac[cp->ta].defined) fail(kErrDecode, "scan uses an undefined Huffman table");
       if (f_.dc[cp->td].bad || f_.ac[cp->ta].bad) fail(kErrDecode, "bad Huffman table");
       if (!f_.quant_defined[cp->tq]) fail(kErrDecode, "component uses an undefined quantization table");
       if (cp->plane.empty()) cp->plane.assign(size_t(cp->bw) * 8 * cp->bh * 8, 0);
       cp->dc_pred = 0;
-      sc.push_back(cp);
     }
-    int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ahal = p[3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahal != 0) fail(kUnsupported, "a non-sequential scan (Ss/Se/Ah/Al)");
+    if (ss != 0 || se != 63 || ah != 0 || al != 0) fail(kUnsupported, "a non-sequential scan (Ss/Se/Ah/Al)");
 
     BitReader br{data_, size_, pos_};
     int16_t block[64];
@@ -682,11 +777,315 @@ class Decoder {
           maybe_restart(my == f_.mcuy - 1 && mx == f_.mcux - 1);
         }
     }
-    // Continue the marker scan after the entropy-coded data.
-    pos_ = br.pos;
+    skip_entropy_data(br.pos);
+  }
+
+  // Continue the marker scan after a scan's entropy-coded data.
+  void skip_entropy_data(size_t from) {
+    pos_ = from;
     while (pos_ + 1 < size_ && !(data_[pos_] == 0xFF && data_[pos_ + 1] != 0x00 &&
                                  !(data_[pos_ + 1] >= 0xD0 && data_[pos_ + 1] <= 0xD7))) {
       ++pos_;
+    }
+  }
+
+  // jstdhuff.c, at the first scan: the standard tables into slots 0 and 1
+  // that no DHT has defined.
+  void load_standard_tables() {
+    if (!f_.dc[0].defined) f_.dc[0].build(kStdDcLumCounts, kStdDcValues, 12, true);
+    if (!f_.ac[0].defined) f_.ac[0].build(kStdAcLumCounts, kStdAcLumValues, 162, false);
+    if (!f_.dc[1].defined) f_.dc[1].build(kStdDcChromCounts, kStdDcValues, 12, true);
+    if (!f_.ac[1].defined) f_.ac[1].build(kStdAcChromCounts, kStdAcChromValues, 162, false);
+  }
+
+  // One scan of a progressive file into the components' coefficients.
+  void progressive_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
+    const int ns = int(sc.size());
+    // jdphuff.c start_pass_phuff_decoder: a DC scan codes coefficient 0
+    // alone, an AC scan one component's band; a refinement lowers Al by one.
+    bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad)
+      fail(kErrDecode, "bad progressive scan (Ss " + std::to_string(ss) + ", Se " + std::to_string(se) + ", Ah " +
+                           std::to_string(ah) + ", Al " + std::to_string(al) + ")");
+    const bool dc = ss == 0;
+    ++f_.scans;
+    f_.last_good_row = INT_MAX;
+    for (Component* c : sc) {
+      if (c->coef.empty()) {
+        if (!f_.quant_defined[c->tq]) fail(kErrDecode, "component uses an undefined quantization table");
+        memcpy(c->qt, f_.quant[c->tq], sizeof(c->qt));
+        c->coef.assign(size_t(c->bw) * c->bh * 64, 0);
+      }
+      if (!dc || ah == 0) {  // a DC refinement reads no Huffman table
+        const HuffTable& t = dc ? f_.dc[c->td] : f_.ac[c->ta];
+        if (!t.defined) fail(kErrDecode, "scan uses an undefined Huffman table");
+        if (t.bad) fail(kErrDecode, "bad Huffman table");
+      }
+      for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k) c->prev_bits[k] = f_.scans > 1 ? c->coef_bits[k] : 0;
+      for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+      c->dc_pred = 0;
+    }
+
+    BitReader br{data_, size_, pos_};
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int eobrun = 0;
+    // Walk the scan's MCUs; once the data run out (libjpeg's
+    // insufficient_data) the rest of the scan is left as it is, until a
+    // restart marker is found.
+    auto walk = [&](auto&& decode_block) {
+      const int ri = f_.restart_interval;
+      int todo = ri;
+      bool starved = false;
+      auto end_mcu = [&](int imcu_row, bool last) {
+        if (!starved && br.starved()) {
+          starved = true;
+          f_.last_good_row = std::min(f_.last_good_row, imcu_row);
+        }
+        if (ri && --todo == 0 && !last) {
+          if (br.restart()) starved = false;
+          eobrun = 0;
+          for (Component* c : sc) c->dc_pred = 0;
+          todo = ri;
+        }
+      };
+      if (ns == 1) {
+        Component& c = *sc[0];
+        const int cbw = (c.dw + 7) / 8, cbh = (c.dh + 7) / 8;
+        for (int by = 0; by < cbh; ++by)
+          for (int bx = 0; bx < cbw; ++bx) {
+            if (!starved) decode_block(c, c.block(bx, by));
+            end_mcu(by / c.v, by == cbh - 1 && bx == cbw - 1);
+          }
+      } else {
+        for (int my = 0; my < f_.mcuy; ++my)
+          for (int mx = 0; mx < f_.mcux; ++mx) {
+            if (!starved)
+              for (Component* c : sc)
+                for (int v = 0; v < c->v; ++v)
+                  for (int h = 0; h < c->h; ++h) decode_block(*c, c->block(mx * c->h + h, my * c->v + v));
+            end_mcu(my, my == f_.mcuy - 1 && mx == f_.mcux - 1);
+          }
+      }
+    };
+    // The four decoders of jdphuff.c.
+    if (dc && ah == 0) {  // DC first: the difference, shifted left by Al
+      walk([&](Component& c, int16_t* b) {
+        int s = br.decode(f_.dc[c.td]);
+        c.dc_pred += s ? extend(br.get(s), s) : 0;
+        b[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_pred) << al);
+      });
+    } else if (dc) {  // DC refinement: one bit into bit Al
+      walk([&](Component&, int16_t* b) {
+        if (br.get(1)) b[0] = static_cast<int16_t>(b[0] | p1);
+      });
+    } else if (ah == 0) {  // AC first: run/size symbols and end-of-band runs
+      const HuffTable& t = f_.ac[sc[0]->ta];
+      walk([&](Component&, int16_t* b) {
+        if (eobrun > 0) {
+          --eobrun;
+          return;
+        }
+        for (int k = ss; k <= se; ++k) {
+          int rs = br.decode(t);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {
+            k += r;
+            b[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<uint32_t>(extend(br.get(s), s)) << al);
+          } else if (r == 15) {
+            k += 15;
+          } else {
+            eobrun = (1 << r) + br.get(r) - 1;
+            break;
+          }
+        }
+      });
+    } else {  // AC refinement: correction bits and new coefficients of +-(1 << Al)
+      const HuffTable& t = f_.ac[sc[0]->ta];
+      auto correct = [&](int16_t* coef) {
+        if (br.get(1) && (*coef & p1) == 0) *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+      };
+      walk([&](Component&, int16_t* b) {
+        int k = ss;
+        if (eobrun == 0) {
+          for (; k <= se; ++k) {
+            int rs = br.decode(t);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+              s = br.get(1) ? p1 : m1;  // a new coefficient's size is always 1
+            } else if (r != 15) {
+              eobrun = (1 << r) + br.get(r);
+              break;
+            }
+            // Pass r coefficients that are still zero, correcting the
+            // nonzero ones on the way.
+            do {
+              int16_t* coef = b + kNaturalOrder[k];
+              if (*coef != 0) {
+                correct(coef);
+              } else if (--r < 0) {
+                break;
+              }
+              ++k;
+            } while (k <= se);
+            if (s) b[kNaturalOrder[k]] = static_cast<int16_t>(s);
+          }
+        }
+        if (eobrun > 0) {
+          for (; k <= se; ++k) {
+            int16_t* coef = b + kNaturalOrder[k];
+            if (*coef != 0) correct(coef);
+          }
+          --eobrun;
+        }
+      });
+    }
+    skip_entropy_data(br.pos);
+  }
+
+  // jdcoefct.c smoothing_ok: each component's progression status of
+  // coefficients 0-9 as the last scan left it (and as the one before it
+  // left it), and whether smoothing is useful: some of coefficients 1-9
+  // are not yet exact.
+  bool smoothing_ok(std::vector<std::array<int, 10>>* latch, std::vector<std::array<int, 10>>* prev) const {
+    bool useful = false;
+    for (size_t ci = 0; ci < f_.comps.size(); ++ci) {
+      const Component& c = f_.comps[ci];
+      if (c.coef.empty()) return false;  // no quantization table latched
+      for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (c.qt[pos] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      (*latch)[ci][0] = c.coef_bits[0];
+      (*prev)[ci][0] = 0;
+      for (int k = 1; k < 10; ++k) {
+        (*prev)[ci][k] = f_.scans > 1 ? c.prev_bits[k] : -1;
+        (*latch)[ci][k] = c.coef_bits[k];
+        if (c.coef_bits[k] != 0) useful = true;
+      }
+    }
+    return useful;
+  }
+
+  // After the last scan: every block of a progressive file dequantised and
+  // inverse-transformed into its component's plane, smoothed where the
+  // file left coefficients unrefined.
+  void finish_progressive() {
+    const size_t nc = f_.comps.size();
+    std::vector<std::array<int, 10>> latch(nc), prev(nc);
+    const bool smooth = smoothing_ok(&latch, &prev);
+    for (size_t ci = 0; ci < nc; ++ci) {
+      Component& c = f_.comps[ci];
+      const size_t stride = size_t(c.bw) * 8;
+      c.plane.assign(stride * c.bh * 8, 128);  // a component no scan named stays grey, as in libjpeg
+      if (c.coef.empty()) continue;
+      if (smooth) {
+        smooth_component(c, latch[ci].data(), prev[ci].data());
+        continue;
+      }
+      const int wib = (c.dw + 7) / 8, hib = (c.dh + 7) / 8;
+      for (int by = 0; by < hib; ++by)
+        for (int bx = 0; bx < wib; ++bx)
+          idct_islow(c.block(bx, by), c.qt, c.plane.data() + size_t(by) * 8 * stride + size_t(bx) * 8, stride);
+    }
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 3.x): an estimate for
+  // each of coefficients 1-9 that is still zero and not known exact, from
+  // the DC values of a 5x5 neighbourhood of blocks, clamped below 1 << Al;
+  // when no AC coefficient has arrived yet, the DC value is re-estimated
+  // too. Rows past the last one the latest scan decoded use the status
+  // before that scan. The walk over iMCU rows is libjpeg's, edges included.
+  void smooth_component(Component& c, const int* latch, const int* prev) {
+    const int total = f_.mcuy, last_row = total - 1, v = c.v;
+    const int wib = (c.dw + 7) / 8, hib = (c.dh + 7) / 8, last_col = wib - 1;
+    const size_t stride = size_t(c.bw) * 8;
+    const int64_t Q00 = c.qt[0], Q01 = c.qt[1], Q10 = c.qt[8], Q20 = c.qt[16], Q11 = c.qt[9], Q02 = c.qt[2],
+                  Q03 = c.qt[3], Q12 = c.qt[10], Q21 = c.qt[17], Q30 = c.qt[24];
+    auto estimate = [](int64_t num, int64_t q, int al) {
+      int pred = int(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      return static_cast<int16_t>(num >= 0 ? pred : -pred);
+    };
+    int16_t ws[64];
+    for (int row = 0; row < total; ++row) {
+      int block_rows = v;
+      if (row == last_row) {
+        block_rows = hib % v;
+        if (block_rows == 0) block_rows = v;
+      }
+      const int* bits = row > f_.last_good_row ? prev : latch;
+      bool change_dc = true;
+      for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+      const int image_block_rows = block_rows * total;
+      for (int br = 0; br < block_rows; ++br) {
+        const int ibr = row * block_rows + br, cur = row * v + br;
+        const int r2 = ibr > 0 ? cur - 1 : cur, r1 = ibr > 1 ? cur - 2 : r2;
+        const int r4 = ibr < image_block_rows - 1 ? cur + 1 : cur, r5 = ibr < image_block_rows - 2 ? cur + 2 : r4;
+        const int rows[5] = {r1, r2, cur, r4, r5};
+        // dc[i][j]: row i of the window (top to bottom), column j (left to right)
+        int dc[5][5];
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) dc[i][j] = c.block(0, rows[i])[0];
+        for (int bx = 0; bx <= last_col; ++bx) {
+          memcpy(ws, c.block(bx, cur), sizeof(ws));
+          if (bx == 0 && bx < last_col)
+            for (int i = 0; i < 5; ++i) dc[i][3] = dc[i][4] = c.block(1, rows[i])[0];
+          if (bx + 1 < last_col)
+            for (int i = 0; i < 5; ++i) dc[i][4] = c.block(bx + 2, rows[i])[0];
+          const int DC01 = dc[0][0], DC02 = dc[0][1], DC03 = dc[0][2], DC04 = dc[0][3], DC05 = dc[0][4];
+          const int DC06 = dc[1][0], DC07 = dc[1][1], DC08 = dc[1][2], DC09 = dc[1][3], DC10 = dc[1][4];
+          const int DC11 = dc[2][0], DC12 = dc[2][1], DC13 = dc[2][2], DC14 = dc[2][3], DC15 = dc[2][4];
+          const int DC16 = dc[3][0], DC17 = dc[3][1], DC18 = dc[3][2], DC19 = dc[3][3], DC20 = dc[3][4];
+          const int DC21 = dc[4][0], DC22 = dc[4][1], DC23 = dc[4][2], DC24 = dc[4][3], DC25 = dc[4][4];
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0)  // AC01
+            ws[1] = estimate(Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+                                                 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 +
+                                                 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25)
+                                              : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+                             Q01, al);
+          if ((al = bits[2]) != 0 && ws[8] == 0)  // AC10
+            ws[8] = estimate(Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 +
+                                                 38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 -
+                                                 13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                                              : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+                             Q10, al);
+          if ((al = bits[3]) != 0 && ws[16] == 0)  // AC20
+            ws[16] = estimate(Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+                                                  5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                                               : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+                              Q20, al);
+          if ((al = bits[4]) != 0 && ws[9] == 0)  // AC11
+            ws[9] = estimate(Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 -
+                                                 DC25)
+                                              : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 +
+                                                 DC04 - DC06 + 10 * DC07 - 10 * DC09)),
+                             Q11, al);
+          if ((al = bits[5]) != 0 && ws[2] == 0)  // AC02
+            ws[2] = estimate(Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+                                                 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                                              : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+                             Q02, al);
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+              ws[3] = estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+            if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+              ws[10] = estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, al);
+            if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+              ws[17] = estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, al);
+            if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+              ws[24] = estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, al);
+            ws[0] = estimate(Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+                                    42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 +
+                                    42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                                    2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25),
+                             Q00, 0);
+          }
+          idct_islow(ws, c.qt, c.plane.data() + size_t(cur) * 8 * stride + size_t(bx) * 8, stride);
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 4; ++j) dc[i][j] = dc[i][j + 1];
+        }
+      }
     }
   }
 

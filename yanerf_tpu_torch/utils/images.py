@@ -2,10 +2,13 @@
 
 The port depends on no imaging package: a PNG is zlib-compressed filtered
 scanlines, a GIF is LZW over a fixed 3-3-2 palette. ``decode_png`` reads
-8- and 16-bit grey, grey+alpha, RGB, RGBA and palette images with any of
-the five scanline filters (not interlaced), and returns RGB with the alpha
-dropped and grey repeated, as ``yanerf_tpu``'s loader does
-(``native/src/image_io.cpp``: no compositing; 16-bit keeps the high byte).
+every layout libpng reads: grey at 1, 2, 4, 8 and 16 bits, grey+alpha, RGB
+and RGBA at 8 and 16 bits, palette images at 1, 2, 4 and 8 bits, with any
+of the five scanline filters, plain or Adam7-interlaced. It returns RGB as
+``yanerf_tpu``'s loader does (``native/src/image_io.cpp``): alpha and tRNS
+dropped (no compositing), grey repeated, 16-bit samples keeping their high
+byte, grey below 8 bits scaled to 0-255 (``png_set_expand_gray_1_2_4_to_8``)
+and palette indices looked up (``png_set_palette_to_rgb``).
 JPEGs go through the port's own decoder (``yanerf_tpu_torch/native``);
 ``load_image_u8`` / ``load_image`` read either format, told apart by the
 file's first bytes. ``image_shape`` reads the size from the PNG header or
@@ -87,6 +90,34 @@ def _unfilter(ftypes: np.ndarray, filt: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+# Adam7: each pass's first column and row and its steps along x and y.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}  # colour type -> bit depths
+
+
+def _samples(raw: np.ndarray, pos: int, w: int, h: int, depth: int, channels: int) -> Tuple[np.ndarray, int]:
+    """One image (or one Adam7 pass) of ``w x h`` pixels from the scanlines at ``raw[pos:]``: its ``(h, w,
+    channels)`` samples (16-bit ones cut to their high byte) and the position after its scanlines."""
+    bits = depth * channels
+    rowbytes = (w * bits + 7) // 8
+    bpp = max(1, bits // 8)  # the filters' byte distance: one byte below 8 bits per pixel
+    rows = raw[pos : pos + h * (1 + rowbytes)]
+    if rows.size != h * (1 + rowbytes):
+        raise ValueError("PNG image data ends early")
+    rows = rows.reshape(h, 1 + rowbytes)
+    px = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, rowbytes // bpp, bpp)).reshape(h, rowbytes)
+    if depth == 16:
+        out = px.reshape(h, w, channels, 2)[..., 0]  # big-endian samples: keep the high byte
+    elif depth == 8:
+        out = px.reshape(h, w, channels)
+    else:  # 1, 2 or 4 bits, one channel: samples packed from the high bits down
+        per_byte = 8 // depth
+        shifts = (8 - depth * np.arange(1, per_byte + 1)).astype(np.uint8)
+        unpacked = (px[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+        out = unpacked.reshape(h, rowbytes * per_byte)[:, :w, None]
+    return out, pos + h * (1 + rowbytes)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """Decode PNG bytes to an ``(H, W, 3)`` uint8 RGB image (alpha dropped, grey repeated)."""
     if data[:8] != _PNG_SIGNATURE:
@@ -107,18 +138,26 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if interlace or ctype not in _CHANNELS or depth not in (8, 16) or (ctype == 3 and depth != 8):
-        raise NotImplementedError(f"PNG colour type {ctype}, bit depth {depth}, interlace {interlace}")
+    if depth not in _DEPTHS.get(ctype, ()) or interlace > 1:
+        raise ValueError(f"not a valid PNG layout: colour type {ctype}, bit depth {depth}, interlace {interlace}")
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
     channels = _CHANNELS[ctype]
-    bpp = channels * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[: h * (1 + w * bpp)].reshape(h, 1 + w * bpp)
-    px = _unfilter(raw[:, 0], raw[:, 1:].reshape(h, w, bpp))
-    if depth == 16:
-        px = px.reshape(h, w, channels, 2)[..., 0]  # big-endian samples: keep the high byte
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if interlace:
+        px = np.zeros((h, w, channels), np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+            if pw and ph:  # an empty pass has no scanlines, not even filter bytes
+                px[y0::dy, x0::dx], pos = _samples(raw, pos, pw, ph, depth, channels)
+    else:
+        px = _samples(raw, 0, w, h, depth, channels)[0]
     if ctype == 3:
         return palette[px[..., 0]]
     if ctype in (0, 4):
-        return np.repeat(px[..., :1], 3, axis=-1)
+        grey = px[..., :1] if depth >= 8 else px[..., :1] * np.uint8(255 // ((1 << depth) - 1))
+        return np.repeat(grey, 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])
 
 
