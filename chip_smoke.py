@@ -185,25 +185,38 @@ power limit:
              --device cuda``: every stage ok, the time-to-quality stage at
              its target, the kernels' launches read from its runs' logs;
  22. trajectory  ``yanerf_tpu_torch.trajectory`` on the 40-frame scene:
-             the flagship trained 1,000 steps on the fused dispatch along
+             the flagship trained 500 steps on the fused dispatch along
              the eager model, K1 + K3, K1 alone (the eager backward), K3
              alone (the eager forward) and the eager model one float32 ulp
              off, from one init and one draw stream; for every NeRF-MLP
              tensor the step-0 gradient's cosine, relative error and sign
              agreement against the eager arm, its error against the
              float32 gradient, and the weights' distance from the eager
-             arm at 10, 100 and 1,000 steps; K1 and K3 on their arms only;
+             arm at 10, 100 and 500 steps; K1 and K3 on their arms only;
  23. distributed  the fused flagship CLI (40 steps at 20 per dispatch) in a
              process group of one rank on this card (NCCL, a free local
              port): the runner's one-rank mesh, the gradient all-reduce
              captured in the CUDA graph, the evals' gather; weights, Adam's
-             moments and test stats bit for bit the run without a group.
+             moments and test stats bit for bit the run without a group;
+ 24. trace regions  the fused flagship CLI (steps_per_call 8, 24 steps
+             on 24 of the 40 views, a test eval of 2 frames at 800x800)
+             with ``runner.profile_dir`` over the dispatch of steps 8-15,
+             then 6 per-step iterations with every step and frame logged,
+             steps 2-4 profiled: one ``fused_dispatch_K8`` CPU region in
+             the trace and its device span (``gpu_user_annotation``) holding
+             K1's ``nerf_mlp_fwd_kernel`` and K3's ``tile_kernel`` and
+             ``dw_kernel`` 8 times each; one ``train_step_dispatch`` region
+             per profiled step, K1 in its device span (K3 is launched by
+             autograd's thread); ``data:`` then ``inference:`` on every
+             per-step and frame line of the logs, finite and >= 0; the
+             device time in the span per step beside the CLI's ``step_s``,
+             and the frames' ``inference`` median.
 
 Any failure exits non-zero, and so does a run in which K1 or K3 did not
 launch on an LLFF training path or K1 on an LLFF frame, K1 or K3 on the
 multi-scene control's training, K1 on a tool or the occupancy frame, or
 either of them on the latent path, or K1 on a path of phases 13-21 (K3
-on their training paths), or K1 or K3 on phases 22-23. Imports nothing of JAX or of
+on their training paths), or K1 or K3 on phases 22-24. Imports nothing of JAX or of
 yanerf_tpu. The
 last three lines are the kernels' JSON record, the card's name and power
 limit, and the result:
@@ -214,6 +227,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -302,7 +317,14 @@ JPEG_STEPS_PER_CALL = 8
 JPEG_TRAIN_STEPS = 40  # four epochs of 10 steps
 JPEG_DECODE_REPEATS = 3  # each decode timing is the fastest of this many passes over the capture
 MASK_LAYERS = 2  # the multi-layer sampling_prob_mask: one ray budget per layer
-TRAJECTORY_STEPS = 1000  # the four arms' weights compared at 10, 100 and 1,000 steps
+TRAJECTORY_STEPS = 500  # the arms' weights compared at 10, 100 and 500 steps: keeps the script near 600 s
+TRACE_STEPS_PER_CALL = 8
+TRACE_FUSED_STEPS = 24  # one epoch of 24 views: the vis step, then groups of 7, 8 (profiled) and 8
+TRACE_FUSED_PROFILE = (8, 8)  # profile_start_iter, profile_num_iters: the trace holds the dispatch of steps 8-15
+TRACE_PER_STEP_STEPS = 6
+TRACE_PER_STEP_PROFILE = (2, 3)  # steps 2-4 of the per-step run
+TRACE_K1_SYMBOLS = ("nerf_mlp_fwd_kernel",)  # csrc/nerf_mlp_fwd.cu
+TRACE_K3_SYMBOLS = ("tile_kernel", "dw_kernel")  # csrc/nerf_mlp_bwd.cu: the tile pass, the weight-gradient pass
 
 
 def card() -> str:
@@ -2200,6 +2222,173 @@ def distributed_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path,
     return {"distributed_train_fused": grouped["launches"]}
 
 
+def sub_scene(scene: Path, out: Path, n_train: int) -> Path:
+    """A Blender scene of ``scene``'s first ``n_train`` train views, its val views, and its val and test views
+    as the test split: transforms only, each frame's file ``scene``'s own."""
+    out.mkdir(parents=True)
+    meta = {split: json.loads((scene / f"transforms_{split}.json").read_text()) for split in ("train", "val", "test")}
+    splits = {"train": meta["train"]["frames"][:n_train], "val": meta["val"]["frames"],
+              "test": meta["val"]["frames"] + meta["test"]["frames"]}
+    for split, frames in splits.items():
+        frames = [dict(f, file_path=str(scene.resolve() / f["file_path"])) for f in frames]
+        (out / f"transforms_{split}.json").write_text(json.dumps(
+            {"camera_angle_x": meta["train"]["camera_angle_x"], "frames": frames}))  # one camera for every split
+    return out
+
+
+TIMED_LINE = re.compile(r" - INFO - (?:train|val|test)\tEpoch:\t\[-?\d+\]: ((?:iter|sampler): .*)$")
+FIELD = re.compile(r"([A-Za-z_]+): ([^\t]*)")
+
+
+def timed_lines(log: str) -> list:
+    """The per-step and per-frame lines of a ``run.log`` (the fused dispatch's ``step:`` lines too), each as a
+    list of (field, value)."""
+    return [FIELD.findall(m.group(1)) for m in map(TIMED_LINE.search, log.splitlines()) if m]
+
+
+def trace_spans(events: list, name: str) -> dict:
+    """The CPU regions named ``name`` of a Chrome trace, their device-side spans (``gpu_user_annotation``) and,
+    per device span, the kernels that ran inside it."""
+    def spans(cat):
+        return sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == cat and e.get("name") == name),
+                      key=lambda e: e["ts"])
+
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    gpu = spans("gpu_user_annotation")
+    inside = [[k for k in kernels if g["ts"] - 1 <= k["ts"] and k["ts"] + k["dur"] <= g["ts"] + g["dur"] + 1]
+              for g in gpu]
+    return {"cpu": spans("user_annotation"), "gpu": gpu, "kernels": inside}
+
+
+def symbol_counts(kernels: list) -> dict:
+    """Launches of each of K1's and K3's kernel symbols among ``kernels`` (trace events)."""
+    symbols = TRACE_K1_SYMBOLS + TRACE_K3_SYMBOLS
+    return {s: sum(1 for k in kernels if re.search(rf"\b{s}\(", k["name"])) for s in symbols}
+
+
+def trace_regions_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, config=None,
+                        fused_steps: int = TRACE_FUSED_STEPS, per_step_steps: int = TRACE_PER_STEP_STEPS,
+                        fused_profile=TRACE_FUSED_PROFILE, per_step_profile=TRACE_PER_STEP_PROFILE,
+                        unprofiled_step_s=None) -> dict:
+    """"trace regions": the runner's named trace regions and its log's data / inference fields, through the CLI.
+
+    ``config`` (the flagship) with ``use_pallas_train`` on every NeRFMLP,
+    ``profile_dir`` set: ``fused_steps`` steps on the fused dispatch
+    (``steps_per_call`` 8, one epoch of a scene of that many of
+    ``scene``'s views; the trace window ``fused_profile`` is one whole
+    dispatch of 8), then ``per_step_steps`` per-step iterations with every
+    step and frame logged (window ``per_step_profile``); each run ends with
+    its test eval (``scene``'s val and test views, 800x800). The trace must
+    hold one ``fused_dispatch_K8`` CPU region per profiled dispatch, on the
+    card each with its device span (``gpu_user_annotation``) holding K1's
+    (``nerf_mlp_fwd_kernel``) and K3's (``tile_kernel``, ``dw_kernel``)
+    kernels once per step and NeRFMLP, and one ``train_step_dispatch``
+    region per profiled step of the per-step run, on the card each with K1
+    once per NeRFMLP in its device span (the span holds what the
+    dispatching thread launched: K3 comes from ``backward()``'s autograd
+    thread, and Adam has its own region); every per-step and eval
+    frame line of the logs must give ``data:`` then ``inference:``, finite
+    and >= 0. Prints the device time inside each fused span per step beside
+    the fused run's ``step_s`` (which carries the capture and the trace's
+    export) and ``unprofiled_step_s`` (the "fused" phase's, no profiler),
+    and the frames' ``inference`` median.
+    """
+    from yanerf_tpu_torch import run
+
+    config = CONFIG if config is None else config
+    on_card = DEVICE == "cuda"
+
+    def cli(name: str, steps: int, steps_per_call: int, profile, extra=()):
+        data = sub_scene(scene, out_dir / f"{name}_scene", steps)
+        argv = ["--config", str(config), "--device", DEVICE, "--output_dir", str(out_dir / name), "--cfg_options",
+                *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(config)), f"runner.num_iters={steps}",
+                f"runner.steps_per_call={steps_per_call}", f"runner.profile_dir={out_dir / name / 'trace'}",
+                f"runner.profile_start_iter={profile[0]}", f"runner.profile_num_iters={profile[1]}",
+                *(f"datasets.{i}.base_dir={data}" for i in range(3)), "datasets.2.test_skip=1", *extra]
+        K1.launches = K1.pipelined_launches = K3.launches = 0
+        t = time.perf_counter()
+        result = run.main(argv)
+        sync(torch)
+        seconds = time.perf_counter() - t
+        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                    "nerf_mlp_bwd": K3.launches}
+        events = json.loads((out_dir / name / "trace" / "train_trace.json").read_text())["traceEvents"]
+        return result, launches, timed_lines((result["output_dir"] / "run.log").read_text()), events, seconds
+
+    fused, fused_launches, fused_lines, fused_events, fused_s = cli("fused", fused_steps, TRACE_STEPS_PER_CALL,
+                                                                    fused_profile)
+    if on_card:
+        torch.cuda.empty_cache()
+    per_step, per_step_launches, per_step_lines, per_step_events, per_step_s = cli(
+        "per_step", per_step_steps, 1, per_step_profile, ["runner.print_per_iter=1"])
+    n_mlps = kernel_mlps(fused["state"].pipeline)
+
+    k8 = trace_spans(fused_events, f"fused_dispatch_K{TRACE_STEPS_PER_CALL}")
+    dispatch = trace_spans(per_step_events, "train_step_dispatch")
+    in_span = [symbol_counts(kernels) for kernels in k8["kernels"]]
+    in_step_span = [symbol_counts(kernels) for kernels in dispatch["kernels"]]
+    per_dispatch = {s: TRACE_STEPS_PER_CALL * n_mlps for s in TRACE_K1_SYMBOLS + TRACE_K3_SYMBOLS}
+    step_lines = [f for f in per_step_lines if f and f[0][0] == "iter"]
+    frame_lines = [f for f in fused_lines + per_step_lines if f and f[0][0] == "sampler"]
+    timed = step_lines + frame_lines
+
+    def times_ok(fields):
+        names, values = [k for k, _ in fields], dict(fields)
+        at = 2 if names[0] == "iter" else 1
+        return names[at:at + 2] == ["data", "inference"] and all(
+            math.isfinite(float(values[k])) and float(values[k]) >= 0 for k in ("data", "inference"))
+
+    n_frames = len(json.loads((out_dir / "per_step_scene" / "transforms_test.json").read_text())["frames"])
+    fused_regions = {e["name"] for e in fused_events if e.get("cat") == "user_annotation"
+                     and e.get("name", "").startswith("fused_dispatch_K")}
+    checks = {
+        "steps": fused["state"].step == fused_steps and per_step["state"].step == per_step_steps,
+        "k1_k3_per_step": all(launches["nerf_mlp_fwd"] == launches["nerf_mlp_bwd"] == n_mlps * steps > 0
+                              and launches["nerf_mlp_fwd_pipelined"] == 0 for launches, steps in
+                              ((fused_launches, fused_steps), (per_step_launches, per_step_steps))),
+        "one_fused_region_per_profiled_dispatch": len(k8["cpu"]) == fused_profile[1] // TRACE_STEPS_PER_CALL
+        and fused_regions == {f"fused_dispatch_K{TRACE_STEPS_PER_CALL}"},
+        "one_dispatch_region_per_profiled_step": len(dispatch["cpu"]) == per_step_profile[1],
+        # every step and frame of the per-step run, the fused run's test frame 0 (lego.yml's print_per_iter)
+        "every_step_and_frame_line_times_data_then_inference": len(step_lines) == per_step_steps
+        and len(frame_lines) == 1 + n_frames and all(times_ok(f) for f in timed),
+    }
+    if on_card:
+        checks["device_span_per_fused_region"] = len(k8["gpu"]) == len(k8["cpu"])
+        checks["k1_k3_inside_each_device_span"] = bool(in_span) and all(c == per_dispatch for c in in_span)
+        # K3 runs in backward(), launched by autograd's device thread, outside the region's thread
+        checks["k1_inside_each_step_span"] = len(in_step_span) == len(dispatch["cpu"]) and all(
+            c[s] == n_mlps for c in in_step_span for s in TRACE_K1_SYMBOLS)
+    numbers = dict(
+        config=Path(config).name, steps={"fused": fused_steps, "per_step": per_step_steps},
+        steps_per_call=TRACE_STEPS_PER_CALL, profile={"fused": list(fused_profile), "per_step": list(per_step_profile)},
+        run_s={"fused": fused_s, "per_step": per_step_s}, launches={"fused": fused_launches, "per_step": per_step_launches},
+        fused_regions={"cpu": len(k8["cpu"]), "gpu": len(k8["gpu"])},
+        train_step_dispatch_regions={"cpu": len(dispatch["cpu"]), "gpu": len(dispatch["gpu"])},
+        kernel_symbols_in_fused_span=in_span, kernel_symbols_expected=per_dispatch,
+        kernel_symbols_in_step_spans=in_step_span,
+        device_span_ms_per_step=[g["dur"] / 1e3 / TRACE_STEPS_PER_CALL for g in k8["gpu"]],
+        kernel_ms_per_step=[sum(k["dur"] for k in ks) / 1e3 / TRACE_STEPS_PER_CALL for ks in k8["kernels"]],
+        kernels_per_fused_span=[len(ks) for ks in k8["kernels"]],
+        fused_step_s=fused["train_stats"][-1].get("step_s"), unprofiled_fused_step_s=unprofiled_step_s,
+        per_step_step_s=per_step["train_stats"][-1].get("step_s"),
+        step_lines=len(step_lines), frame_lines=len(frame_lines),
+        step_data_s=[float(dict(f)["data"]) for f in step_lines],
+        step_inference_s=[float(dict(f)["inference"]) for f in step_lines],
+        frame_inference_s=[float(dict(f)["inference"]) for f in frame_lines],
+        frame_inference_median_s=statistics.median(float(dict(f)["inference"]) for f in frame_lines)
+        if frame_lines else None,
+        checks=checks,
+    )
+    say(card_line, "trace regions", **numbers)
+    if on_card and not k8["gpu"]:
+        raise SystemExit("trace regions phase failed: the trace has no device-side span (gpu_user_annotation) for "
+                         "the fused dispatch's CUDA-graph replays on this PyTorch / CUPTI")
+    if not all(checks.values()):
+        raise SystemExit(f"trace regions phase failed: {checks}")
+    return {"trace_regions_train_fused": fused_launches, "trace_regions_train": per_step_launches}
+
+
 def payloads_equal(torch, a, b) -> bool:
     """Two checkpoint payloads equal tensor for tensor (dtype, device and bits), and in every other value."""
     if isinstance(a, torch.Tensor):
@@ -2381,6 +2570,11 @@ def main() -> int:
         split_paths.update(distributed_phase(torch, K1, K3, card_line, fused_scene, Path(tmp) / "distributed"))
         torch.cuda.empty_cache()
 
+        # the runner's named trace regions and its log's data / inference fields, through the CLI
+        trace_paths = trace_regions_phase(torch, K1, K3, card_line, fused_scene, Path(tmp) / "trace_regions",
+                                          unprofiled_step_s=fused_numbers["fused_ms_per_step"] / 1e3)
+        torch.cuda.empty_cache()
+
         # real captures from JPEGs (fern.yml, real_360.yml; baseline, then progressive files of the same views,
         # whose data path the baseline's card-vs-CPU family check already covers), sampling masks, the parity
         # runbook's smoke
@@ -2412,6 +2606,7 @@ def main() -> int:
         paths.update({name: launches.get(kernel, 0) for name, launches in checkpoint_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in capture_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in split_paths.items()})
+        paths.update({name: launches.get(kernel, 0) for name, launches in trace_paths.items()})
         return paths
 
     record = {
@@ -2467,6 +2662,10 @@ def main() -> int:
             if launches.get("nerf_mlp_fwd", 0) == 0 or launches.get("nerf_mlp_bwd", 0) == 0}
     if idle:
         raise SystemExit(f"a NeRF-MLP kernel did not run on the trajectory or the distributed path: {idle}")
+    idle = {name: launches for name, launches in trace_paths.items()
+            if launches.get("nerf_mlp_fwd", 0) == 0 or launches.get("nerf_mlp_bwd", 0) == 0}
+    if idle:
+        raise SystemExit(f"a NeRF-MLP kernel did not run on a path of the trace regions phase: {idle}")
     say(card_line, "total", seconds=time.perf_counter() - t_start)
     print(json.dumps(record))
     print(card_line)

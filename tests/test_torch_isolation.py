@@ -46,6 +46,9 @@ def test_no_port_source_imports_jax_or_yanerf_tpu():
     assert not offenders, offenders
 
 
+UTILS = ("timer", "profiling", "logging", "misc", "path", "fileio", "fileio.handlers", "fileio.backends")
+
+
 def test_the_walk_reaches_the_parallel_layer_and_the_diagnostics():
     import pkgutil
 
@@ -54,8 +57,23 @@ def test_the_walk_reaches_the_parallel_layer_and_the_diagnostics():
     names = {m.name for m in pkgutil.walk_packages(yanerf_tpu_torch.__path__, "yanerf_tpu_torch.")}
     assert {"yanerf_tpu_torch.parallel.distributed", "yanerf_tpu_torch.parallel.mesh",
             "yanerf_tpu_torch.parallel.sharding", "yanerf_tpu_torch.trajectory"} <= names
+    assert {f"yanerf_tpu_torch.utils.{name}" for name in UTILS} <= names
     scanned = {str(path.relative_to(REPO)) for path in _port_sources()}
     assert {"yanerf_tpu_torch/parallel/sharding.py", "yanerf_tpu_torch/trajectory.py", "chip_smoke.py"} <= scanned
+    assert {"yanerf_tpu_torch/utils/fileio/backends.py", "yanerf_tpu_torch/utils/logging.py"} <= scanned
+
+
+def test_every_jax_module_has_a_counterpart_in_the_port():
+    """Each module of yanerf_tpu has a file of the same path in the port, or the counterpart named here: the
+    XLA compile cache's is the kernels' build cache, the Pallas kernels' are the Hopper kernels' wrappers."""
+    jax_root = REPO / "yanerf_tpu"
+    counterparts = {"utils/cache.py": "ops/kernels/_build.py", "ops/pallas/__init__.py": "ops/kernels/__init__.py",
+                    "ops/pallas/nerf_mlp_kernel.py": "ops/kernels/nerf_mlp_fwd.py",
+                    "ops/pallas/nerf_mlp_bwd.py": "ops/kernels/nerf_mlp_bwd.py",
+                    "runners/stats.py": "runners/apis.py"}  # create_stats
+    missing = [str(rel) for rel in (p.relative_to(jax_root) for p in sorted(jax_root.rglob("*.py")))
+               if "__pycache__" not in rel.parts and not (PORT / counterparts.get(str(rel), rel)).exists()]
+    assert not missing, missing
 
 
 def test_the_scan_tells_the_packages_apart():

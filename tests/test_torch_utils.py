@@ -76,3 +76,54 @@ def test_png_and_gif_encoders_round_trip_through_pil():
         f = f.astype(int)
         want = np.stack([(f[..., 0] >> 5) * 255 // 7, (f[..., 1] >> 5) * 255 // 7, (f[..., 2] >> 6) * 255 // 3], -1)
         np.testing.assert_array_equal(np.asarray(gif.convert("RGB")), want)
+
+
+PORT_THIRD_PARTY = '''
+from yanerf_tpu_torch.models import MODELS
+from yanerf_tpu_torch.models.nerf_mlp import NeRFMLP
+
+
+@MODELS.register_module()
+class PortThirdPartyNeRF(NeRFMLP):
+    """Registered by a config's custom_imports alone."""
+'''
+
+
+def test_custom_imports_register_a_component_from_the_config_alone(tmp_path, monkeypatch):
+    """tests/test_custom_imports.py's cases against the port (``misc.import_modules_from_strings``)."""
+    import sys
+    import warnings
+
+    from yanerf_tpu_torch.models import MODELS
+
+    pkg = tmp_path / "port_thirdparty_pkg"
+    pkg.mkdir()
+    (pkg / "__init__.py").write_text("")
+    (pkg / "models.py").write_text(PORT_THIRD_PARTY)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    cfg_path = tmp_path / "cfg.yml"
+    cfg_path.write_text("custom_imports: { imports: [port_thirdparty_pkg.models], allow_failed_imports: false }\n"
+                        "model: { type: PortThirdPartyNeRF, n_layers: 2 }\n")
+    assert "PortThirdPartyNeRF" not in MODELS
+    try:
+        assert Config.fromfile(cfg_path).model.type == "PortThirdPartyNeRF" and "PortThirdPartyNeRF" in MODELS
+    finally:
+        MODELS._module_dict.pop("PortThirdPartyNeRF", None)
+        sys.modules.pop("port_thirdparty_pkg.models", None)
+        sys.modules.pop("port_thirdparty_pkg", None)
+
+    missing = tmp_path / "missing.yml"
+    missing.write_text("custom_imports: { imports: [no_such_pkg_anywhere], allow_failed_imports: false }\n")
+    for config in (Config, JaxConfig):
+        with pytest.raises(ImportError, match="no_such_pkg_anywhere"):
+            config.fromfile(missing)
+        config.fromfile(missing, import_custom_modules=False)  # the opt-out skips the imports
+    allowed = tmp_path / "allowed.yml"
+    allowed.write_text("custom_imports: { imports: no_such_pkg_anywhere, allow_failed_imports: true }\nx: 1\n")
+    with pytest.warns(UserWarning, match="no_such_pkg_anywhere failed to import and is ignored"):
+        assert Config.fromfile(allowed).x == 1
+    empty = tmp_path / "empty.yml"
+    empty.write_text("custom_imports: { imports: [] }\nx: 2\n")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert Config.fromfile(empty).to_dict() == JaxConfig.fromfile(empty).to_dict()

@@ -74,6 +74,7 @@ from .parallel import (
 )
 from .utils import resolve_device
 from .utils.config import Config, DictAction
+from .utils.logging import get_logger, logger_initialized
 
 MONITOR_METRIC_NAME = "loss_rgb_psnr"  # higher is better
 
@@ -131,20 +132,16 @@ def setup_debug_env(runner_config, datasets, logger):
     return datasets
 
 
-def _get_logger(log_file: Optional[Path], debug: bool) -> logging.Logger:
-    """The run's logger: to the terminal and ``log_file``; without a file (a process but the main one) errors
-    only, as the JAX package's logger does."""
+def _get_logger(log_file: Path, debug: bool) -> logging.Logger:
+    """The run's logger (``utils.logging.get_logger``): to the terminal and, on the main process only,
+    ``log_file`` (appended to); every other process logs errors only. Set up anew by each ``main`` of a
+    process, so each run writes its own ``run.log``."""
     logger = logging.getLogger("yanerf_tpu_torch")
-    logger.setLevel((logging.DEBUG if debug else logging.INFO) if log_file is not None else logging.ERROR)
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
-    fmt = logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    handlers = [logging.StreamHandler()] + ([logging.FileHandler(log_file, mode="a")] if log_file is not None else [])
-    for handler in handlers:
-        handler.setFormatter(fmt)
-        logger.addHandler(handler)
-    return logger
+    logger_initialized.pop(logger.name, None)
+    return get_logger(logger.name, str(log_file), logging.DEBUG if debug else logging.INFO, file_mode="a")
 
 
 def _append_json(path: Path, record: Dict[str, Any]) -> None:
@@ -234,7 +231,7 @@ def _main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         output_dir.mkdir(parents=True, exist_ok=True)
         config.dump(str(output_dir / "config.yml"))
     barrier("mkdir")
-    logger = _get_logger(output_dir / "run.log" if main_process else None, bool(config.runner.get("debug", False)))
+    logger = _get_logger(output_dir / "run.log", bool(config.runner.get("debug", False)))
     logger.info(f"Output Directory: {output_dir}")
     logger.info(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     logger.info(f"World size: {world_size}; mesh: {mesh.shape}")

@@ -22,7 +22,13 @@ Counterpart of ``yanerf_tpu/runners/apis.py`` on one GPU:
   * hooks, the periodic training vis (``output_rasterized_mc``), preemption
     checked between steps (between dispatches on the fused path), and a
     ``torch.profiler`` Chrome trace of a few early steps (``profile_dir``,
-    ``profile_start_iter``, ``profile_num_iters``);
+    ``profile_start_iter``, ``profile_num_iters``) in which each dispatch
+    is a named region (``utils.profiling.annotate``): ``train_step_dispatch``
+    per step, ``fused_dispatch_K{n}`` around a fused dispatch's n replays;
+  * the per-step and per-frame log lines split each span as the JAX loops
+    do (``utils.timer.Timer``): ``data`` up to the batch's hooks,
+    ``inference`` up to the step's device sync (a print step) or the
+    frame's value fetch; the rest of the span is discarded;
   * eval keeps ``eval_frames_in_flight`` frames dispatched before the
     oldest one's losses are fetched, writes the frames on a thread
     (``AsyncVisWriter``), and truncates to the dataset length before the
@@ -49,6 +55,8 @@ from ..ops.metrics import mse2psnr
 from ..ops.structures import EvaluationMode
 from ..parallel import active_mesh, concat_all_gather, is_dist_avail_and_initialized, is_main_process, reduce_gradients
 from ..pipelines.nerf_pipeline import make_draws
+from ..utils.profiling import annotate, profiler
+from ..utils.timer import Timer
 from .hooks import EvalDataHook, EvalOutputsHook, TrainDataHook, TrainOutputsHook
 from .optim import TrainState, apply_learning_rates, learning_rates, set_learning_rates
 from .vis import AsyncVisWriter, RunType, vis_batch_img
@@ -58,9 +66,14 @@ logger = logging.getLogger("yanerf_tpu_torch.runner")
 
 
 def create_stats(preds: Dict, prefixes=("loss_", "objective")) -> Dict[str, float]:
-    """Mean every ``loss_*`` / ``objective`` entry to a float; derive ``*_psnr`` from ``*_mse``."""
+    """Mean every ``loss_*`` / ``objective`` entry to a float; derive ``*_psnr`` from ``*_mse``.
+
+    In the keys' sorted order: the JAX package's jitted steps return their
+    dicts so, and the log lines and stats files list the fields in its order.
+    """
     stats: Dict[str, float] = {}
-    for key, value in preds.items():
+    for key in sorted(preds):
+        value = preds[key]
         if any(key.startswith(prefix) for prefix in prefixes):
             stats[key] = float(torch.as_tensor(value, dtype=torch.float64).mean())
             if "mse" in key:
@@ -296,6 +309,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _fetch(x: Optional[torch.Tensor]) -> None:
+    """Wait for ``x`` by copying one of its values to the host (the JAX loops' ``_sync_fetch``). On the card
+    the copy is stream-ordered: it also waits for the frames dispatched after ``x``'s."""
+    if x is not None:
+        x.reshape(-1)[:1].cpu()
+
+
 class _TraceCapture:
     """A ``torch.profiler`` trace of ``profile_num_iters`` steps of epoch 0 from ``profile_start_iter`` on.
 
@@ -314,10 +334,7 @@ class _TraceCapture:
 
     def maybe_start(self, i: int) -> None:
         if self.dir and self.profiler is None and i >= self.start:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self.profiler = torch.profiler.profile(activities=activities)
+            self.profiler = profiler(self.device.type == "cuda")
             self.profiler.start()
 
     def stepped(self, n: int) -> None:
@@ -425,7 +442,8 @@ def _train_one_epoch_fused(
                 if len(train_step_fused.seen_group_sizes) > 1:
                     logger.info(f"{header}: fused dispatch group size K={j - i} is new (seen: "
                                 f"{sorted(train_step_fused.seen_group_sizes)}): the captured step replays K times")
-            hist = train_step_fused(state, arrays, np.stack(rows[i:j]))
+            with annotate(f"fused_dispatch_K{j - i}"):  # around the replays: nothing is captured inside it
+                hist = train_step_fused(state, arrays, np.stack(rows[i:j]))
             last_losses = {k: v[-1] for k, v in hist.items()}
         trace.stepped(j - i)
         if t_first is None:
@@ -500,22 +518,25 @@ def train_one_epoch(
     preds: Dict[str, Any] = {}
     t_first = None
     n_steps = 0
-    t_data = time.perf_counter()
+    timer = Timer()
     for i, data in enumerate(dataloader):
         if i < skip_iters:
             passed_iter += 1
+            timer.since_last_check()
             continue
         if preemption_guard is not None and preemption_guard.preempted:
             logger.info(f"{header}: preemption requested, stopping at iter {passed_iter}")
             break
+        times: Dict[str, float] = {}
         batch = prepare_batch(data, dataloader.data_wrapper, device)
         for hook in hooks:
             if isinstance(hook, TrainDataHook):
                 batch = hook(data=batch, iter=passed_iter, epoch=epoch, config=config)
-        data_s = time.perf_counter() - t_data
+        times["data"] = timer.since_last_check()
         trace.maybe_start(i)
         want_vis = bool(train_step_vis is not None and val_per_iter and passed_iter % val_per_iter == 0)
-        preds = (train_step_vis if want_vis else train_step)(state, batch)
+        with annotate("train_step_dispatch"):
+            preds = (train_step_vis if want_vis else train_step)(state, batch)
         n_steps += 1
         trace.stepped(1)
         for hook in hooks:
@@ -526,12 +547,13 @@ def train_one_epoch(
             t_first = time.perf_counter()
         if passed_iter % print_per_iter == 0:
             _sync(device)
+            times["inference"] = timer.since_last_check()
             if lr_schedule is not None:
                 logger.info(f"{header}\tlr: {lr_schedule(passed_iter):.3e}.")
             stats = create_stats(preds)
             log_string = "\t".join(
                 [f"iter: {passed_iter}\tsampler: [{i * dataloader.batch_size}/{len(dataloader) * dataloader.batch_size}]"]
-                + [f"data: {data_s:.3f}"]
+                + [f"{k}: {v:.3f}" for k, v in times.items()]
                 + [f"{k}: {v:.3f}" for k, v in stats.items()]
             )
             logger.info(f"{header}: {log_string}")
@@ -539,7 +561,7 @@ def train_one_epoch(
             logger.info("save training image to check sanity.")
             vis_batch_img(preds, run_type, config["output_dir"], 0, dataloader.batch_size, f"{epoch:05d}/")
         passed_iter += 1
-        t_data = time.perf_counter()
+        timer.since_last_check()  # the rest of the step's span (the log, the vis) is no step's data
     trace.stop()
     _sync(device)
     stats = create_stats(preds)
@@ -587,32 +609,41 @@ def eval_one_epoch(
     writes = config.get("output_dir") and (mesh is None or mesh.ray_index == 0)
     vis_writer = AsyncVisWriter() if writes else None
 
-    def process_frame(preds: Dict[str, Any], i: int) -> Dict[str, Any]:
+    timer = Timer()
+
+    def process_frame(preds: Dict[str, Any], i: int, times: Dict[str, float]) -> Dict[str, Any]:
+        """The host's consumption of a dispatched frame: fetch, metrics, log, vis."""
         for hook in hooks:
             if isinstance(hook, EvalOutputsHook):
                 preds = hook(outputs=preds, config=config, iter=i, epoch=epoch)
+        _fetch(preds.get("objective", preds.get("rendered_images")))
+        times["inference"] = timer.since_last_check()
         for key in loss_keys(preds):
             value = preds[key].detach().double().cpu().numpy()
             metric_stats[key].append(concat_all_gather(value, data_group) if gathered else value)
         if i % print_per_iter == 0:
             stats = create_stats(preds)
-            logger.info(f"{header}: sampler: [{i * batch_size}/{len(dataloader.dataset)}]\t"
-                        + "\t".join(f"{k}: {v:.3f}" for k, v in stats.items()))
+            logger.info(f"{header}: " + "\t".join([f"sampler: [{i * batch_size}/{len(dataloader.dataset)}]"]
+                                                   + [f"{k}: {v:.3f}" for k, v in times.items()]
+                                                   + [f"{k}: {v:.3f}" for k, v in stats.items()]))
         if vis_writer is not None:
             start_idx = (i * data_parallel + data_index) * batch_size
             end_idx = min(len(dataloader.dataset), start_idx + batch_size)
             vis_writer.submit(preds, run_type, config["output_dir"], start_idx, end_idx,
                               "" if run_type == RunType.TEST else f"{epoch:05d}/")
+        timer.since_last_check()  # the host's consumption is not the next frame's data
         return preds
 
     depth = max(1, int(config.get("eval_frames_in_flight", 2)))
-    pending: deque = deque()
+    pending: deque = deque()  # each: (preds, index, times)
     try:
         for i, data in enumerate(dataloader):
+            times: Dict[str, float] = {}
             batch = prepare_batch(data, dataloader.data_wrapper, pipeline.device)
             for hook in hooks:
                 if isinstance(hook, EvalDataHook):
                     batch = hook(data=batch, config=config, iter=i, epoch=epoch)
+            times["data"] = timer.since_last_check()
             preds = pipeline(
                 evaluation_mode=EvaluationMode.EVALUATION,
                 generator=step_generator(pipeline.device, seed, i),
@@ -621,7 +652,7 @@ def eval_one_epoch(
             preds.update(batch)
             if len(pending) >= depth:
                 process_frame(*pending.popleft())
-            pending.append((preds, i))
+            pending.append((preds, i, times))
         while pending:
             process_frame(*pending.popleft())
     finally:

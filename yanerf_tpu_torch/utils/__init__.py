@@ -1,4 +1,8 @@
-"""Config, registry and device helpers of the port (no JAX, no ``yanerf_tpu``)."""
+"""Config, registry, logging, timing, file and device helpers of the port (no JAX, no ``yanerf_tpu``).
+
+The names of ``yanerf_tpu/utils/__init__.py``, and ``device_constant`` /
+``resolve_device``; ``fileio`` is a subpackage.
+"""
 
 from __future__ import annotations
 
@@ -7,9 +11,68 @@ from typing import Any, Callable, Dict, Hashable, Union
 import torch
 
 from .config import Config, ConfigDict, DictAction
+from .logging import get_logger, print_log
+from .misc import (
+    concat_list,
+    import_modules_from_strings,
+    is_list_of,
+    is_seq_of,
+    is_str,
+    is_tuple_of,
+    iter_cast,
+    list_cast,
+    slice_list,
+    to_1tuple,
+    to_2tuple,
+    to_3tuple,
+    to_4tuple,
+    to_ntuple,
+    tuple_cast,
+)
+from .path import check_file_exist, find_vcs_root, fopen, is_filepath, mkdir_or_exist, scandir, symlink
+from .profiling import StepTimer, annotate, trace
 from .registry import Registry, build_from_cfg
+from .timer import Timer, TimerError, check_time
 
-__all__ = ["Config", "ConfigDict", "DictAction", "Registry", "build_from_cfg", "device_constant", "resolve_device"]
+__all__ = [
+    "StepTimer",
+    "annotate",
+    "trace",
+    "Config",
+    "ConfigDict",
+    "DictAction",
+    "get_logger",
+    "print_log",
+    "Registry",
+    "build_from_cfg",
+    "Timer",
+    "TimerError",
+    "check_time",
+    "is_str",
+    "is_seq_of",
+    "is_list_of",
+    "is_tuple_of",
+    "iter_cast",
+    "list_cast",
+    "tuple_cast",
+    "slice_list",
+    "concat_list",
+    "import_modules_from_strings",
+    "to_1tuple",
+    "to_2tuple",
+    "to_3tuple",
+    "to_4tuple",
+    "to_ntuple",
+    "check_file_exist",
+    "find_vcs_root",
+    "fopen",
+    "is_filepath",
+    "mkdir_or_exist",
+    "scandir",
+    "symlink",
+    "device_constant",
+    "resolve_device",
+]
 
 _CONSTANTS: Dict[tuple, torch.Tensor] = {}
 

@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import ast
 import copy
-import importlib
 import json
 import os
 import os.path as osp
@@ -32,11 +31,12 @@ import sys
 import tempfile
 import types
 import uuid
-import warnings
 from importlib import util as importlib_util
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import yaml
+
+from .misc import import_modules_from_strings
 
 BASE_KEY = "_base_"
 DELETE_KEY = "_delete_"
@@ -249,19 +249,6 @@ def _file_to_dict(filename: str) -> Tuple[dict, str]:
     return cfg_dict, cfg_text
 
 
-def _import_modules(imports, allow_failed_imports: bool = False) -> None:
-    """Import the modules a config's ``custom_imports`` names."""
-    if isinstance(imports, str):
-        imports = [imports]
-    for name in imports or []:
-        try:
-            importlib.import_module(name)
-        except ImportError:
-            if not allow_failed_imports:
-                raise
-            warnings.warn(f"{name} failed to import and is ignored.", UserWarning)
-
-
 def merge_into(overrides: dict, base: dict) -> dict:
     """Recursively merge ``overrides`` on top of ``base`` (returns a new dict).
 
@@ -313,7 +300,7 @@ class Config:
         filename = str(filename)
         cfg_dict, cfg_text = _file_to_dict(filename)
         if import_custom_modules and cfg_dict.get("custom_imports"):
-            _import_modules(**cfg_dict["custom_imports"])
+            import_modules_from_strings(**cfg_dict["custom_imports"])
         return Config(cfg_dict, cfg_text=cfg_text, filename=filename)
 
     @staticmethod
