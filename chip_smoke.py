@@ -25,8 +25,10 @@ with occupancy bounds; the classic frame served from the reference's
 program, ``--debug``, configs/nerf/lego_tpu.yml (the classic pair at
 16,384 rays with ``approx_top_k``) and the async checkpoint saves; then
 real phone captures from JPEGs, configs/nerf/fern.yml and real_360.yml
-on the committed captures ``tests/data/llff_jpeg`` (baseline JPEGs) and
-``tests/data/llff_jpeg_progressive`` (progressive), sampling masks on the
+on the committed captures ``tests/data/llff_jpeg`` (baseline JPEGs),
+``tests/data/llff_jpeg_progressive`` (progressive) and
+``tests/data/llff_jpeg_arith`` (arithmetic-coded), the JPEG kinds of
+``tests/data/jpeg_kinds`` on the host, sampling masks on the
 flagship, and the parity runbook's smoke; then the kernel arms' training
 trajectories and the fused CLI in a one-rank process group. Phases,
 each printing its numbers on a line of its own with the card's name and
@@ -161,22 +163,29 @@ power limit:
              the loop, the CLI's ms per step, and each async file equal to
              a sync save of the same state made right after it;
  18. jpeg decode  the committed captures ``tests/data/llff_jpeg`` (12 views
-             at 1008x756, baseline 4:2:0 JPEGs with restart markers) and
+             at 1008x756, baseline 4:2:0 JPEGs with restart markers),
              ``tests/data/llff_jpeg_progressive`` (the same views as
-             progressive JPEGs, 10 scans) decoded by
+             progressive JPEGs, 10 scans) and ``tests/data/llff_jpeg_arith``
+             (the same views arithmetic-coded, SOF9) decoded by
              ``yanerf_tpu_torch.native`` (built with g++ in phase 1) on this
              machine's host: each array's sha256 equal to the JAX package's
              libjpeg decode committed beside the files; the decode rates
              one file at a time and batched (MB/s of JPEG, megapixels/s),
-             the captures in turns, and their ratio;
+             the captures in turns, and each over the baseline's; then
+             "jpeg kinds": every file of ``tests/data/jpeg_kinds``
+             (arithmetic SOF9 / SOF10, lossless SOF3, CMYK / YCCK, cut
+             files, 12- / 16-bit SOF3) through ``load_image`` (PIL's CMYK
+             conversion) and ``load_image_u8`` (OpenCV's) equal to the JAX
+             ``load_image`` / ``cv2.imread`` digests, a refusal where they
+             refuse;
  19. jpeg capture  a copy of each capture: the ``images_2/`` PNG cache
              written from the JPEGs equal to the JAX ``_minify`` digests;
              configs/nerf/fern.yml fused (steps_per_call 8, 40 steps) at its
              published widths (8x256, 1024 rays, 64 + 64 points) on K1 / K3
-             against two per-step runs; a 504x378 test view of
-             configs/nerf/real_360.yml (spherified) on K1 against its plain
-             version; for the baseline capture "family" for both (+1 on
-             the density biases);
+             against two per-step runs; for the baseline and progressive
+             captures a 504x378 test view of configs/nerf/real_360.yml
+             (spherified) on K1 against its plain version; for the baseline
+             capture "family" for both (+1 on the density biases);
  20. masks   one flagship train step with a two-layer
              ``sampling_prob_mask`` and one with ``mask_crop``, K1 + K3:
              every drawn pixel of positive weight, the objective finite, the
@@ -311,6 +320,8 @@ FERN_CONFIG = REPO / "configs" / "nerf" / "fern.yml"
 REAL_360_CONFIG = REPO / "configs" / "nerf" / "real_360.yml"
 JPEG_CAPTURE = REPO / "tests" / "data" / "llff_jpeg"  # 12 views at 1008x756: baseline 4:2:0 JPEGs with restarts
 JPEG_PROGRESSIVE_CAPTURE = REPO / "tests" / "data" / "llff_jpeg_progressive"  # the same views, progressive (SOF2)
+JPEG_ARITH_CAPTURE = REPO / "tests" / "data" / "llff_jpeg_arith"  # the same views, arithmetic-coded (SOF9)
+JPEG_KINDS = REPO / "tests" / "data" / "jpeg_kinds"  # small SOF9 / SOF10 / SOF3 / CMYK / YCCK files and their digests
 JPEG_FACTOR = 2  # the capture's views at the LLFF configs' 504x378
 JPEG_TRAIN_VIEWS = 10  # 12 views, every 8th held out (fern.yml's test_skip)
 JPEG_STEPS_PER_CALL = 8
@@ -1943,15 +1954,15 @@ def async_save_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, 
 
 
 def jpeg_decode_phase(card_line: str) -> None:
-    """Decode both committed captures (baseline and progressive JPEGs of the same views) with ``native`` on this
-    machine's host: every array's sha256 against the digest of the JAX package's libjpeg decode
-    (``digests.json``), and the decode rates, one thread and batched, the captures in turns
-    (``decode_rate.measure``)."""
+    """Decode the three committed captures (baseline, progressive and arithmetic-coded JPEGs of the same views)
+    with ``native`` on this machine's host: every array's sha256 against the digest of the JAX package's libjpeg
+    decode (``digests.json``), and the decode rates, one thread and batched, the captures in turns
+    (``decode_rate.measure``), with each rate over the baseline capture's."""
     import os
 
     from yanerf_tpu_torch import decode_rate
 
-    captures = {"baseline": JPEG_CAPTURE, "progressive": JPEG_PROGRESSIVE_CAPTURE}
+    captures = {"baseline": JPEG_CAPTURE, "progressive": JPEG_PROGRESSIVE_CAPTURE, "arith": JPEG_ARITH_CAPTURE}
     rates = decode_rate.measure(captures, JPEG_DECODE_REPEATS)["this"]
     checks = {}
     for name, entry in rates.items():
@@ -1959,19 +1970,62 @@ def jpeg_decode_phase(card_line: str) -> None:
         checks[f"{name}_batch_digests"] = entry.get("batch_digests", False)
         say(card_line, "jpeg decode", capture=name, where="the card machine's host CPU", cpus=os.cpu_count(),
             **{k: v for k, v in entry.items() if not k.endswith("_all")})
-    ratio = decode_rate.progressive_ratio(rates) if all(checks.values()) else None
-    say(card_line, "jpeg decode", progressive_over_baseline=ratio, checks=checks)
+    ratios = decode_rate.over_baseline(rates) if all(checks.values()) else None
+    say(card_line, "jpeg decode", over_baseline=ratios, checks=checks)
     if not all(checks.values()):
         raise SystemExit(f"jpeg decode phase failed: {checks}")
 
 
+def jpeg_kinds_results(kinds: Path = JPEG_KINDS) -> dict:
+    """Every file of ``tests/data/jpeg_kinds`` through ``load_image`` (PIL's CMYK convention) and
+    ``load_image_u8`` (OpenCV's) against its ``digests.json``: the JAX ``load_image`` and ``cv2.imread``
+    digests, or for the two files listed under ``port`` the libjpeg-turbo build named there; a refusal of the
+    JAX call must be one of the port's. Returns ``{file: {"load_image": ok, "load_image_u8": ok}}``."""
+    import hashlib
+
+    from yanerf_tpu_torch.utils.images import load_image, load_image_u8
+
+    digests = json.loads((kinds / "digests.json").read_text())
+    results = {}
+    for name, entry in sorted(digests["files"].items()):
+        want = dict(entry, **{k: v for k, v in digests["port"].get(name, {}).items() if k != "why"})
+        row = {}
+        for key, fn, ref in (("load_image", load_image, want["load_image"]), ("load_image_u8", load_image_u8,
+                                                                               want["imread"])):
+            try:
+                img = fn(kinds / name)
+            except (NotImplementedError, IOError):
+                row[key] = ref is None or "raises" in ref
+                continue
+            row[key] = ref is not None and "sha256" in ref and hashlib.sha256(img.tobytes()).hexdigest() == ref[
+                "sha256"] and list(img.shape) == ref["shape"]
+        results[name] = row
+    return results
+
+
+def jpeg_kinds_phase(card_line: str, kinds: Path = JPEG_KINDS) -> None:
+    """The small files of every JPEG kind the JAX loaders read (arithmetic SOF9 / SOF10, lossless SOF3, CMYK /
+    YCCK, truncated ones, and the 12- / 16-bit SOF3 files both refuse), decoded on this machine's host in both
+    CMYK conventions against their committed digests (``jpeg_kinds_results``)."""
+    t = time.perf_counter()
+    results = jpeg_kinds_results(kinds)
+    seconds = time.perf_counter() - t
+    failed = {name: row for name, row in results.items() if not all(row.values())}
+    say(card_line, "jpeg kinds", where="the card machine's host CPU", files=len(results), seconds=seconds,
+        checks={"every_file_as_digested": not failed and len(results) > 0})
+    if failed:
+        raise SystemExit(f"jpeg kinds phase failed: {failed}")
+
+
 def jpeg_capture_phases(torch, K1, K3, card_line: str, tmp: Path, configs=None, factor: int = JPEG_FACTOR,
-                        steps: int = JPEG_TRAIN_STEPS, capture: Path = JPEG_CAPTURE, family: bool = True) -> dict:
+                        steps: int = JPEG_TRAIN_STEPS, capture: Path = JPEG_CAPTURE, family: bool = True,
+                        frame_too: bool = True) -> dict:
     """fern.yml and real_360.yml from a JPEG capture: the PNG cache against the JAX ``_minify`` digests,
-    fern.yml trained fused on K1 / K3 at its published widths, a real_360.yml frame on K1, and with ``family``
-    both held to their eager twins on the CPU. ``configs`` (the pair) and ``factor`` (the views' size) stand in
-    for the published ones in the tests. Returns the kernels' launches on each path, named after the capture
-    (``fern_jpeg_train_fused``; ``fern_jpeg_progressive_train_fused`` for ``llff_jpeg_progressive``)."""
+    fern.yml trained fused on K1 / K3 at its published widths, with ``frame_too`` a real_360.yml frame on K1,
+    and with ``family`` both held to their eager twins on the CPU. ``configs`` (the pair) and ``factor`` (the
+    views' size) stand in for the published ones in the tests. Returns the kernels' launches on each path, named
+    after the capture (``fern_jpeg_train_fused``; ``fern_jpeg_progressive_train_fused`` for
+    ``llff_jpeg_progressive``, ``fern_jpeg_arith_train_fused`` for ``llff_jpeg_arith``)."""
     import hashlib
     import shutil
 
@@ -2006,14 +2060,15 @@ def jpeg_capture_phases(torch, K1, K3, card_line: str, tmp: Path, configs=None, 
         raise SystemExit(f"{Path(fern).name} fused phase on the JPEG capture failed: {numbers['checks']}")
     torch.cuda.empty_cache()
 
-    service, nerf_mlps = build_service(real_360)
-    cfg = Config.fromfile(str(real_360))
-    pose, focal, _, lo, hi = DATASETS.build(dict(cfg.datasets[2], base_dir=str(capture), factor=factor))[0]
-    paths[f"real_360_{label}_frame"] = frame(torch, K1, service, card_line, Path(real_360).name, with_k2=False,
-                                         view=(pose[:3, :4], float(focal[0]), float(lo[0]), float(hi[0])),
-                                         k1_per_frame=frame_chunks(cfg) * len(nerf_mlps))
-    del service, nerf_mlps
-    torch.cuda.empty_cache()
+    if frame_too:
+        service, nerf_mlps = build_service(real_360)
+        cfg = Config.fromfile(str(real_360))
+        pose, focal, _, lo, hi = DATASETS.build(dict(cfg.datasets[2], base_dir=str(capture), factor=factor))[0]
+        paths[f"real_360_{label}_frame"] = frame(torch, K1, service, card_line, Path(real_360).name, with_k2=False,
+                                             view=(pose[:3, :4], float(focal[0]), float(lo[0]), float(hi[0])),
+                                             k1_per_frame=frame_chunks(cfg) * len(nerf_mlps))
+        del service, nerf_mlps
+        torch.cuda.empty_cache()
 
     for config in (fern, real_360) if family else ():
         family = family_check(torch, capture, config, FAMILY_EVAL_RAYS, FAMILY_TRAIN_RAYS,
@@ -2575,13 +2630,17 @@ def main() -> int:
                                           unprofiled_step_s=fused_numbers["fused_ms_per_step"] / 1e3)
         torch.cuda.empty_cache()
 
-        # real captures from JPEGs (fern.yml, real_360.yml; baseline, then progressive files of the same views,
-        # whose data path the baseline's card-vs-CPU family check already covers), sampling masks, the parity
-        # runbook's smoke
+        # real captures from JPEGs (fern.yml, real_360.yml; baseline, then progressive and arithmetic-coded files
+        # of the same views, whose data path the baseline's card-vs-CPU family check already covers; the
+        # arithmetic capture trains fern.yml alone), every other JPEG kind on the host, sampling masks, the
+        # parity runbook's smoke
         jpeg_decode_phase(card_line)
+        jpeg_kinds_phase(card_line)
         capture_paths = jpeg_capture_phases(torch, K1, K3, card_line, Path(tmp))
         capture_paths.update(jpeg_capture_phases(torch, K1, K3, card_line, Path(tmp),
                                                  capture=JPEG_PROGRESSIVE_CAPTURE, family=False))
+        capture_paths.update(jpeg_capture_phases(torch, K1, K3, card_line, Path(tmp), capture=JPEG_ARITH_CAPTURE,
+                                                 family=False, frame_too=False))
         capture_paths.update(mask_phase(torch, card_line, scene))
         capture_paths.update(parity_smoke_phase(card_line, Path(tmp)))
 

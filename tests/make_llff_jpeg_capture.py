@@ -6,16 +6,20 @@ quality 90 with a restart marker after every MCU row, as phone cameras
 write them, plus ``poses_bounds.npy``. With ``--progressive`` the views are
 progressive JPEGs instead (PIL's 10-scan script, otherwise the same
 settings), as photo apps and exporters re-save captures, into
-``tests/data/llff_jpeg_progressive/``. ``digests.json`` holds the sha256 of
+``tests/data/llff_jpeg_progressive/``. With ``--arith`` they are
+arithmetic-coded (SOF9, otherwise the same settings), written by
+``tests/jpeg_kinds_writer.c`` against the system libjpeg (PIL writes no
+arithmetic coding), into ``tests/data/llff_jpeg_arith/``. ``digests.json`` holds the sha256 of
 what ``yanerf_tpu`` makes of the files: the float32 ``(H, W, 3)`` array of
 ``yanerf_tpu.native.decode_image`` for every view, and the uint8 RGB array
 of each PNG that the JAX ``LLFFDataset._minify`` writes at factor 2
 (504x378, the size of ``configs/nerf/fern.yml``). The port's tests and
 ``chip_smoke.py`` hold the port's decoder and ``_minify`` to these digests.
 
-    JAX_PLATFORMS=cpu python tests/make_llff_jpeg_capture.py [--progressive] [--out_dir DIR]
+    JAX_PLATFORMS=cpu python tests/make_llff_jpeg_capture.py [--progressive | --arith] [--out_dir DIR]
 
-Needs PIL, cv2 and the JAX package (run it where they are installed).
+Needs PIL, cv2 and the JAX package (run it where they are installed); with
+``--arith`` also gcc and ``jpeglib.h`` / ``-ljpeg``.
 """
 
 from __future__ import annotations
@@ -42,11 +46,14 @@ def sha256(arr: np.ndarray) -> str:
 
 def main(argv=None) -> Path:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--progressive", action="store_true", help="write progressive JPEGs (SOF2)")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--progressive", action="store_true", help="write progressive JPEGs (SOF2)")
+    kind.add_argument("--arith", action="store_true", help="write arithmetic-coded JPEGs (SOF9)")
     ap.add_argument("--out_dir", default=None,
-                    help="default tests/data/llff_jpeg, or tests/data/llff_jpeg_progressive with --progressive")
+                    help="default tests/data/llff_jpeg, or tests/data/llff_jpeg_progressive / llff_jpeg_arith "
+                         "with --progressive / --arith")
     args = ap.parse_args(argv)
-    default = "llff_jpeg_progressive" if args.progressive else "llff_jpeg"
+    default = "llff_jpeg_progressive" if args.progressive else "llff_jpeg_arith" if args.arith else "llff_jpeg"
     out = Path(args.out_dir or REPO / "tests" / "data" / default)
     sys.path.insert(0, str(REPO))
     import cv2
@@ -64,10 +71,19 @@ def main(argv=None) -> Path:
     with tempfile.TemporaryDirectory() as tmp:
         scene = write_llff_scene(Path(tmp) / "png", height=HEIGHT, width=WIDTH, n_images=N_VIEWS)
         shutil.copy(scene / "poses_bounds.npy", out / "poses_bounds.npy")
+        if args.arith:
+            sys.path.insert(0, str(REPO / "tests"))
+            from make_jpeg_kinds import build_writer, libjpeg_file
+
+            writer = build_writer(Path(tmp))
         for png in sorted((scene / "images").glob("*.png")):
             rgb = decode_png(png.read_bytes())
-            Image.fromarray(rgb).save(out / "images" / f"{png.stem.upper()}.JPG", "JPEG", quality=90, subsampling=2,
-                                      restart_marker_rows=1, progressive=args.progressive)
+            dst = out / "images" / f"{png.stem.upper()}.JPG"
+            if args.arith:
+                libjpeg_file(writer, dst, rgb, quality=90, sampling=420, restart_rows=1)
+            else:
+                Image.fromarray(rgb).save(dst, "JPEG", quality=90, subsampling=2, restart_marker_rows=1,
+                                          progressive=args.progressive)
 
     digests = {"decode": {}, "minify": {}}
     for jpg in sorted((out / "images").iterdir()):

@@ -285,7 +285,7 @@ def test_llff_dataset_refusals_and_other_sizes_match_jax(llff_pair):
             assert Path(a).name == Path(b).name
             np.testing.assert_array_equal(load_image_u8(a), load_image_u8(b))
     # JPEG sources load as the JAX loader loads them (tests/test_torch_native.py holds the decoder itself),
-    # progressive ones too; an arithmetic-coded JPEG is refused by name
+    # progressive and arithmetic-coded ones too
     n_views = np.load(llff_pair / "port" / "poses_bounds.npy").shape[0]
     for root in ("jpeg_jax", "jpeg_port"):
         (llff_pair / root / "images").mkdir(parents=True)
@@ -307,10 +307,24 @@ def test_llff_dataset_refusals_and_other_sizes_match_jax(llff_pair):
     for i in range(len(got)):
         for a, b in zip(got[i], ref[i]):
             np.testing.assert_array_equal(a, b)
-    arith = bytearray((llff_pair / "jpeg_port" / "images" / "img_001.JPG").read_bytes())
-    arith[arith.index(b"\xff\xc0") + 1] = 0xC9  # the frame header of an arithmetic-coded file
-    (llff_pair / "jpeg_port" / "images" / "img_000.JPG").write_bytes(bytes(arith))
-    with pytest.raises(NotImplementedError, match="img_000.JPG.*SOF9"):
+    # an arithmetic-coded JPEG (tests/jpeg_kinds_writer.c, against the system libjpeg) loads as the JAX
+    # loader loads it; 12-bit samples are refused by name, as the JAX loader refuses them
+    from make_jpeg_kinds import build_writer, libjpeg_file
+
+    writer = build_writer(llff_pair)
+    for root in ("jpeg_jax", "jpeg_port"):
+        libjpeg_file(writer, llff_pair / root / "images" / "img_000.JPG",
+                     np.random.RandomState(9).randint(0, 256, (20, 28, 3)), quality=90)
+    assert b"\xff\xc9" in (llff_pair / "jpeg_port" / "images" / "img_000.JPG").read_bytes()
+    ref = JaxLLFFDataset(str(llff_pair / "jpeg_jax"), "train", factor=1)
+    got = LLFFDataset(str(llff_pair / "jpeg_port"), "train", factor=1)
+    for i in range(len(got)):
+        for a, b in zip(got[i], ref[i]):
+            np.testing.assert_array_equal(a, b)
+    twelve = bytearray((llff_pair / "jpeg_port" / "images" / "img_001.JPG").read_bytes())
+    twelve[twelve.index(b"\xff\xc0") + 4] = 12  # the frame header's sample precision
+    (llff_pair / "jpeg_port" / "images" / "img_000.JPG").write_bytes(bytes(twelve))
+    with pytest.raises(NotImplementedError, match="img_000.JPG.*12-bit"):
         LLFFDataset(str(llff_pair / "jpeg_port"), "train", factor=1)
 
 

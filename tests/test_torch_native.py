@@ -18,6 +18,7 @@ import pytest
 from PIL import Image
 
 from yanerf_tpu import native as jax_native
+from yanerf_tpu.datasets.utils import load_image as jax_load_image
 from yanerf_tpu_torch import native
 from yanerf_tpu_torch.ops.kernels._build import HostLibrary
 from yanerf_tpu_torch.utils.images import image_shape, load_image, load_image_u8, png_bytes
@@ -76,8 +77,9 @@ def test_grey_and_other_layouts_decode_as_libjpeg(tmp_path, hw):
 
 
 def test_unsupported_jpegs_raise_naming_the_file(tmp_path):
-    """Arithmetic coding and CMYK wait for a later slice; DNL, hierarchical frames and 12-bit samples are refused
-    by the JAX package's libjpeg too. (Progressive files decode: tests/test_torch_jpeg_progressive.py.)"""
+    """DNL, hierarchical frames and 12-bit samples are refused by the JAX package's libjpeg too; an arithmetic
+    frame header and CMYK decode as the JAX loaders read them (tests/test_torch_jpeg_arith.py and
+    tests/test_torch_jpeg_kinds.py hold them in full; progressive files: tests/test_torch_jpeg_progressive.py)."""
     picture = _picture(24, 40)
     Image.fromarray(picture).convert("CMYK").save(tmp_path / "cmyk.jpg", "JPEG")
     base = tmp_path / "base.jpg"
@@ -96,8 +98,7 @@ def test_unsupported_jpegs_raise_naming_the_file(tmp_path):
     sof5 = bytearray(data)
     sof5[sof + 1] = 0xC5  # a differential (hierarchical) frame
     (tmp_path / "sof5.jpg").write_bytes(sof5)
-    for name, what in (("arith", "SOF9"), ("cmyk", "4 components"), ("twelve", "12-bit"), ("dnl", "height 0 .DNL"),
-                       ("sof5", "SOF5")):
+    for name, what in (("twelve", "12-bit"), ("dnl", "height 0 .DNL"), ("sof5", "SOF5")):
         path = tmp_path / f"{name}.jpg"
         with pytest.raises(NotImplementedError, match=f"{name}.jpg.*{what}"):
             native.decode_image(path)
@@ -107,8 +108,10 @@ def test_unsupported_jpegs_raise_naming_the_file(tmp_path):
             with pytest.raises(IOError):
                 jax_native.decode_image(str(path))
             assert cv2.imread(str(path), cv2.IMREAD_UNCHANGED) is None, name
-    with pytest.raises(NotImplementedError, match="arith.jpg.*arithmetic"):
-        load_image(tmp_path / "arith.jpg")
+    for name in ("arith", "cmyk"):  # decoded now: the JAX load_image's array (PIL's CMYK conversion), cv2's
+        path = tmp_path / f"{name}.jpg"
+        np.testing.assert_array_equal(load_image(path), jax_load_image(path))
+        np.testing.assert_array_equal(load_image_u8(path), _cv2_rgb(path))
 
 
 def _with_huffman_table(data, tc, th, counts, values):

@@ -3,13 +3,13 @@
     python -m yanerf_tpu_torch.decode_rate [--repeats 5] [--against OTHER_CHECKOUT] [--out rates.json]
 
 Each capture under ``tests/data`` (``llff_jpeg``: baseline JPEGs;
-``llff_jpeg_progressive``: the same 12 views at 1008x756 as progressive
-JPEGs) is decoded view by view with ``native.decode_image`` (one thread) and
+``llff_jpeg_progressive`` and ``llff_jpeg_arith``: the same 12 views at
+1008x756 as progressive and as arithmetic-coded JPEGs) is decoded view by view with ``native.decode_image`` (one thread) and
 at once with ``native.decode_batch`` (a ``std::thread`` per core); every
 array is checked against the digest of the JAX package's decode committed
 beside the capture. A time is the fastest of ``--repeats`` passes (the
-median beside it), and within a pass the captures take turns, so the two rates and their ratio
-come from the same minutes of the same host. ``--against`` names another
+median beside it), and within a pass the captures take turns, so the rates and their ratios to
+the baseline capture's come from the same minutes of the same host. ``--against`` names another
 checkout of the repository (say the parent commit, unpacked with ``git
 archive``): its ``jpeg.cpp`` is built as well and each pass times the two
 builds in turns (other, this, then this, other in the next pass) on every
@@ -33,7 +33,8 @@ from .ops.kernels._build import HostLibrary
 
 REPO = Path(__file__).resolve().parent.parent
 CAPTURES = {"baseline": REPO / "tests" / "data" / "llff_jpeg",
-            "progressive": REPO / "tests" / "data" / "llff_jpeg_progressive"}
+            "progressive": REPO / "tests" / "data" / "llff_jpeg_progressive",
+            "arith": REPO / "tests" / "data" / "llff_jpeg_arith"}
 
 
 def _sha(img) -> str:
@@ -90,10 +91,12 @@ def measure(captures: Optional[Dict[str, Path]] = None, repeats: int = 3,
     return out
 
 
-def progressive_ratio(rates: dict) -> Dict[str, float]:
-    """Progressive megapixels/s over baseline megapixels/s of one build, one thread and batched."""
-    return {kind: rates["progressive"][f"{kind}_megapixels_per_s"] / rates["baseline"][f"{kind}_megapixels_per_s"]
-            for kind in ("one_thread", "batched")}
+def over_baseline(rates: dict) -> Dict[str, Dict[str, float]]:
+    """Per capture other than the baseline one: its megapixels/s over the baseline capture's, for one build,
+    one thread and batched."""
+    return {name: {kind: entry[f"{kind}_megapixels_per_s"] / rates["baseline"][f"{kind}_megapixels_per_s"]
+                   for kind in ("one_thread", "batched")}
+            for name, entry in rates.items() if name != "baseline" and "refused" not in entry}
 
 
 def main(argv=None) -> dict:
@@ -108,7 +111,7 @@ def main(argv=None) -> dict:
         libraries = {"other": HostLibrary(other.resolve(), native._bind), "this": native.LIBRARY}
     rates = measure(repeats=args.repeats, libraries=libraries)
     result = {"where": "host CPU", "cpus": os.cpu_count(), "repeats": args.repeats, "rates": rates,
-              "progressive_over_baseline": progressive_ratio(rates["this"])}
+              "over_baseline": over_baseline(rates["this"])}
     if args.against:
         result["against"] = str(args.against)
     print(json.dumps(result))

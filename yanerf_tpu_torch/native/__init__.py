@@ -10,12 +10,17 @@ images. The format is read from the file's first bytes, not its name.
   links no imaging library and reproduces libjpeg-turbo's default decode
   (integer IDCT, fancy upsampling, its YCbCr tables; for progressive files
   cut short, its 3.x block smoothing) byte for byte: baseline and
-  progressive Huffman files, with or without their own Huffman tables. It
-  is built with ``g++ -O3 -shared -fPIC -std=c++17`` at first use into
-  ``yanerf_tpu_torch/_build/`` (cached by content) and bound with ctypes;
-  ``decode_batch`` decodes on ``std::thread`` s, outside the GIL.
-  Arithmetic-coded, lossless, hierarchical, 12-bit, CMYK and DNL files
-  raise ``NotImplementedError`` naming the file and the frame type.
+  progressive files, Huffman- or arithmetic-coded (SOF0-2, SOF9-10), with
+  or without their own Huffman tables, lossless files (SOF3) at 8 bits, and
+  one, three or four components. Four components (CMYK / YCCK) become RGB
+  the way PIL's ``convert("RGB")`` makes them (``cmyk="pil"``, the JAX
+  ``load_image``) or the way ``cv2.imread`` does (``cmyk="opencv"``, the
+  JAX ``LLFFDataset._minify``). It is built with ``g++ -O3 -shared -fPIC
+  -std=c++17`` at first use into ``yanerf_tpu_torch/_build/`` (cached by
+  content) and bound with ctypes; ``decode_batch`` decodes on
+  ``std::thread`` s, outside the GIL. Hierarchical, DNL, arithmetic
+  lossless and other than 8-bit files raise ``NotImplementedError`` naming
+  the file and the frame type.
 * PNG goes through the numpy decoder ``utils/images.py::decode_png``; zlib
   releases the GIL, so ``decode_batch`` runs PNGs on a thread pool.
 
@@ -42,6 +47,8 @@ _JPEG_MAGIC = b"\xff\xd8\xff"
 _ERR_LEN = 512
 _UNSUPPORTED = -5
 _ERRORS = {-1: "cannot open", -2: "not a JPEG", -3: "corrupt JPEG data", -4: "size mismatch", -5: "unsupported JPEG"}
+# How four-component JPEGs become RGB: as PIL's Image.convert("RGB") or as cv2.imread makes them.
+CMYK_CONVENTIONS = {"pil": 0, "opencv": 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -50,11 +57,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.yt_jpeg_info.restype = ctypes.c_int
     lib.yt_jpeg_decode.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_int,
     ]
     lib.yt_jpeg_decode.restype = ctypes.c_int
     lib.yt_jpeg_decode_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, c_int_p, ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_int, c_int_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
     ]
     lib.yt_jpeg_decode_batch.restype = ctypes.c_int
 
@@ -113,8 +121,11 @@ def image_dims(path: PathLike) -> Tuple[int, int]:
     return jpeg_info(path)[:2]
 
 
-def decode_image_u8(path: PathLike, library: HostLibrary = LIBRARY) -> np.ndarray:
-    """A PNG or JPEG as uint8 RGB, ``(H, W, 3)`` (alpha dropped, grey repeated; no EXIF rotation)."""
+def decode_image_u8(path: PathLike, library: HostLibrary = LIBRARY, cmyk: str = "pil") -> np.ndarray:
+    """A PNG or JPEG as uint8 RGB, ``(H, W, 3)`` (alpha dropped, grey repeated; no EXIF rotation).
+
+    ``cmyk`` (``"pil"`` or ``"opencv"``) is how a four-component JPEG becomes RGB."""
+    convention = CMYK_CONVENTIONS[cmyk]
     if image_format(path) == "png":
         from ..utils.images import decode_png
 
@@ -124,7 +135,7 @@ def decode_image_u8(path: PathLike, library: HostLibrary = LIBRARY) -> np.ndarra
     out = np.empty((h, w, 3), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
     rc = library.library().yt_jpeg_decode(
-        str(path).encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, err, _ERR_LEN
+        str(path).encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, err, _ERR_LEN, convention
     )
     if rc != 0:
         _raise(path, rc, err.value)
@@ -132,12 +143,15 @@ def decode_image_u8(path: PathLike, library: HostLibrary = LIBRARY) -> np.ndarra
 
 
 def decode_image(path: PathLike, library: HostLibrary = LIBRARY) -> np.ndarray:
-    """A PNG or JPEG as float32 RGB in [0, 1], ``(H, W, 3)``."""
+    """A PNG or JPEG as float32 RGB in [0, 1], ``(H, W, 3)``: four components as PIL converts them, as the JAX
+    ``native.decode_image`` / ``load_image`` (whose PIL fallback reads what libjpeg-turbo 2.x does not) does."""
     return decode_image_u8(path, library).astype(np.float32) / np.float32(255.0)
 
 
 def decode_batch(paths: Sequence[PathLike], n_threads: int = 0, library: HostLibrary = LIBRARY) -> np.ndarray:
-    """Decode same-sized images in parallel -> ``(N, H, W, 3)`` float32; JPEGs on C++ threads, PNGs on a pool."""
+    """Decode same-sized images in parallel -> ``(N, H, W, 3)`` float32; JPEGs on C++ threads, PNGs on a pool.
+
+    Four-component JPEGs as PIL converts them, as ``decode_image``."""
     if not paths:
         raise ValueError("empty batch")
     n_threads = n_threads if n_threads > 0 else (os.cpu_count() or 1)
@@ -152,7 +166,8 @@ def decode_batch(paths: Sequence[PathLike], n_threads: int = 0, library: HostLib
         status = (ctypes.c_int * len(jpegs))()
         err = ctypes.create_string_buffer(_ERR_LEN)
         rc = library.library().yt_jpeg_decode_batch(
-            names, len(jpegs), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), h, w, n_threads, status, err, _ERR_LEN
+            names, len(jpegs), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), h, w, n_threads, status, err, _ERR_LEN,
+            CMYK_CONVENTIONS["pil"],
         )
         if rc != 0:
             _raise(paths[jpegs[[s != 0 for s in status].index(True)]], rc, err.value)

@@ -1,8 +1,8 @@
 // A self-contained JPEG decoder for the host data pipeline.
 //
-// It reads Huffman-coded 8-bit JPEGs with one or three components, any
-// integer chroma sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...) and restart
-// markers, and writes 8-bit RGB:
+// It reads every JPEG that libjpeg-turbo 3.x reads at 8 bits, with one, three
+// or four components, any integer chroma sampling (4:4:4, 4:2:2, 4:2:0,
+// 4:4:0, ...) and restart markers, and writes 8-bit RGB:
 //   * sequential files (SOF0, and SOF1 at 8 bits), interleaved or with one
 //     scan per component, decoded and inverse-transformed block by block;
 //   * progressive files (SOF2): every scan of the script (DC first and
@@ -17,7 +17,25 @@
 //     neighbourhood of DC values. A complete file never smooths;
 //   * a scan whose Huffman table slot 0 or 1 no DHT defined takes the
 //     standard tables of ITU T.81 Annex K.3 (Motion-JPEG frames carry
-//     none), as jstdhuff.c does; a file's own DHT always wins.
+//     none), as jstdhuff.c does; a file's own DHT always wins;
+//   * arithmetic-coded files, sequential (SOF9) and progressive (SOF10):
+//     the QM-coder of T.81 Annex D with the conditioning of a DAC marker,
+//     as jdarith.c decodes them, into the same coefficients, IDCT and
+//     colour path. Hitting a marker or the end of the file feeds zeros, as
+//     the standard says, so a cut file decodes to its end; a statistics
+//     overflow leaves the rest of the restart interval unread;
+//   * lossless files (SOF3, T.81 Annex H) at 8 bits, as libjpeg-turbo 3.x's
+//     jdlhuff.c / jdlossls.c / jddiffct.c read them: Huffman-coded
+//     differences, predictors 1-7, the point transform, restarts that
+//     start prediction anew, subsampled components replicated (no fancy
+//     upsampling) and no colour conversion: three components are RGB
+//     unless a JFIF or Adobe marker says YCbCr, which libjpeg refuses;
+//   * four components: CMYK, or YCCK when an Adobe marker's transform is
+//     not 0 (jdcolor.c ycck_cmyk_convert), turned into RGB one of two ways
+//     (`cmyk` below): PIL's (Image.convert("RGB") of the inverted "CMYK;I"
+//     samples it always unpacks, Adobe marker or not: cmyk2rgb,
+//     nk - MULDIV255(c', nk) with c' = 255 - c, nk = 255 - k' = k) or
+//     OpenCV's (icvCvt_CMYK2BGR_8u_C4C3R: k - ((255 - c) * k >> 8)).
 // The arithmetic is libjpeg-turbo's with its default decompression
 // settings, so the output is that library's byte for byte:
 //   * the integer inverse DCT of jidctint.c (JDCT_ISLOW: CONST_BITS 13,
@@ -26,21 +44,22 @@
 //     their rounding biases; plain replication when the downsampled width
 //     is 2 or less, or for other integer ratios);
 //   * the fixed-point YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16).
-// Refused with kUnsupported and a message naming the frame type:
-// arithmetic coding (SOF9-11, DAC) and lossless frames (SOF3), which no
-// encoder at hand writes to test against; four-component (CMYK / YCCK)
-// files, which the reference converts two different ways; and what
-// libjpeg-turbo refuses too: hierarchical frames (SOF5-7, SOF13-15),
-// 12-bit samples and a height left to a DNL marker.
+// Refused with kUnsupported and a message naming the frame type, as
+// libjpeg-turbo, or PIL and OpenCV with it, refuse them too: hierarchical
+// frames (SOF5-7, SOF13-15), arithmetic-coded lossless frames (SOF11),
+// samples other than 8 bits, a height left to a DNL marker and colour
+// conversion in a lossless frame.
 //
 // C ABI for ctypes (every call returns 0 or a negative error code, with a
 // message in `err` when one is given):
 //   yt_jpeg_info(path, &h, &w, &components, &orientation, err, n)
-//   yt_jpeg_decode(path, out_u8, h, w, err, n)          out is h*w*3 bytes
-//   yt_jpeg_decode_batch(paths, n, out_f32, h, w, n_threads, status, err, n)
+//   yt_jpeg_decode(path, out_u8, h, w, err, n, cmyk)     out is h*w*3 bytes
+//   yt_jpeg_decode_batch(paths, n, out_f32, h, w, n_threads, status, err, n, cmyk)
 //       decodes n same-sized files on std::threads into one (n, h, w, 3)
 //       float32 buffer, each sample as u8 / 255.0f.
-// `orientation` is the EXIF orientation tag (1-8; 1 when absent).
+// `orientation` is the EXIF orientation tag (1-8; 1 when absent); `cmyk`
+// is kCmykPil (0) or kCmykOpenCv (1), and matters to four-component files
+// alone.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 jpeg.cpp -lpthread (no libjpeg).
 
@@ -62,6 +81,10 @@ constexpr int kErrFormat = -2;
 constexpr int kErrDecode = -3;
 constexpr int kErrDims = -4;
 constexpr int kUnsupported = -5;
+
+// How four-component files become RGB (yt_jpeg_decode's `cmyk`).
+constexpr int kCmykPil = 0;
+constexpr int kCmykOpenCv = 1;
 
 struct JpegError {
   int code;
@@ -113,9 +136,11 @@ struct HuffTable {
   bool defined = false;
   // A table that libjpeg-turbo's jpeg_make_d_derived_tbl refuses: code
   // lengths that over-subscribe the code space (an all-ones code included)
-  // or a DC symbol above 15. Like libjpeg, a scan that uses it fails; a
-  // table no scan uses is never looked at.
+  // or, used for DC, a symbol above 15 (16 in a lossless frame, whose
+  // difference categories run to 16). Like libjpeg, a scan that uses it
+  // fails (`usable`); a table no scan uses is never looked at.
   bool bad = false;
+  int max_val = 0;
   // F.2.2.3: per code length l, the largest code (-1: none) and the offset
   // of its values; a 9-bit lookup answers the short codes at once.
   int32_t maxcode[18];
@@ -124,14 +149,14 @@ struct HuffTable {
   uint8_t look_len[1 << 9];  // 0: longer than 9 bits
   uint8_t look_val[1 << 9];
 
-  void build(const uint8_t* counts, const uint8_t* values, int nvals, bool dc) {
+  bool usable(bool dc, bool lossless) const { return !bad && (!dc || max_val <= (lossless ? 16 : 15)); }
+
+  void build(const uint8_t* counts, const uint8_t* values, int nvals) {
     defined = true;
     bad = false;
     memcpy(vals, values, nvals);
     memset(look_len, 0, sizeof(look_len));
-    if (dc)
-      for (int i = 0; i < nvals; ++i)
-        if (vals[i] > 15) bad = true;
+    max_val = nvals ? *std::max_element(values, values + nvals) : 0;
     int code = 0, p = 0;
     for (int l = 1; l <= 16 && !bad; ++l) {
       int n = counts[l - 1];
@@ -162,6 +187,22 @@ struct HuffTable {
     valoffset[17] = 0;
   }
 };
+
+// Skip to the next RSTn marker at or after *pos and past it; false (with
+// *pos on the marker) when another marker or the end of the file comes first.
+bool seek_restart(const uint8_t* data, size_t size, size_t* pos) {
+  size_t i = *pos;
+  while (i + 1 < size && !(data[i] == 0xFF && data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7)) {
+    if (data[i] == 0xFF && data[i + 1] != 0x00 && data[i + 1] != 0xFF) break;  // another marker
+    ++i;
+  }
+  *pos = i;
+  if (i + 1 < size && data[i] == 0xFF && data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7) {
+    *pos = i + 2;
+    return true;
+  }
+  return false;
+}
 
 // The entropy-coded segment's bit reader. Like libjpeg it stops at a
 // marker (or the end of the file) and then feeds zero bits; 0xFF00 is a
@@ -241,19 +282,239 @@ struct BitReader {
     nbits = 0;
     pad = 0;
     at_marker = false;
-    while (pos + 1 < size && !(data[pos] == 0xFF && data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7)) {
-      if (data[pos] == 0xFF && data[pos + 1] != 0x00 && data[pos + 1] != 0xFF) break;  // another marker
-      ++pos;
-    }
-    if (pos + 1 < size && data[pos] == 0xFF && data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7) {
-      pos += 2;
-      return true;
-    }
-    return false;
+    return seek_restart(data, size, &pos);
   }
 };
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+// ---------------------------------------------------------- arithmetic ----
+
+// T.81 Table D.2 as jaricom.c packs it: Qe_Value << 16 | Next_Index_MPS << 8
+// | Switch_MPS << 7 | Next_Index_LPS. Entry 113 is the fixed 0.5 estimate
+// (T.851 Table 5) that signs and DC refinement bits are coded with.
+constexpr int32_t qm(int32_t qe, int32_t lps, int32_t mps, int32_t sw) { return qe << 16 | mps << 8 | sw << 7 | lps; }
+const int32_t kQm[114] = {
+    qm(0x5a1d, 1, 1, 1),     qm(0x2586, 14, 2, 0),    qm(0x1114, 16, 3, 0),    qm(0x080b, 18, 4, 0),
+    qm(0x03d8, 20, 5, 0),    qm(0x01da, 23, 6, 0),    qm(0x00e5, 25, 7, 0),    qm(0x006f, 28, 8, 0),
+    qm(0x0036, 30, 9, 0),    qm(0x001a, 33, 10, 0),   qm(0x000d, 35, 11, 0),   qm(0x0006, 9, 12, 0),
+    qm(0x0003, 10, 13, 0),   qm(0x0001, 12, 13, 0),   qm(0x5a7f, 15, 15, 1),   qm(0x3f25, 36, 16, 0),
+    qm(0x2cf2, 38, 17, 0),   qm(0x207c, 39, 18, 0),   qm(0x17b9, 40, 19, 0),   qm(0x1182, 42, 20, 0),
+    qm(0x0cef, 43, 21, 0),   qm(0x09a1, 45, 22, 0),   qm(0x072f, 46, 23, 0),   qm(0x055c, 48, 24, 0),
+    qm(0x0406, 49, 25, 0),   qm(0x0303, 51, 26, 0),   qm(0x0240, 52, 27, 0),   qm(0x01b1, 54, 28, 0),
+    qm(0x0144, 56, 29, 0),   qm(0x00f5, 57, 30, 0),   qm(0x00b7, 59, 31, 0),   qm(0x008a, 60, 32, 0),
+    qm(0x0068, 62, 33, 0),   qm(0x004e, 63, 34, 0),   qm(0x003b, 32, 35, 0),   qm(0x002c, 33, 9, 0),
+    qm(0x5ae1, 37, 37, 1),   qm(0x484c, 64, 38, 0),   qm(0x3a0d, 65, 39, 0),   qm(0x2ef1, 67, 40, 0),
+    qm(0x261f, 68, 41, 0),   qm(0x1f33, 69, 42, 0),   qm(0x19a8, 70, 43, 0),   qm(0x1518, 72, 44, 0),
+    qm(0x1177, 73, 45, 0),   qm(0x0e74, 74, 46, 0),   qm(0x0bfb, 75, 47, 0),   qm(0x09f8, 77, 48, 0),
+    qm(0x0861, 78, 49, 0),   qm(0x0706, 79, 50, 0),   qm(0x05cd, 48, 51, 0),   qm(0x04de, 50, 52, 0),
+    qm(0x040f, 50, 53, 0),   qm(0x0363, 51, 54, 0),   qm(0x02d4, 52, 55, 0),   qm(0x025c, 53, 56, 0),
+    qm(0x01f8, 54, 57, 0),   qm(0x01a4, 55, 58, 0),   qm(0x0160, 56, 59, 0),   qm(0x0125, 57, 60, 0),
+    qm(0x00f6, 58, 61, 0),   qm(0x00cb, 59, 62, 0),   qm(0x00ab, 61, 63, 0),   qm(0x008f, 61, 32, 0),
+    qm(0x5b12, 65, 65, 1),   qm(0x4d04, 80, 66, 0),   qm(0x412c, 81, 67, 0),   qm(0x37d8, 82, 68, 0),
+    qm(0x2fe8, 83, 69, 0),   qm(0x293c, 84, 70, 0),   qm(0x2379, 86, 71, 0),   qm(0x1edf, 87, 72, 0),
+    qm(0x1aa9, 87, 73, 0),   qm(0x174e, 72, 74, 0),   qm(0x1424, 72, 75, 0),   qm(0x119c, 74, 76, 0),
+    qm(0x0f6b, 74, 77, 0),   qm(0x0d51, 75, 78, 0),   qm(0x0bb6, 77, 79, 0),   qm(0x0a40, 77, 48, 0),
+    qm(0x5832, 80, 81, 1),   qm(0x4d1c, 88, 82, 0),   qm(0x438e, 89, 83, 0),   qm(0x3bdd, 90, 84, 0),
+    qm(0x34ee, 91, 85, 0),   qm(0x2eae, 92, 86, 0),   qm(0x299a, 93, 87, 0),   qm(0x2516, 86, 71, 0),
+    qm(0x5570, 88, 89, 1),   qm(0x4ca9, 95, 90, 0),   qm(0x44d9, 96, 91, 0),   qm(0x3e22, 97, 92, 0),
+    qm(0x3824, 99, 93, 0),   qm(0x32b4, 99, 94, 0),   qm(0x2e17, 93, 86, 0),   qm(0x56a8, 95, 96, 1),
+    qm(0x4f46, 101, 97, 0),  qm(0x47e5, 102, 98, 0),  qm(0x41cf, 103, 99, 0),  qm(0x3c3d, 104, 100, 0),
+    qm(0x375e, 99, 93, 0),   qm(0x5231, 105, 102, 0), qm(0x4c0f, 106, 103, 0), qm(0x4639, 107, 104, 0),
+    qm(0x415e, 103, 99, 0),  qm(0x5627, 105, 106, 1), qm(0x50e7, 108, 107, 0), qm(0x4b85, 109, 103, 0),
+    qm(0x5597, 110, 109, 0), qm(0x504f, 111, 107, 0), qm(0x5a10, 110, 111, 1), qm(0x5522, 112, 109, 0),
+    qm(0x59eb, 112, 111, 1), qm(0x5a1d, 113, 113, 0)};
+constexpr uint8_t kFixedBin = 113;
+
+// The QM-coder's decoder with libjpeg's registers (jdarith.c): C holds the
+// code register and its unread bits, A the interval, CT the bits left in
+// C's low byte (-16 before the first two bytes, -1 after a statistics
+// overflow, which leaves the rest of the restart interval unread). A
+// marker, or the end of the file, feeds zero bytes from then on.
+struct ArithReader {
+  const uint8_t* data;
+  size_t size;
+  size_t pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool at_marker = false;
+
+  bool starved() const { return false; }  // the data never "run out": zeros are the standard's padding
+  bool failed() const { return ct == -1; }
+  int next_byte() {
+    if (at_marker || pos >= size) {
+      at_marker = true;
+      return 0;
+    }
+    int b = data[pos];
+    if (b != 0xFF) {
+      ++pos;
+      return b;
+    }
+    size_t q = pos + 1;
+    while (q < size && data[q] == 0xFF) ++q;  // fill bytes
+    if (q < size && data[q] == 0x00) {
+      pos = q + 1;
+      return 0xFF;
+    }
+    at_marker = true;  // leave pos on the marker's first 0xFF
+    return 0;
+  }
+  // D.2.4-D.2.6: one decision with its statistics bin, updated in place.
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the two initial bytes are in: A starts at 0x10000
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kQm[sv & 0x7F];
+    const int nl = int(qe & 0xFF), nm = int((qe >> 8) & 0xFF);
+    qe >>= 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS after all
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  // The registers start over after the RSTn marker (jdarith.c process_restart).
+  bool restart() {
+    c = a = 0;
+    ct = -16;
+    at_marker = false;
+    return seek_restart(data, size, &pos);
+  }
+};
+
+// A scan's adaptive statistics: 64 DC and 256 AC bins per conditioning
+// table (T.81 Tables F.4 / F.5), and the fixed 0.5 bin.
+struct ArithStats {
+  uint8_t dc[16][64];
+  uint8_t ac[16][256];
+  uint8_t fixed = kFixedBin;
+};
+
+// F.2.4.1 (Figures F.19, F.21-F.24): one DC difference into `v`, coded in
+// the component's context `ctx`, which it then sets from L and U (DAC).
+// False on a magnitude overflow.
+bool arith_dc_diff(ArithReader& ar, uint8_t* stats, int L, int U, int& ctx, int& v) {
+  uint8_t* st = stats + ctx;
+  v = 0;
+  if (ar.decode(st) == 0) {
+    ctx = 0;
+    return true;
+  }
+  const int sign = ar.decode(st + 1);
+  st += 2 + sign;
+  int m = ar.decode(st);
+  if (m) {
+    st = stats + 20;  // X1
+    while (ar.decode(st)) {
+      if ((m <<= 1) == 0x8000) {
+        ar.ct = -1;
+        return false;
+      }
+      ++st;
+    }
+  }
+  if (m < int((1L << L) >> 1)) ctx = 0;
+  else if (m > int((1L << U) >> 1)) ctx = 12 + sign * 4;
+  else ctx = 4 + sign * 4;
+  v = m;
+  st += 14;
+  while (m >>= 1)
+    if (ar.decode(st)) v |= m;
+  v += 1;
+  if (sign) v = -v;
+  return true;
+}
+
+// F.2.4.2 (Figure F.20): AC coefficients ss..se of a block, each shifted
+// left by al, with the magnitude bins split at K (DAC). False on a
+// spectral or magnitude overflow.
+bool arith_ac(ArithReader& ar, uint8_t* stats, uint8_t* fixed, int K, int ss, int se, int al, int16_t* block) {
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (ar.decode(st)) break;  // end of block
+    while (ar.decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se) {
+        ar.ct = -1;
+        return false;
+      }
+    }
+    const int sign = ar.decode(fixed);
+    st += 2;
+    int m = ar.decode(st);
+    if (m && ar.decode(st)) {
+      m <<= 1;
+      st = stats + (k <= K ? 189 : 217);
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ar.ct = -1;
+          return false;
+        }
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    block[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+  }
+  return true;
+}
+
+// G.1.3.3 as jdarith.c decode_mcu_AC_refine codes it: past the last
+// coefficient a former scan made nonzero an end-of-block decision comes
+// first; nonzero ones take a correction bit, new ones a sign.
+void arith_ac_refine(ArithReader& ar, uint8_t* stats, uint8_t* fixed, int ss, int se, int al, int16_t* block) {
+  const int p1 = 1 << al, m1 = -(1 << al);
+  int kex = se;
+  while (kex > 0 && !block[kNaturalOrder[kex]]) --kex;
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (k > kex && ar.decode(st)) break;
+    for (;;) {
+      int16_t* coef = block + kNaturalOrder[k];
+      if (*coef) {
+        if (ar.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+        break;
+      }
+      if (ar.decode(st + 1)) {
+        *coef = static_cast<int16_t>(ar.decode(fixed) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se) {
+        ar.ct = -1;
+        return;
+      }
+    }
+  }
+}
 
 // ------------------------------------------------------ inverse DCT -------
 
@@ -433,6 +694,7 @@ struct Component {
   // quantization table latched then (jdinput.c latch_quant_tables).
   std::vector<int16_t> coef;
   uint16_t qt[64];
+  int dc_ctx = 0;  // arithmetic coding: the DC conditioning context (0, 4, 8, 12 or 16)
   // jdphuff.c's progression status per zigzag coefficient: the Al of the
   // last scan that coded it (-1: none yet), and its value before the
   // latest scan that named the component.
@@ -444,12 +706,21 @@ struct Component {
 struct Frame {
   int sof = -1, precision = 8, width = 0, height = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  int unit = 8;  // samples per data unit across: 8 (a DCT block), 1 in a lossless frame
   std::vector<Component> comps;
   uint16_t quant[4][64];
   bool quant_defined[4] = {false, false, false, false};
   HuffTable dc[4], ac[4];
+  // DAC conditioning per arithmetic table: the DC bounds L / U, the AC Kx
+  // (jdmarker.c get_dac; the defaults of T.81 F.1.4.4.1.4 and F.1.4.4.2.1).
+  uint8_t dc_L[16], dc_U[16], ac_K[16];
   int restart_interval = 0;
-  bool progressive = false;
+  bool progressive = false, arith = false, lossless = false;
+  Frame() {
+    std::fill(dc_L, dc_L + 16, 0);
+    std::fill(dc_U, dc_U + 16, 1);
+    std::fill(ac_K, ac_K + 16, 5);
+  }
   int scans = 0;                 // SOS markers read (libjpeg's input_scan_number)
   int last_good_row = INT_MAX;   // the last iMCU row the latest scan decoded before its data ran out
   bool jfif = false, adobe = false;
@@ -541,7 +812,7 @@ class Decoder {
       } else if (m == 0xC4) {
         read_dht(body, blen);
       } else if (m == 0xCC) {
-        fail(kUnsupported, "arithmetic coding (DAC)");
+        read_dac(body, blen);
       } else if (m == 0xDB) {
         read_dqt(body, blen);
       } else if (m == 0xDD) {
@@ -573,8 +844,9 @@ class Decoder {
 
   const Frame& frame() const { return f_; }
 
-  // Upsample and convert to RGB, libjpeg-turbo's way, into out (h*w*3).
-  void to_rgb(uint8_t* out) {
+  // Upsample and convert to RGB, libjpeg-turbo's way, into out (h*w*3);
+  // `cmyk` (kCmykPil or kCmykOpenCv) says how four components become RGB.
+  void to_rgb(uint8_t* out, int cmyk) {
     const int W = f_.width, H = f_.height;
     const int nc = int(f_.comps.size());
     std::vector<std::vector<uint8_t>> full(nc);
@@ -586,6 +858,10 @@ class Decoder {
       return;
     }
     const uint8_t *y = full[0].data(), *cb = full[1].data(), *cr = full[2].data();
+    if (nc == 4) {
+      cmyk_to_rgb(y, cb, cr, full[3].data(), n, cmyk, out);
+      return;
+    }
     if (rgb_colorspace()) {
       for (size_t i = 0; i < n; ++i) {
         out[3 * i] = y[i];
@@ -609,11 +885,46 @@ class Decoder {
   bool scanned_ = false;
   Frame f_;
 
-  // jdapimin.c default_decompress_parms for three components.
+  // jdapimin.c default_decompress_parms for three components: RGB or
+  // YCbCr. Without a JFIF or Adobe marker the component IDs decide, and a
+  // lossless frame is RGB unless they say otherwise.
   bool rgb_colorspace() const {
     if (f_.jfif) return false;
     if (f_.adobe) return f_.adobe_transform == 0;
+    if (f_.lossless) return true;
     return f_.comps[0].id == 82 && f_.comps[1].id == 71 && f_.comps[2].id == 66;
+  }
+
+  // ... and for four: CMYK, or YCCK when an Adobe marker's transform is
+  // not 0.
+  bool ycck_colorspace() const { return f_.adobe && f_.adobe_transform != 0; }
+
+  // jdcolor.c ycck_cmyk_convert (for YCCK) gives the CMYK samples libjpeg
+  // delivers as JCS_CMYK; then PIL's or OpenCV's conversion to RGB.
+  void cmyk_to_rgb(const uint8_t* c0, const uint8_t* c1, const uint8_t* c2, const uint8_t* k, size_t n, int cmyk,
+                   uint8_t* out) const {
+    const bool ycck = ycck_colorspace();
+    // Pillow's MULDIV255: a * b / 255, rounded
+    auto muldiv255 = [](int a, int b) {
+      int t = a * b + 128;
+      return ((t >> 8) + t) >> 8;
+    };
+    for (size_t i = 0; i < n; ++i) {
+      int ink[3] = {c0[i], c1[i], c2[i]};
+      if (ycck) {
+        int Y = c0[i], b = c1[i], r = c2[i];
+        ink[0] = clamp255(255 - (Y + kYcc.cr_r[r]));
+        ink[1] = clamp255(255 - (Y + int((kYcc.cb_g[b] + kYcc.cr_g[r]) >> 16)));
+        ink[2] = clamp255(255 - (Y + kYcc.cb_b[b]));
+      }
+      const int K = k[i];
+      for (int j = 0; j < 3; ++j) {
+        int v;
+        if (cmyk == kCmykOpenCv) v = K - (((255 - ink[j]) * K) >> 8);
+        else v = K - muldiv255(255 - ink[j], K);  // PIL: "CMYK;I" inverts all four
+        out[3 * i + j] = static_cast<uint8_t>(v);
+      }
+    }
   }
 
   int next_marker() {
@@ -624,21 +935,25 @@ class Decoder {
   }
 
   void read_sof(int m, const uint8_t* p, size_t n) {
-    if (m != 0xC0 && m != 0xC1 && m != 0xC2) fail(kUnsupported, sof_name(m));
+    if (m != 0xC0 && m != 0xC1 && m != 0xC2 && m != 0xC3 && m != 0xC9 && m != 0xCA) fail(kUnsupported, sof_name(m));
     if (f_.sof >= 0) fail(kErrDecode, "two frame headers");
     if (n < 6) fail(kErrDecode, "bad SOF");
     f_.precision = p[0];
-    if (f_.precision != 8) fail(kUnsupported, std::string(sof_name(m)) + " with " + std::to_string(f_.precision) + "-bit samples");
+    if (f_.precision != 8)
+      fail(kUnsupported, std::string(sof_name(m)) + " with " + std::to_string(f_.precision) +
+                             "-bit samples (the JAX loaders' PIL and OpenCV refuse them too)");
     f_.height = be16(p + 1);
     f_.width = be16(p + 3);
     int nc = p[5];
     if (f_.height <= 0) fail(kUnsupported, std::string(sof_name(m)) + " with height 0 (DNL)");
     if (f_.width <= 0) fail(kErrDecode, "zero image width");
-    if (nc == 4) fail(kUnsupported, std::string(sof_name(m)) + " with 4 components (CMYK / YCCK)");
-    if (nc != 1 && nc != 3) fail(kUnsupported, std::string(sof_name(m)) + " with " + std::to_string(nc) + " components");
+    if (nc != 1 && nc != 3 && nc != 4) fail(kUnsupported, std::string(sof_name(m)) + " with " + std::to_string(nc) + " components");
     if (n < 6 + 3 * size_t(nc)) fail(kErrDecode, "bad SOF");
     f_.sof = m;
-    f_.progressive = m == 0xC2;
+    f_.progressive = m == 0xC2 || m == 0xCA;
+    f_.arith = m == 0xC9 || m == 0xCA;
+    f_.lossless = m == 0xC3;
+    f_.unit = f_.lossless ? 1 : 8;
     f_.comps.resize(nc);
     for (int c = 0; c < nc; ++c) {
       Component& cp = f_.comps[c];
@@ -652,14 +967,32 @@ class Decoder {
       f_.hmax = std::max(f_.hmax, cp.h);
       f_.vmax = std::max(f_.vmax, cp.v);
     }
-    f_.mcux = (f_.width + 8 * f_.hmax - 1) / (8 * f_.hmax);
-    f_.mcuy = (f_.height + 8 * f_.vmax - 1) / (8 * f_.vmax);
+    const int u = f_.unit;
+    f_.mcux = (f_.width + u * f_.hmax - 1) / (u * f_.hmax);
+    f_.mcuy = (f_.height + u * f_.vmax - 1) / (u * f_.vmax);
     for (Component& cp : f_.comps) {
       if (f_.hmax % cp.h || f_.vmax % cp.v) fail(kUnsupported, "fractional sampling ratios");
       cp.dw = int((int64_t(f_.width) * cp.h + f_.hmax - 1) / f_.hmax);
       cp.dh = int((int64_t(f_.height) * cp.v + f_.vmax - 1) / f_.vmax);
       cp.bw = f_.mcux * cp.h;
       cp.bh = f_.mcuy * cp.v;
+    }
+  }
+
+  // jdmarker.c get_dac: per table, the DC conditioning bounds (L in the
+  // low nibble, U in the high one, L <= U) or the AC Kx.
+  void read_dac(const uint8_t* p, size_t n) {
+    if (n % 2) fail(kErrDecode, "bad DAC");
+    for (size_t i = 0; i < n; i += 2) {
+      const int index = p[i], val = p[i + 1];
+      if (index >= 32) fail(kErrDecode, "bad DAC table index " + std::to_string(index));
+      if (index >= 16) {
+        f_.ac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        f_.dc_L[index] = static_cast<uint8_t>(val & 15);
+        f_.dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (f_.dc_L[index] > f_.dc_U[index]) fail(kErrDecode, "bad DAC value " + std::to_string(val));
+      }
     }
   }
 
@@ -672,7 +1005,7 @@ class Decoder {
       int total = 0;
       for (int l = 0; l < 16; ++l) total += p[i + 1 + l];
       if (total > 256 || i + 17 + total > n) fail(kErrDecode, "bad DHT");
-      (tc ? f_.ac[th] : f_.dc[th]).build(p + i + 1, p + i + 17, total, tc == 0);
+      (tc ? f_.ac[th] : f_.dc[th]).build(p + i + 1, p + i + 17, total);
       i += 17 + total;
     }
   }
@@ -697,7 +1030,16 @@ class Decoder {
     if (n < 1) fail(kErrDecode, "bad SOS");
     int ns = p[0];
     if (ns < 1 || ns > 4 || n < 4 + 2 * size_t(ns)) fail(kErrDecode, "bad SOS");
-    if (!scanned_) load_standard_tables();
+    if (!scanned_) {
+      load_standard_tables();
+      // jdcolor.c: libjpeg-turbo converts no colour in a lossless frame, so
+      // one that would need YCbCr -> RGB (or YCCK -> CMYK) is refused.
+      const size_t nc = f_.comps.size();
+      if (f_.lossless && ((nc == 3 && !rgb_colorspace()) || (nc == 4 && ycck_colorspace())))
+        fail(kUnsupported, std::string(sof_name(f_.sof)) + (nc == 3 ? " in YCbCr" : " in YCCK") +
+                               ": no colour conversion in a lossless frame (the JAX loaders' PIL and OpenCV refuse it too)");
+    }
+    const int max_table = f_.arith ? 15 : 3;  // 16 conditioning tables, 4 Huffman tables
     std::vector<Component*> sc;
     for (int s = 0; s < ns; ++s) {
       int id = p[1 + 2 * s];
@@ -707,27 +1049,55 @@ class Decoder {
       if (!cp) fail(kErrDecode, "SOS names an unknown component");
       cp->td = p[2 + 2 * s] >> 4;
       cp->ta = p[2 + 2 * s] & 15;
-      if (cp->td > 3 || cp->ta > 3) fail(kErrDecode, "bad SOS table");
+      if (cp->td > max_table || (!f_.lossless && cp->ta > max_table)) fail(kErrDecode, "bad SOS table");
       sc.push_back(cp);
     }
     int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
+    if (f_.lossless) {
+      lossless_scan(sc, ss, se, ah, al);
+      return;
+    }
     if (f_.progressive) {
       progressive_scan(sc, ss, se, ah, al);
       return;
     }
     for (Component* cp : sc) {
-      if (!f_.dc[cp->td].defined || !f_.ac[cp->ta].defined) fail(kErrDecode, "scan uses an undefined Huffman table");
-      if (f_.dc[cp->td].bad || f_.ac[cp->ta].bad) fail(kErrDecode, "bad Huffman table");
+      if (!f_.arith) {
+        if (!f_.dc[cp->td].defined || !f_.ac[cp->ta].defined) fail(kErrDecode, "scan uses an undefined Huffman table");
+        if (!f_.dc[cp->td].usable(true, false) || !f_.ac[cp->ta].usable(false, false)) fail(kErrDecode, "bad Huffman table");
+      }
       if (!f_.quant_defined[cp->tq]) fail(kErrDecode, "component uses an undefined quantization table");
       if (cp->plane.empty()) cp->plane.assign(size_t(cp->bw) * 8 * cp->bh * 8, 0);
       cp->dc_pred = 0;
     }
     if (ss != 0 || se != 63 || ah != 0 || al != 0) fail(kUnsupported, "a non-sequential scan (Ss/Se/Ah/Al)");
 
-    BitReader br{data_, size_, pos_};
     int16_t block[64];
-    const int ri = f_.restart_interval;
-    auto decode_block = [&](Component& c, int bx, int by) {
+    auto idct = [&](Component& c, int bx, int by) {
+      const size_t stride = size_t(c.bw) * 8;
+      idct_islow(block, f_.quant[c.tq], c.plane.data() + size_t(by) * 8 * stride + size_t(bx) * 8, stride);
+    };
+    if (f_.arith) {
+      // jdarith.c decode_mcu: a statistics overflow leaves the rest of the
+      // restart interval's blocks zero (flat grey), as libjpeg leaves them.
+      ArithReader ar{data_, size_, pos_};
+      ArithStats stats;
+      reset_arith_stats(sc, &stats, true, true);
+      walk_scan(sc, ar, [&](Component& c, int bx, int by) {
+        memset(block, 0, sizeof(block));
+        int v;
+        if (!ar.failed() && arith_dc_diff(ar, stats.dc[c.td], f_.dc_L[c.td], f_.dc_U[c.td], c.dc_ctx, v)) {
+          c.dc_pred = (c.dc_pred + v) & 0xFFFF;
+          block[0] = static_cast<int16_t>(c.dc_pred);
+          arith_ac(ar, stats.ac[c.ta], &stats.fixed, f_.ac_K[c.ta], 1, 63, 0, block);
+        }
+        idct(c, bx, by);
+      }, [&] { reset_arith_stats(sc, &stats, true, true); }, false);
+      skip_entropy_data(ar.pos);
+      return;
+    }
+    BitReader br{data_, size_, pos_};
+    walk_scan(sc, br, [&](Component& c, int bx, int by) {
       memset(block, 0, sizeof(block));
       const HuffTable& dct = f_.dc[c.td];
       const HuffTable& act = f_.ac[c.ta];
@@ -747,37 +1117,68 @@ class Decoder {
           k += 15;
         }
       }
-      size_t stride = size_t(c.bw) * 8;
-      idct_islow(block, f_.quant[c.tq], c.plane.data() + size_t(by) * 8 * stride + size_t(bx) * 8, stride);
-    };
+      idct(c, bx, by);
+    }, [&] {
+      for (Component* c : sc) c->dc_pred = 0;
+    }, false);
+    skip_entropy_data(br.pos);
+  }
+
+  // jdarith.c start_pass / process_restart: the statistics of the scan's
+  // tables back to zero, with the DC predictions and contexts.
+  static void reset_arith_stats(const std::vector<Component*>& sc, ArithStats* stats, bool dc, bool ac) {
+    for (Component* c : sc) {
+      if (dc) {
+        memset(stats->dc[c->td], 0, sizeof(stats->dc[0]));
+        c->dc_pred = 0;
+        c->dc_ctx = 0;
+      }
+      if (ac) memset(stats->ac[c->ta], 0, sizeof(stats->ac[0]));
+    }
+  }
+
+  // Walk a scan's MCUs in order: decode_block(component, bx, by) for each
+  // of its blocks (a single component's scan has one block per MCU, over
+  // the component's own blocks), and at the end of each restart interval
+  // the reader's restart() and then on_restart(). With skip_starved, once
+  // the data run out (libjpeg's insufficient_data) the rest of the scan is
+  // left as it is until a restart marker is found, and the first iMCU row
+  // that ran out is kept for the block smoothing.
+  template <class Reader, class DecodeBlock, class OnRestart>
+  void walk_scan(const std::vector<Component*>& sc, Reader& rd, DecodeBlock&& decode_block, OnRestart&& on_restart,
+                 bool skip_starved) {
+    const int ri = f_.restart_interval;
     int todo = ri;
-    auto maybe_restart = [&](bool last) {
-      if (!ri) return;
-      if (--todo == 0 && !last) {
-        br.restart();
-        for (Component* c : sc) c->dc_pred = 0;
+    bool starved = false;
+    auto end_mcu = [&](int imcu_row, bool last) {
+      if (skip_starved && !starved && rd.starved()) {
+        starved = true;
+        f_.last_good_row = std::min(f_.last_good_row, imcu_row);
+      }
+      if (ri && --todo == 0 && !last) {
+        if (rd.restart()) starved = false;
+        on_restart();
         todo = ri;
       }
     };
-    if (ns == 1) {
-      // Non-interleaved: one block per MCU over the component's own blocks.
+    if (sc.size() == 1) {
       Component& c = *sc[0];
-      int cbw = (c.dw + 7) / 8, cbh = (c.dh + 7) / 8;
+      const int cbw = (c.dw + 7) / 8, cbh = (c.dh + 7) / 8;
       for (int by = 0; by < cbh; ++by)
         for (int bx = 0; bx < cbw; ++bx) {
-          decode_block(c, bx, by);
-          maybe_restart(by == cbh - 1 && bx == cbw - 1);
+          if (!starved) decode_block(c, bx, by);
+          end_mcu(by / c.v, by == cbh - 1 && bx == cbw - 1);
         }
     } else {
       for (int my = 0; my < f_.mcuy; ++my)
         for (int mx = 0; mx < f_.mcux; ++mx) {
-          for (Component* c : sc)
-            for (int v = 0; v < c->v; ++v)
-              for (int h = 0; h < c->h; ++h) decode_block(*c, mx * c->h + h, my * c->v + v);
-          maybe_restart(my == f_.mcuy - 1 && mx == f_.mcux - 1);
+          if (!starved)
+            for (Component* c : sc)
+              for (int v = 0; v < c->v; ++v)
+                for (int h = 0; h < c->h; ++h) decode_block(*c, mx * c->h + h, my * c->v + v);
+          end_mcu(my, my == f_.mcuy - 1 && mx == f_.mcux - 1);
         }
     }
-    skip_entropy_data(br.pos);
   }
 
   // Continue the marker scan after a scan's entropy-coded data.
@@ -792,16 +1193,16 @@ class Decoder {
   // jstdhuff.c, at the first scan: the standard tables into slots 0 and 1
   // that no DHT has defined.
   void load_standard_tables() {
-    if (!f_.dc[0].defined) f_.dc[0].build(kStdDcLumCounts, kStdDcValues, 12, true);
-    if (!f_.ac[0].defined) f_.ac[0].build(kStdAcLumCounts, kStdAcLumValues, 162, false);
-    if (!f_.dc[1].defined) f_.dc[1].build(kStdDcChromCounts, kStdDcValues, 12, true);
-    if (!f_.ac[1].defined) f_.ac[1].build(kStdAcChromCounts, kStdAcChromValues, 162, false);
+    if (!f_.dc[0].defined) f_.dc[0].build(kStdDcLumCounts, kStdDcValues, 12);
+    if (!f_.ac[0].defined) f_.ac[0].build(kStdAcLumCounts, kStdAcLumValues, 162);
+    if (!f_.dc[1].defined) f_.dc[1].build(kStdDcChromCounts, kStdDcValues, 12);
+    if (!f_.ac[1].defined) f_.ac[1].build(kStdAcChromCounts, kStdAcChromValues, 162);
   }
 
   // One scan of a progressive file into the components' coefficients.
   void progressive_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
     const int ns = int(sc.size());
-    // jdphuff.c start_pass_phuff_decoder: a DC scan codes coefficient 0
+    // jdphuff.c / jdarith.c start_pass: a DC scan codes coefficient 0
     // alone, an AC scan one component's band; a refinement lowers Al by one.
     bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
     if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
@@ -817,56 +1218,28 @@ class Decoder {
         memcpy(c->qt, f_.quant[c->tq], sizeof(c->qt));
         c->coef.assign(size_t(c->bw) * c->bh * 64, 0);
       }
-      if (!dc || ah == 0) {  // a DC refinement reads no Huffman table
+      if (!f_.arith && (!dc || ah == 0)) {  // a DC refinement reads no Huffman table
         const HuffTable& t = dc ? f_.dc[c->td] : f_.ac[c->ta];
         if (!t.defined) fail(kErrDecode, "scan uses an undefined Huffman table");
-        if (t.bad) fail(kErrDecode, "bad Huffman table");
+        if (!t.usable(dc, false)) fail(kErrDecode, "bad Huffman table");
       }
       for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k) c->prev_bits[k] = f_.scans > 1 ? c->coef_bits[k] : 0;
       for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
       c->dc_pred = 0;
     }
+    if (f_.arith) {
+      arith_progressive_scan(sc, ss, se, ah, al);
+      return;
+    }
 
     BitReader br{data_, size_, pos_};
     const int p1 = 1 << al, m1 = -(1 << al);
     int eobrun = 0;
-    // Walk the scan's MCUs; once the data run out (libjpeg's
-    // insufficient_data) the rest of the scan is left as it is, until a
-    // restart marker is found.
     auto walk = [&](auto&& decode_block) {
-      const int ri = f_.restart_interval;
-      int todo = ri;
-      bool starved = false;
-      auto end_mcu = [&](int imcu_row, bool last) {
-        if (!starved && br.starved()) {
-          starved = true;
-          f_.last_good_row = std::min(f_.last_good_row, imcu_row);
-        }
-        if (ri && --todo == 0 && !last) {
-          if (br.restart()) starved = false;
-          eobrun = 0;
-          for (Component* c : sc) c->dc_pred = 0;
-          todo = ri;
-        }
-      };
-      if (ns == 1) {
-        Component& c = *sc[0];
-        const int cbw = (c.dw + 7) / 8, cbh = (c.dh + 7) / 8;
-        for (int by = 0; by < cbh; ++by)
-          for (int bx = 0; bx < cbw; ++bx) {
-            if (!starved) decode_block(c, c.block(bx, by));
-            end_mcu(by / c.v, by == cbh - 1 && bx == cbw - 1);
-          }
-      } else {
-        for (int my = 0; my < f_.mcuy; ++my)
-          for (int mx = 0; mx < f_.mcux; ++mx) {
-            if (!starved)
-              for (Component* c : sc)
-                for (int v = 0; v < c->v; ++v)
-                  for (int h = 0; h < c->h; ++h) decode_block(*c, c->block(mx * c->h + h, my * c->v + v));
-            end_mcu(my, my == f_.mcuy - 1 && mx == f_.mcux - 1);
-          }
-      }
+      walk_scan(sc, br, [&](Component& c, int bx, int by) { decode_block(c, c.block(bx, by)); }, [&] {
+        eobrun = 0;
+        for (Component* c : sc) c->dc_pred = 0;
+      }, true);
     };
     // The four decoders of jdphuff.c.
     if (dc && ah == 0) {  // DC first: the difference, shifted left by Al
@@ -939,6 +1312,145 @@ class Decoder {
           --eobrun;
         }
       });
+    }
+    skip_entropy_data(br.pos);
+  }
+
+  // One scan of an arithmetic-coded progressive file: the four decoders of
+  // jdarith.c. There is no end-of-band run; a statistics overflow leaves
+  // the rest of the restart interval as it is.
+  void arith_progressive_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
+    const bool dc = ss == 0;
+    ArithReader ar{data_, size_, pos_};
+    ArithStats stats;
+    const bool dc_stats = dc && ah == 0, ac_stats = !dc;
+    reset_arith_stats(sc, &stats, dc_stats, ac_stats);
+    auto walk = [&](auto&& decode_block) {
+      walk_scan(sc, ar, [&](Component& c, int bx, int by) {
+        if (!ar.failed()) decode_block(c, c.block(bx, by));
+      }, [&] { reset_arith_stats(sc, &stats, dc_stats, ac_stats); }, true);
+    };
+    if (dc && ah == 0) {  // DC first: the difference, shifted left by Al
+      walk([&](Component& c, int16_t* b) {
+        int v;
+        if (!arith_dc_diff(ar, stats.dc[c.td], f_.dc_L[c.td], f_.dc_U[c.td], c.dc_ctx, v)) return;
+        c.dc_pred = (c.dc_pred + v) & 0xFFFF;
+        b[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_pred) << al);
+      });
+    } else if (dc) {  // DC refinement: the next bit, at the fixed estimate
+      const int p1 = 1 << al;
+      walk([&](Component&, int16_t* b) {
+        if (ar.decode(&stats.fixed)) b[0] = static_cast<int16_t>(b[0] | p1);
+      });
+    } else if (ah == 0) {  // AC first
+      const int t = sc[0]->ta;
+      walk([&](Component&, int16_t* b) { arith_ac(ar, stats.ac[t], &stats.fixed, f_.ac_K[t], ss, se, al, b); });
+    } else {  // AC refinement
+      const int t = sc[0]->ta;
+      walk([&](Component&, int16_t* b) { arith_ac_refine(ar, stats.ac[t], &stats.fixed, ss, se, al, b); });
+    }
+    skip_entropy_data(ar.pos);
+  }
+
+  // A scan of a lossless frame (T.81 Annex H; libjpeg-turbo 3.x jdlhuff.c,
+  // jddiffct.c, jdlossls.c): per sample a Huffman-coded difference
+  // category 0-16 (16: 32768, no extra bits) against predictor Ss from the
+  // reconstructed neighbours, modulo 2^16. The first row, and the first
+  // after a restart, predicts from the left (its first sample from
+  // 2^(P - Pt - 1)), the first column from above; the samples keep their
+  // point transform Pt = Al, undone by a left shift. As in jddiffct.c, an
+  // MCU row is decoded whole, its dummy samples dropped, before its rows
+  // are undifferenced; a restart interval must be whole MCU rows. Once the
+  // data run out each later MCU row is zero differences from a new first row.
+  void lossless_scan(const std::vector<Component*>& sc, int psv, int se, int ah, int pt) {
+    if (psv < 1 || psv > 7 || se != 0 || ah != 0 || pt >= f_.precision)
+      fail(kErrDecode, "bad lossless scan (Ss " + std::to_string(psv) + ", Se " + std::to_string(se) + ", Ah " +
+                           std::to_string(ah) + ", Al " + std::to_string(pt) + ")");
+    for (Component* c : sc) {
+      if (!f_.dc[c->td].defined) fail(kErrDecode, "scan uses an undefined Huffman table");
+      if (!f_.dc[c->td].usable(true, true)) fail(kErrDecode, "bad Huffman table");
+      if (c->plane.empty()) c->plane.assign(size_t(c->bw) * c->bh, 0);
+    }
+    const bool one = sc.size() == 1;
+    // MCUs per row and MCU rows: a single component's scan has one sample per MCU
+    const int mcus = one ? sc[0]->dw : f_.mcux, rows = one ? sc[0]->dh : f_.mcuy;
+    const int ri = f_.restart_interval;
+    if (ri % mcus) fail(kErrDecode, "restart interval " + std::to_string(ri) + " is not whole rows of " +
+                                        std::to_string(mcus) + " MCUs in a lossless scan");
+    const int initial = 1 << (f_.precision - pt - 1);
+    BitReader br{data_, size_, pos_};
+    // per component: one MCU row of differences (v rows of mcus * h samples)
+    std::vector<std::vector<int>> diff(sc.size());
+    std::vector<bool> first_row(sc.size(), true);
+    // per component: the reconstructed row (before the point transform is undone) and the one above
+    std::vector<std::vector<int>> cur(sc.size()), above(sc.size());
+    for (size_t i = 0; i < sc.size(); ++i) cur[i].assign(sc[i]->dw, 0), above[i].assign(sc[i]->dw, 0);
+    for (size_t i = 0; i < sc.size(); ++i) diff[i].assign(size_t(one ? 1 : sc[i]->v) * mcus * (one ? 1 : sc[i]->h), 0);
+    int rows_to_go = ri / mcus;
+    bool starved = false;
+    for (int row = 0; row < rows; ++row) {
+      if (ri && row > 0 && rows_to_go == 0) {
+        if (br.restart()) starved = false;  // out of data for good when no RSTn follows
+        std::fill(first_row.begin(), first_row.end(), true);
+        rows_to_go = ri / mcus;
+      }
+      if (starved) {  // jdlhuff.c: zero differences from a new first row
+        for (auto& d : diff) std::fill(d.begin(), d.end(), 0);
+        std::fill(first_row.begin(), first_row.end(), true);
+      } else {
+        for (int m = 0; m < mcus; ++m)
+          for (size_t i = 0; i < sc.size(); ++i) {
+            const int h = one ? 1 : sc[i]->h, v = one ? 1 : sc[i]->v, pitch = mcus * h;
+            for (int y = 0; y < v; ++y)
+              for (int x = 0; x < h; ++x) {
+                int s = br.decode(f_.dc[sc[i]->td]);
+                if (s == 16) s = 32768;
+                else if (s) s = extend(br.get(s), s);
+                diff[i][size_t(y) * pitch + m * h + x] = s;
+              }
+          }
+        starved = br.starved();  // libjpeg's insufficient_data: read past the data while decoding this row
+      }
+      if (ri) --rows_to_go;
+      for (size_t i = 0; i < sc.size(); ++i) {
+        Component& c = *sc[i];
+        const int v = one ? 1 : c.v, pitch = mcus * (one ? 1 : c.h), width = c.dw;
+        const size_t stride = size_t(c.bw);
+        for (int y = 0; y < v; ++y) {
+          const int sy = row * v + y;
+          if (sy >= c.dh) break;  // dummy rows at the image's end
+          uint8_t* out = c.plane.data() + size_t(sy) * stride;
+          int* r = cur[i].data();
+          const int* prev = above[i].data();
+          const int* d = diff[i].data() + size_t(y) * pitch;
+          if (first_row[i] || sy == 0) {
+            int ra = (d[0] + initial) & 0xFFFF;
+            r[0] = ra;
+            for (int x = 1; x < width; ++x) r[x] = ra = (d[x] + ra) & 0xFFFF;
+            first_row[i] = false;
+          } else {
+            int rb = prev[0], ra = (d[0] + rb) & 0xFFFF, rc;
+            r[0] = ra;
+            for (int x = 1; x < width; ++x) {
+              rc = rb;
+              rb = prev[x];
+              int pred;
+              switch (psv) {
+                case 1: pred = ra; break;
+                case 2: pred = rb; break;
+                case 3: pred = rc; break;
+                case 4: pred = ra + rb - rc; break;
+                case 5: pred = ra + ((rb - rc) >> 1); break;
+                case 6: pred = rb + ((ra - rc) >> 1); break;
+                default: pred = (ra + rb) >> 1; break;
+              }
+              r[x] = ra = (d[x] + pred) & 0xFFFF;
+            }
+          }
+          for (int x = 0; x < width; ++x) out[x] = static_cast<uint8_t>(r[x] << pt);
+          std::swap(cur[i], above[i]);
+        }
+      }
     }
     skip_entropy_data(br.pos);
   }
@@ -1092,7 +1604,7 @@ class Decoder {
   // jdsample.c: one component to full size (W x H).
   std::vector<uint8_t> upsample(const Component& c) const {
     const int W = f_.width, H = f_.height;
-    const size_t pitch = size_t(c.bw) * 8;
+    const size_t pitch = size_t(c.bw) * f_.unit;
     const uint8_t* in = c.plane.data();
     std::vector<uint8_t> out(size_t(W) * H);
     const int hr = f_.hmax / c.h, vr = f_.vmax / c.v;
@@ -1104,7 +1616,8 @@ class Decoder {
     }
     std::vector<uint8_t> line(size_t(dw) * hr + 8);
     std::vector<int> colsum(dw);
-    const bool fancy_h = dw > 2;
+    // jdsample.c: no fancy upsampling in a lossless frame (its data units are single samples)
+    const bool fancy_h = dw > 2 && !f_.lossless, fancy_v = !f_.lossless;
     for (int y = 0; y < H; ++y) {
       uint8_t* o = out.data() + size_t(y) * W;
       if (hr == 2 && vr == 1 && fancy_h) {  // h2v1_fancy_upsample
@@ -1114,7 +1627,7 @@ class Decoder {
           line[2 * x] = static_cast<uint8_t>((v + l + 1) >> 2);
           line[2 * x + 1] = static_cast<uint8_t>((v + rt + 2) >> 2);
         }
-      } else if (hr == 1 && vr == 2) {  // h1v2_fancy_upsample
+      } else if (hr == 1 && vr == 2 && fancy_v) {  // h1v2_fancy_upsample
         int r = y >> 1, v = y & 1;
         const uint8_t *r0 = row(r), *r1 = row(v ? r + 1 : r - 1);
         int bias = v ? 2 : 1;
@@ -1159,7 +1672,7 @@ void put_err(char* err, int errlen, const std::string& msg) {
   }
 }
 
-int decode_file(const char* path, uint8_t* out_u8, float* out_f32, int h, int w, std::string* msg) {
+int decode_file(const char* path, uint8_t* out_u8, float* out_f32, int h, int w, int cmyk, std::string* msg) {
   std::vector<uint8_t> buf;
   if (!read_file(path, &buf)) {
     *msg = "cannot read the file";
@@ -1174,10 +1687,10 @@ int decode_file(const char* path, uint8_t* out_u8, float* out_f32, int h, int w,
       return kErrDims;
     }
     if (out_u8) {
-      d.to_rgb(out_u8);
+      d.to_rgb(out_u8, cmyk);
     } else {
       std::vector<uint8_t> rgb(size_t(h) * w * 3);
-      d.to_rgb(rgb.data());
+      d.to_rgb(rgb.data(), cmyk);
       for (size_t i = 0; i < rgb.size(); ++i) out_f32[i] = rgb[i] / 255.0f;
     }
   } catch (const JpegError& e) {
@@ -1214,9 +1727,9 @@ int yt_jpeg_info(const char* path, int* h, int* w, int* components, int* orienta
   return kOk;
 }
 
-int yt_jpeg_decode(const char* path, uint8_t* out, int h, int w, char* err, int errlen) {
+int yt_jpeg_decode(const char* path, uint8_t* out, int h, int w, char* err, int errlen, int cmyk) {
   std::string msg;
-  int rc = decode_file(path, out, nullptr, h, w, &msg);
+  int rc = decode_file(path, out, nullptr, h, w, cmyk, &msg);
   if (rc != kOk) put_err(err, errlen, msg);
   return rc;
 }
@@ -1225,7 +1738,7 @@ int yt_jpeg_decode(const char* path, uint8_t* out, int h, int w, char* err, int 
 // buffer. status[i] is each file's code; the first failure's message goes
 // to err and its code is returned.
 int yt_jpeg_decode_batch(const char** paths, int n, float* outs, int h, int w, int n_threads, int* status, char* err,
-                         int errlen) {
+                         int errlen, int cmyk) {
   if (n_threads <= 0) n_threads = static_cast<int>(std::thread::hardware_concurrency());
   if (n_threads <= 0) n_threads = 1;
   if (n_threads > n) n_threads = n;
@@ -1234,7 +1747,7 @@ int yt_jpeg_decode_batch(const char** paths, int n, float* outs, int h, int w, i
   const size_t stride = size_t(h) * w * 3;
   for (int t = 0; t < n_threads; ++t) {
     workers.emplace_back([&, t]() {
-      for (int i = t; i < n; i += n_threads) status[i] = decode_file(paths[i], nullptr, outs + stride * i, h, w, &msgs[i]);
+      for (int i = t; i < n; i += n_threads) status[i] = decode_file(paths[i], nullptr, outs + stride * i, h, w, cmyk, &msgs[i]);
     });
   }
   for (auto& th : workers) th.join();

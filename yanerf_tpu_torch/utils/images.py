@@ -189,15 +189,21 @@ def image_shape(path: Union[str, Path], exif_orientation: bool = False) -> Tuple
 
 
 def load_image_u8(path: Union[str, Path]) -> np.ndarray:
-    """A PNG or JPEG file as uint8 RGB, ``(H, W, 3)`` (no EXIF rotation, as ``cv2.IMREAD_UNCHANGED``)."""
+    """A PNG or JPEG file as uint8 RGB, ``(H, W, 3)``, as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` reads it
+    (RGB order; no EXIF rotation): what the JAX ``LLFFDataset._minify`` resizes. A CMYK / YCCK JPEG takes
+    OpenCV's conversion."""
     from .. import native
 
-    return native.decode_image_u8(path)
+    return native.decode_image_u8(path, cmyk="opencv")
 
 
 def load_image(path: Union[str, Path]) -> np.ndarray:
-    """A PNG or JPEG file as float32 RGB in [0, 1], ``(H, W, 3)``."""
-    return load_image_u8(path).astype(np.float32) / np.float32(255.0)
+    """A PNG or JPEG file as float32 RGB in [0, 1], ``(H, W, 3)``, as ``yanerf_tpu.datasets.utils.load_image``
+    reads it: a CMYK / YCCK JPEG takes PIL's ``convert("RGB")``, its fallback for what libjpeg-turbo 2.x
+    does not read."""
+    from .. import native
+
+    return native.decode_image(path)
 
 
 def _area_taps(ssize: int, dsize: int) -> Tuple[np.ndarray, np.ndarray]:
