@@ -30,7 +30,10 @@ on the committed captures ``tests/data/llff_jpeg`` (baseline JPEGs),
 ``tests/data/llff_jpeg_arith`` (arithmetic-coded), the JPEG kinds of
 ``tests/data/jpeg_kinds`` on the host, sampling masks on the
 flagship, and the parity runbook's smoke; then the kernel arms' training
-trajectories and the fused CLI in a one-rank process group. Phases,
+trajectories and the fused CLI in a one-rank process group; and, after the
+LLFF phases, the seven shipped configs no other phase names (synth800.yml,
+synth800_ngp.yml, synth800_proposal_2p40.yml, synth_llff_360.yml,
+synth_llff_360u.yml, synth_llff_ndc.yml, fern_ndc.yml). Phases,
 each printing its numbers on a line of its own with the card's name and
 power limit:
   1. build   compile every kernel of the serving and training paths from
@@ -220,15 +223,32 @@ power limit:
              per-step and frame line of the logs, finite and >= 0; the
              device time in the span per step beside the CLI's ``step_s``,
              and the frames' ``inference`` median.
+ 25. configs  (run after "llff") the rows of ``SHIPPED_CONFIGS`` as they
+             ship: synth800.yml per step from the device cache (one epoch of
+             the 40-frame scene), synth800_ngp.yml per step (16 steps on 16 of
+             its views), synth800_proposal_2p40.yml fused at 20 (one epoch;
+             every logged rate and the final one on its 40k / 45k schedule),
+             synth_llff_360.yml on an orbit scene, synth_llff_360u.yml on an
+             orbit scene with 8 spheres 15-40 units away and synth_llff_ndc.yml
+             on the forward scene, each fused at 8 (two epochs), fern_ndc.yml
+             per step through the host DataLoader on a copy of
+             ``tests/data/llff_jpeg`` at factor 2; each fused run against two
+             per-step runs, bit for bit; a test view of each (K1 once per chunk
+             and NeRFMLP against its plain version; the hash grid's with no
+             kernel) but synth800_proposal_2p40's (synth800_proposal.yml's
+             frame, run in "llff"); "family" for each but that one, +1 on the
+             density biases wherever a NeRFMLP renders (synth800's chunk also
+             at +0, its CPU sensitivity printed); one "configs" line per config
+             with the path that ran, ms per step, frame seconds and peak GB.
 
 Any failure exits non-zero, and so does a run in which K1 or K3 did not
 launch on an LLFF training path or K1 on an LLFF frame, K1 or K3 on the
 multi-scene control's training, K1 on a tool or the occupancy frame, or
 either of them on the latent path, or K1 on a path of phases 13-21 (K3
-on their training paths), or K1 or K3 on phases 22-24. Imports nothing of JAX or of
-yanerf_tpu. The
-last three lines are the kernels' JSON record, the card's name and power
-limit, and the result:
+on their training paths), or K1 or K3 on phases 22-24, or K1 on a path
+of phase 25 (K3 on its training; neither on synth800_ngp.yml's). Imports
+nothing of JAX or of yanerf_tpu. The last three lines are the kernels'
+JSON record, the card's name and power limit, and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -336,6 +356,27 @@ TRACE_PER_STEP_STEPS = 6
 TRACE_PER_STEP_PROFILE = (2, 3)  # steps 2-4 of the per-step run
 TRACE_K1_SYMBOLS = ("nerf_mlp_fwd_kernel",)  # csrc/nerf_mlp_fwd.cu
 TRACE_K3_SYMBOLS = ("tile_kernel", "dw_kernel")  # csrc/nerf_mlp_bwd.cu: the tile pass, the weight-gradient pass
+SYNTH800_CONFIG = REPO / "configs" / "nerf" / "synth800.yml"
+SYNTH800_NGP_CONFIG = REPO / "configs" / "nerf" / "synth800_ngp.yml"
+SYNTH800_2P40_CONFIG = REPO / "configs" / "nerf" / "synth800_proposal_2p40.yml"
+SYNTH_LLFF_360_CONFIG = REPO / "configs" / "nerf" / "synth_llff_360.yml"
+SYNTH_LLFF_360U_CONFIG = REPO / "configs" / "nerf" / "synth_llff_360u.yml"
+SYNTH_LLFF_NDC_CONFIG = REPO / "configs" / "nerf" / "synth_llff_ndc.yml"
+FERN_NDC_CONFIG = REPO / "configs" / "nerf" / "fern_ndc.yml"
+# The shipped configs no other phase runs, one row each: (name, config, scene, path). Scenes: "blender" the
+# 40-view 800x800 scene, "blender_ngp" its first NGP_TRAIN_STEPS train views, "orbit" / "orbit_far" / "forward"
+# 504x378 LLFF scenes of LLFF_IMAGES views, "jpeg" a copy of tests/data/llff_jpeg at JPEG_FACTOR; paths: "train"
+# per step, "fused" at the config's steps_per_call against two per-step runs.
+SHIPPED_CONFIGS = (
+    ("synth800", SYNTH800_CONFIG, "blender", "train"),
+    ("synth800_ngp", SYNTH800_NGP_CONFIG, "blender_ngp", "train"),
+    ("synth800_proposal_2p40", SYNTH800_2P40_CONFIG, "blender", "fused"),
+    ("synth_llff_360", SYNTH_LLFF_360_CONFIG, "orbit", "fused"),
+    ("synth_llff_360u", SYNTH_LLFF_360U_CONFIG, "orbit_far", "fused"),
+    ("synth_llff_ndc", SYNTH_LLFF_NDC_CONFIG, "forward", "fused"),
+    ("fern_ndc", FERN_NDC_CONFIG, "jpeg", "train"),
+)
+ORBIT_FAR = (8, 15.0, 40.0)  # synth_llff_360u.yml's scene: --distant_spheres 8 at 15-40 units (a ~19:1 depth ratio)
 
 
 def card() -> str:
@@ -992,21 +1033,26 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         per_step_runs_bit_equal=per_step_equal, per_step_max_param_diff=per_step_gap,
         fused_bit_equal_to_per_step=fused_equal, fused_max_param_diff=fused_gap,
         val_stats=fused["val_stats"], test_stats=fused["test_stats"], checks=checks,
-        checkpoint=str(fused["checkpoint"]),
+        checkpoint=str(fused["checkpoint"]), output_dir=str(fused["output_dir"]),
+        final_lr=[float(group["lr"]) for group in fused["state"].optimizer.param_groups],
     )
     return numbers, fused_launches
 
 
-def family_frame(torch, K1, K3, service, card_line: str, config_name: str):
-    """One frame of a family with no NeRF-MLP kernel: RGB finite and in [0, 1], no launch of K1, K2 or K3."""
+def family_frame(torch, K1, K3, service, card_line: str, config_name: str, view=None):
+    """One frame of a family with no NeRF-MLP kernel: RGB finite and in [0, 1], no launch of K1, K2 or K3.
+
+    ``view`` is ``(pose 3x4, focal, min_depth, max_depth)``, else the orbit camera of "frame"."""
     import numpy as np
 
     from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose
 
-    pose_world = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
+    if view is None:
+        view = ((orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32), service.default_focal,
+                None, None)
     K1.launches = K1.pipelined_launches = K3.launches = 0
     t = time.perf_counter()
-    rgb, depth = service.render(pose_world, service.default_focal)
+    rgb, depth = service.render(*view)
     frame_s = time.perf_counter() - t
     launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
                 "nerf_mlp_bwd": K3.launches}
@@ -1319,6 +1365,156 @@ def llff_phases(torch, K1, K3, card_line: str, tmp: Path) -> dict:
         if not all(family["checks"].values()):
             raise SystemExit(f"{config.name} family phase failed: {family['checks']}")
         torch.cuda.empty_cache()
+    return paths
+
+
+def logged_rates(log: str) -> list:
+    """``(iteration, rate as printed)`` of every printed step of a ``run.log``: an ``lr:`` line, then its step's
+    ``iter:`` line."""
+    rates, rate = [], None
+    for line in log.splitlines():
+        if (m := re.search(r"\tlr: (\S+)\.$", line)) is not None:
+            rate = m.group(1)
+        elif rate is not None and (m := re.search(r" iter: (\d+)\t", line)) is not None:
+            rates.append((int(m.group(1)), rate))
+            rate = None
+    return rates
+
+
+def schedule_check(config, numbers: dict, steps: int) -> dict:
+    """The rates a fused run logged and ended on against ``create_lr_schedule`` of the config as it ships."""
+    import numpy as np
+
+    from yanerf_tpu_torch.runners.schedules import create_lr_schedule
+    from yanerf_tpu_torch.utils import Config
+
+    runner = Config.fromfile(str(config)).runner
+    schedule = create_lr_schedule(runner)
+    logged = logged_rates(next(Path(numbers["output_dir"]).glob("run.log")).read_text())
+    return dict(num_iters=runner.num_iters, lr_decay_iters=runner.lr_decay_iters, printed_steps=len(logged),
+                logged_first_last=[logged[0], logged[-1]] if logged else [], final_lr=numbers["final_lr"],
+                checks={"logged_rates": bool(logged) and all(rate == f"{schedule(it):.3e}" for it, rate in logged),
+                        "final_rate": numbers["final_lr"] == [float(np.float32(schedule(steps - 1)))]})
+
+
+def shipped_configs_phase(torch, K1, K3, card_line: str, tmp: Path, scenes=None, configs=None,
+                          factor: int = JPEG_FACTOR) -> dict:
+    """"configs": each row of SHIPPED_CONFIGS trained, a frame served and held to the CPU, as it ships.
+
+    ``scenes`` maps a scene kind to a scene already written ("blender" and
+    "forward" in ``main``); the others are written here from a seed.
+    ``configs`` (name to file) and ``factor`` (the JPEG views' size) stand in
+    for the published ones in the tests. Per row: training through
+    ``yanerf_tpu_torch.run`` on K1 / K3 wherever a NeRFMLP trains (per step,
+    one epoch; or fused at the config's ``steps_per_call`` against two
+    per-step runs, two epochs of the LLFF scenes, one of the 40 views); a
+    frame of the scene's first test view with K1 against its plain version,
+    none for synth800_proposal_2p40 (its frame is synth800_proposal.yml's)
+    and none of the kernels for the hash grid; "family" (the card against the
+    CPU in float32, +1 on the density biases wherever a NeRFMLP renders) but
+    for synth800_proposal_2p40 (synth800_proposal's model), whose logged
+    rates must follow its 40k / 45k schedule instead.
+    Returns the kernels' launches on each path.
+    """
+    import shutil
+
+    from yanerf_tpu_torch.datasets import DATASETS
+    from yanerf_tpu_torch.serve import service_from_config
+    from yanerf_tpu_torch.synth_llff import write_llff_scene
+    from yanerf_tpu_torch.utils import Config
+
+    h, w = LLFF_HW
+    scenes = dict(scenes or {})
+    t = time.perf_counter()
+    writers = {
+        "orbit": lambda out: write_llff_scene(out, h, w, LLFF_IMAGES, mode="orbit", seed=0),
+        "orbit_far": lambda out: write_llff_scene(out, h, w, LLFF_IMAGES, mode="orbit", distant_spheres=ORBIT_FAR[0],
+                                                  distant_min=ORBIT_FAR[1], distant_max=ORBIT_FAR[2], seed=0),
+        "forward": lambda out: write_llff_scene(out, h, w, LLFF_IMAGES, seed=0),
+        "blender_ngp": lambda out: sub_scene(scenes["blender"], out, NGP_TRAIN_STEPS),
+        "jpeg": lambda out: shutil.copytree(JPEG_CAPTURE, out),
+    }
+    for kind in sorted({row[2] for row in SHIPPED_CONFIGS} - set(scenes)):
+        scenes[kind] = writers[kind](tmp / f"configs_{kind}")
+    say(card_line, "configs scenes", seconds=time.perf_counter() - t, scenes={k: str(v) for k, v in scenes.items()})
+
+    llff_train_views = LLFF_IMAGES - len(range(0, LLFF_IMAGES, 8))  # held out at the configs' test_skip 8
+    paths = {}
+    for name, shipped, kind, path in SHIPPED_CONFIGS:
+        config = Path((configs or {}).get(name, shipped))
+        cfg = Config.fromfile(str(config))
+        llff = kind not in ("blender", "blender_ngp")
+        views = {"jpeg": factor}.get(kind, 1)
+        options = ([*(f"datasets.{i}.factor={views}" for i in range(3))] if kind == "jpeg"
+                   else llff_options(config) if llff else [])
+        row = dict(config=config.name, scene=kind, checks={})
+        t_row = t = time.perf_counter()
+        if path == "fused":
+            steps_per_call = int(cfg.runner.steps_per_call)
+            frames = llff_train_views if llff else FUSED_TRAIN_FRAMES
+            steps = 2 * frames if llff else frames
+            extra = ["runner.print_per_iter=1"] if shipped == SYNTH800_2P40_CONFIG else []
+            numbers, paths[f"{name}_train_fused"] = fused_train(
+                torch, K1, K3, scenes[kind], tmp / f"results_{name}", config, steps, steps_per_call,
+                extra_options=[*options, *extra], train_frames=frames)
+            row.update(path_ran="fused" if numbers["checks"]["fused_path_ran"] else "per step",
+                       train_ms_per_step=numbers["fused_ms_per_step"],
+                       per_step_ms_per_step=numbers["per_step_ms_per_step"],
+                       train_peak_gb=numbers["peak_memory_gb"]["fused"], train_launches=numbers["launches"],
+                       launches_per_replay=numbers["launches_per_replay"],
+                       fused_bit_equal_to_per_step=numbers["fused_bit_equal_to_per_step"])
+            if extra:
+                row["schedule"] = schedule_check(config, numbers, steps)
+                numbers["checks"].update(row["schedule"].pop("checks"))
+        else:
+            steps = {"blender_ngp": NGP_TRAIN_STEPS, "jpeg": JPEG_TRAIN_VIEWS}.get(kind, FUSED_TRAIN_FRAMES)  # an epoch
+            numbers, paths[f"{name}_train"] = train(torch, K1, K3, scenes[kind], tmp / f"results_{name}", config,
+                                                    steps, extra_options=options)
+            row.update(path_ran="per step", train_ms_per_step=numbers["ms_per_step"],
+                       train_peak_gb=numbers["peak_memory_gb"], train_launches=numbers["launches"])
+        row.update(train_steps=steps, train_s=time.perf_counter() - t)
+        row["checks"].update({f"train_{k}": v for k, v in numbers["checks"].items()})
+        say(card_line, "fused" if path == "fused" else "train", **numbers)
+        torch.cuda.empty_cache()
+
+        if shipped != SYNTH800_2P40_CONFIG:
+            # the first view of the test split, with its per-image bounds on the LLFF scenes
+            split = dict(cfg.datasets[2], base_dir=str(scenes[kind]), **({"factor": views} if llff else {}))
+            item = DATASETS.build(split)[0]  # pose, focal, image[, min_depth, max_depth]
+            lo, hi = (float(item[3][0]), float(item[4][0])) if llff else (None, None)
+            view = (item[0][:3, :4], float(item[1][0]), lo, hi)
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            if kind == "blender_ngp":
+                service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
+                paths[f"{name}_frame"] = family_frame(torch, K1, K3, service, card_line, config.name, view)
+            else:
+                service, nerf_mlps = build_service(config)
+                paths[f"{name}_frame"] = frame(torch, K1, service, card_line, config.name, with_k2=False, view=view,
+                                               k1_per_frame=frame_chunks(cfg) * len(nerf_mlps))
+                del nerf_mlps
+            row.update(frame_s=time.perf_counter() - t, frame_launches=paths[f"{name}_frame"],
+                       frame_peak_gb=torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None)
+            del service
+            torch.cuda.empty_cache()
+
+            # +1 on the density biases wherever a NeRFMLP renders: at the init's densities the classic fine pass
+            # is ill-conditioned on Blender rays too (synth800's chunk moves 1.3e-3 on the CPU under a 1e-7
+            # change of the directions, the empty-ray note of ROADMAP.md), printed at +0 beside it
+            t = time.perf_counter()
+            family = family_check(torch, scenes[kind], config, FAMILY_EVAL_RAYS, FAMILY_TRAIN_RAYS,
+                                  {"datasets.0.factor": views} if llff else None,
+                                  density_bias=0.0 if kind == "blender_ngp" else 1.0,
+                                  probe_biases=(0.0,) if kind == "blender" else ())
+            row.update(family_s=time.perf_counter() - t,
+                       family={k: v for k, v in family.items() if k not in ("config", "checks")})
+            row["checks"].update({f"family_{k}": v for k, v in family["checks"].items()})
+            torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_row
+        say(card_line, "configs", **row)
+        if not all(row["checks"].values()):
+            raise SystemExit(f"{config.name} configs phase failed: {row['checks']}")
     return paths
 
 
@@ -2601,6 +2797,10 @@ def main() -> int:
         # LLFF captures, NDC rays and unbounded scenes
         llff_paths = llff_phases(torch, K1, K3, card_line, Path(tmp))
 
+        # the shipped configs no phase above runs, each trained, a frame served and held to the CPU
+        config_paths = shipped_configs_phase(torch, K1, K3, card_line, Path(tmp),
+                                             scenes={"blender": fused_scene, "forward": Path(tmp) / "llff_forward"})
+
         # multi-scene latent conditioning; the density tools on the flagship's fused checkpoint; occupancy bounds
         slice_paths = multiscene_phases(torch, K1, K3, card_line, Path(tmp))
         (Path(tmp) / "tools").mkdir()
@@ -2661,6 +2861,7 @@ def main() -> int:
         paths["proposal_train_fused"] = train_launches["proposal_fused"][kernel]
         paths.update({name: launches[kernel] for name, launches in new_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in llff_paths.items()})
+        paths.update({name: launches.get(kernel, 0) for name, launches in config_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in slice_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in checkpoint_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in capture_paths.items()})
@@ -2687,13 +2888,19 @@ def main() -> int:
     if refused:
         raise SystemExit(f"a NeRF-MLP kernel ran on a path whose models refuse it: {refused}")
     def kernels_missing(name, launches):
-        """K1 on every LLFF path; K3 on every training path and on no frame."""
+        """K1 on every path; K3 on every training path and on no frame."""
         trains = not name.endswith("_frame")
         return launches.get("nerf_mlp_fwd", 0) == 0 or (launches.get("nerf_mlp_bwd", 0) > 0) != trains
 
     idle = {name: launches for name, launches in llff_paths.items() if kernels_missing(name, launches)}
     if idle:
         raise SystemExit(f"a NeRF-MLP kernel did not run on an LLFF path: {idle}")
+    # the shipped configs: as on the LLFF paths, but the hash grid's, which launch neither
+    idle = {name: launches for name, launches in config_paths.items()
+            if (launches != NO_LAUNCHES if name.startswith("synth800_ngp_") else kernels_missing(name, launches))}
+    if idle:
+        raise SystemExit(f"a NeRF-MLP kernel did not run on a path of the shipped configs, or ran on the hash "
+                         f"grid's: {idle}")
     # K1 and K3 on the control's training, K1 on the tools and the occupancy frame; neither on the latent path
     expected = {"multiscene_control_train_fused": ("nerf_mlp_fwd", "nerf_mlp_bwd"), "fit_occupancy": ("nerf_mlp_fwd",),
                 "fit_aabb": ("nerf_mlp_fwd",), "extract_mesh": ("nerf_mlp_fwd",), "render": ("nerf_mlp_fwd",),
