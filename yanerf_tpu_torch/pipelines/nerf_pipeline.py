@@ -50,6 +50,7 @@ from ..ops.sampling import (
 from ..ops.structures import EvaluationMode, RendererOutput, RenderSamplingMode
 from ..parallel.sharding import gather_rays, ray_parallel, shard_rays
 from ..utils import resolve_device
+from ..utils.profiling import annotate
 from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS
 
 
@@ -97,23 +98,29 @@ def make_draws(
     return draws
 
 
-def chunk_map(body: Callable[[Dict[str, torch.Tensor]], Any], xs: Dict[str, torch.Tensor]) -> Any:
+def chunk_map(body: Callable[[Dict[str, torch.Tensor]], Any], xs: Dict[str, torch.Tensor],
+              finish: Callable[[Any], Any] = lambda stacked: stacked) -> Any:
     """``body`` over the leading axis of every tensor of ``xs``, its outputs stacked on a new leading axis: the
-    semantics of ``lax.map`` and of ``torch._higher_order_ops.map``.
+    semantics of ``lax.map`` and of ``torch._higher_order_ops.map``; ``finish`` of the stacked outputs.
 
     Traced (``torch.export``), the loop is that operator, one node whose
     body the graph records once, whatever the number of chunks. Eager, the
     same body runs once per chunk on the same slices (a frame's kernels
     launch as they are called, and a generator's draws follow one another
-    across the chunks as in one loop).
+    across the chunks as in one loop), each chunk a ``pipeline.chunk``
+    trace region, the stack and ``finish`` one ``pipeline.collate``.
     """
     if torch.compiler.is_compiling():
         from torch._higher_order_ops.map import map as traced_map
 
-        return traced_map(body, xs)
+        return finish(traced_map(body, xs))
     n = next(iter(xs.values())).shape[0]
-    outs = [body({k: x[i] for k, x in xs.items()}) for i in range(n)]
-    return torch.utils._pytree.tree_map(lambda *leaves: torch.stack(leaves), *outs)
+    outs = []
+    for i in range(n):
+        with annotate("pipeline.chunk"):
+            outs.append(body({k: x[i] for k, x in xs.items()}))
+    with annotate("pipeline.collate"):
+        return finish(torch.utils._pytree.tree_map(lambda *leaves: torch.stack(leaves), *outs))
 
 
 def _shard_each(draws: Optional[Sequence[torch.Tensor]]) -> Optional[List[torch.Tensor]]:
@@ -245,23 +252,24 @@ class NeRFPipeline(nn.Module):
         draws = draws or {}
         rasterize_mc = self.output_rasterized_mc if output_rasterized_mc is None else output_rasterized_mc
 
-        ray_bundle = self.ray_sampler(
-            poses,
-            focal_lengths,
-            evaluation_mode,
-            image_height=image_height,
-            image_width=image_width,
-            min_depth=min_depth,
-            max_depth=max_depth,
-            generator=generator,
-            pixel_idx=draws.get("pixel_idx"),
-            strata_u=draws.get("strata_u"),
-            mask=mask,
-            sampling_prob_mask=sampling_prob_mask,
-            n_rays_per_image=n_rays_per_image,
-            pixel_u=draws.get("pixel_u"),
-            pixel_gumbel=draws.get("pixel_gumbel"),
-        )
+        with annotate("pipeline.rays"):
+            ray_bundle = self.ray_sampler(
+                poses,
+                focal_lengths,
+                evaluation_mode,
+                image_height=image_height,
+                image_width=image_width,
+                min_depth=min_depth,
+                max_depth=max_depth,
+                generator=generator,
+                pixel_idx=draws.get("pixel_idx"),
+                strata_u=draws.get("strata_u"),
+                mask=mask,
+                sampling_prob_mask=sampling_prob_mask,
+                n_rays_per_image=n_rays_per_image,
+                pixel_u=draws.get("pixel_u"),
+                pixel_gumbel=draws.get("pixel_gumbel"),
+            )
         xys = ray_bundle.xys
         bg_color = sample_grid(bg_image_rgb, xys) if bg_image_rgb is not None else None
 
@@ -367,9 +375,11 @@ class NeRFPipeline(nn.Module):
         # in TRAINING the fused kernels (forward K1, backward K3) run only
         # when the model opted in with use_pallas_train
         extra = {"use_pallas": bool(getattr(fn, "use_pallas_train", False))} if training else {}
+        span = f"model.{type(fn).__name__}"
 
         def bound(origins, directions, lengths, **kw):
-            return fn(origins, directions, lengths, **{**kw, **extracted_features, **extra})
+            with annotate(span):
+                return fn(origins, directions, lengths, **{**kw, **extracted_features, **extra})
 
         return bound
 
@@ -429,7 +439,7 @@ class NeRFPipeline(nn.Module):
             leaf = leaf.movedim(0, 1).reshape(batch_size, n_padded, *rest)
             return leaf[:, :n_rays].reshape(batch_size, *spatial, *rest)
 
-        return _output_from_tree(chunk_map(render_one, xs), collate)
+        return chunk_map(render_one, xs, lambda stacked: _output_from_tree(stacked, collate))
 
     def _get_view_metrics(
         self,

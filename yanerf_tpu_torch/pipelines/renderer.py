@@ -17,7 +17,9 @@ The resampled depths are detached where the JAX package has
 ``eval_compositing_dtype`` (both renderers) casts the densities and
 features entering each compositing to that dtype in EVALUATION only, and
 the composited outputs back to float32, as the JAX package's
-``_compositing_cast`` does; TRAINING is unchanged.
+``_compositing_cast`` does; TRAINING is unchanged. Each refinement,
+compositing and the losses are trace regions (``renderer.refine`` /
+``renderer.composite`` / ``renderer.losses``), siblings of the model's.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..ops.proposal import distortion_loss, interlevel_loss
 from ..ops.raymarch import emission_absorption, emission_absorption_weights
 from ..ops.sample_pdf import sample_pdf
 from ..ops.structures import EvaluationMode, RayBundle, RendererOutput
+from ..utils.profiling import annotate
 from .builder import RENDERERS
 
 
@@ -170,35 +173,37 @@ class MultipassEmissionAbsorpsionRenderer:
         output = None
         for k, implicit_function in enumerate(implicit_functions):
             if k > 0:
-                lengths = refine_ray_points(
-                    origins,
-                    directions,
-                    lengths,
-                    xys,
-                    output.aux["weights"],
-                    n_pts_per_ray=n_pts_fine,
-                    random_sampling=random_sampling,
-                    add_input_samples=self.append_coarse_samples_to_fine,
-                    generator=generator,
-                    u=None if pdf_u is None else pdf_u[k - 1],
-                ).lengths
+                with annotate("renderer.refine"):
+                    lengths = refine_ray_points(
+                        origins,
+                        directions,
+                        lengths,
+                        xys,
+                        output.aux["weights"],
+                        n_pts_per_ray=n_pts_fine,
+                        random_sampling=random_sampling,
+                        add_input_samples=self.append_coarse_samples_to_fine,
+                        generator=generator,
+                        u=None if pdf_u is None else pdf_u[k - 1],
+                    ).lengths
             model_out = implicit_function(origins, directions, lengths, **kwargs)
-            cast_out = _compositing_cast(self.eval_compositing_dtype, evaluation_mode, model_out)
-            features, depths, alpha_masks, weights = emission_absorption(
-                cast_out["rays_densities"],
-                cast_out["rays_features"],
-                ray_lengths=lengths,
-                ray_directions=directions,
-                density_noise_std=density_noise_std,
-                generator=generator,
-                noise=None if density_noise is None else density_noise[k],
-                bg_color=bg_color,
-                **self.raymarcher_kwargs,
-            )
-            if self.eval_compositing_dtype is not None:
-                features, depths, alpha_masks, weights = (
-                    x.to(torch.float32) for x in (features, depths, alpha_masks, weights)
+            with annotate("renderer.composite"):
+                cast_out = _compositing_cast(self.eval_compositing_dtype, evaluation_mode, model_out)
+                features, depths, alpha_masks, weights = emission_absorption(
+                    cast_out["rays_densities"],
+                    cast_out["rays_features"],
+                    ray_lengths=lengths,
+                    ray_directions=directions,
+                    density_noise_std=density_noise_std,
+                    generator=generator,
+                    noise=None if density_noise is None else density_noise[k],
+                    bg_color=bg_color,
+                    **self.raymarcher_kwargs,
                 )
+                if self.eval_compositing_dtype is not None:
+                    features, depths, alpha_masks, weights = (
+                        x.to(torch.float32) for x in (features, depths, alpha_masks, weights)
+                    )
             aux = dict(model_out.get("aux", {}))
             aux["weights"] = weights
             output = RendererOutput(
@@ -310,56 +315,61 @@ class ProposalEmissionAbsorpsionRenderer:
         histograms = []
         for k in range(n_props):
             prop_out = implicit_functions[k](origins, directions, lengths, **kwargs)
-            prop_out = _compositing_cast(self.eval_compositing_dtype, evaluation_mode, prop_out)
-            prop_weights, _ = emission_absorption_weights(
-                prop_out["rays_densities"], lengths, directions, **self.weights_kwargs
-            )
-            prop_weights = prop_weights.to(torch.float32)
+            with annotate("renderer.composite"):
+                prop_out = _compositing_cast(self.eval_compositing_dtype, evaluation_mode, prop_out)
+                prop_weights, _ = emission_absorption_weights(
+                    prop_out["rays_densities"], lengths, directions, **self.weights_kwargs
+                )
+                prop_weights = prop_weights.to(torch.float32)
             histograms.append((lengths, prop_weights))
-            bundle = refine_ray_points(
-                origins,
-                directions,
-                lengths,
-                xys,
-                prop_weights,
-                n_pts_per_ray=pts_schedule[k],
-                random_sampling=random_sampling,
-                add_input_samples=False,
-                stratified_u=True,
-                generator=generator,
-                u=None if pdf_u is None else pdf_u[k],
-            )
+            with annotate("renderer.refine"):
+                bundle = refine_ray_points(
+                    origins,
+                    directions,
+                    lengths,
+                    xys,
+                    prop_weights,
+                    n_pts_per_ray=pts_schedule[k],
+                    random_sampling=random_sampling,
+                    add_input_samples=False,
+                    stratified_u=True,
+                    generator=generator,
+                    u=None if pdf_u is None else pdf_u[k],
+                )
             lengths = bundle.lengths
 
         density_noise_std = self.density_noise_std_train if evaluation_mode == EvaluationMode.TRAINING else 0.0
         model_out = implicit_functions[-1](origins, directions, lengths, **kwargs)
-        cast_out = _compositing_cast(self.eval_compositing_dtype, evaluation_mode, model_out)
-        features, depths, alpha_masks, weights = emission_absorption(
-            cast_out["rays_densities"],
-            cast_out["rays_features"],
-            ray_lengths=lengths,
-            ray_directions=directions,
-            density_noise_std=density_noise_std,
-            generator=generator,
-            noise=None if density_noise is None else density_noise[0],
-            bg_color=bg_color,
-            **self.raymarcher_kwargs,
-        )
-        if self.eval_compositing_dtype is not None:
-            features, depths, alpha_masks, weights = (
-                x.to(torch.float32) for x in (features, depths, alpha_masks, weights)
+        with annotate("renderer.composite"):
+            cast_out = _compositing_cast(self.eval_compositing_dtype, evaluation_mode, model_out)
+            features, depths, alpha_masks, weights = emission_absorption(
+                cast_out["rays_densities"],
+                cast_out["rays_features"],
+                ray_lengths=lengths,
+                ray_directions=directions,
+                density_noise_std=density_noise_std,
+                generator=generator,
+                noise=None if density_noise is None else density_noise[0],
+                bg_color=bg_color,
+                **self.raymarcher_kwargs,
             )
+            if self.eval_compositing_dtype is not None:
+                features, depths, alpha_masks, weights = (
+                    x.to(torch.float32) for x in (features, depths, alpha_masks, weights)
+                )
 
-        loss = None
-        for prop_lengths, prop_weights in histograms:
-            term = interlevel_loss(lengths, weights, prop_lengths, prop_weights, eps=self.interlevel_loss_eps)
-            loss = term if loss is None else loss + term
-        loss = loss / float(n_props)
+        with annotate("renderer.losses"):
+            loss = None
+            for prop_lengths, prop_weights in histograms:
+                term = interlevel_loss(lengths, weights, prop_lengths, prop_weights, eps=self.interlevel_loss_eps)
+                loss = term if loss is None else loss + term
+            loss = loss / float(n_props)
+            distortion = distortion_loss(
+                lengths, weights, in_disparity=self.distortion_in_disparity, near=s_near, far=s_far
+            )
 
         aux = dict(model_out.get("aux", {}))
         aux["weights"] = weights
         aux["loss_proposal"] = loss
-        aux["loss_distortion"] = distortion_loss(
-            lengths, weights, in_disparity=self.distortion_in_disparity, near=s_near, far=s_far
-        )
+        aux["loss_distortion"] = distortion
         return RendererOutput(features=features, depths=depths, alpha_masks=alpha_masks, aux=aux, prev_stage=None)

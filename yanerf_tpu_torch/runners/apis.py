@@ -25,6 +25,10 @@ Counterpart of ``yanerf_tpu/runners/apis.py`` on one GPU:
     ``profile_start_iter``, ``profile_num_iters``) in which each dispatch
     is a named region (``utils.profiling.annotate``): ``train_step_dispatch``
     per step, ``fused_dispatch_K{n}`` around a fused dispatch's n replays;
+    inside them ``data.batch`` (the batch: the loader, ``prepare_batch``,
+    the hooks; a dispatch's row and rate uploads), ``runner.draws`` and
+    ``update``'s ``runner.forward`` / ``runner.backward`` /
+    ``runner.optimizer`` (in a captured step at the capture alone);
   * the per-step and per-frame log lines split each span as the JAX loops
     do (``utils.timer.Timer``): ``data`` up to the batch's hooks,
     ``inference`` up to the step's device sync (a print step) or the
@@ -40,6 +44,7 @@ Counterpart of ``yanerf_tpu/runners/apis.py`` on one GPU:
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from collections import defaultdict, deque
@@ -121,14 +126,18 @@ def update(pipeline, optimizer, batch: Dict[str, Any], draws: Dict[str, Any], ra
     Both train paths run this, so the fused step is the per-step loop's
     step bit for bit.
     """
-    pipeline.train()
-    preds = pipeline(evaluation_mode=EvaluationMode.TRAINING, output_rasterized_mc=rasterize_mc, draws=draws, **batch)
-    if "objective" not in preds:
-        raise KeyError("In train mode, but no loss (`objective`) is found.")
-    optimizer.zero_grad(set_to_none=True)
-    torch.mean(preds["objective"]).backward()
-    reduce_gradients(pipeline.parameters())  # over the mesh, when one is installed: in a captured step too
-    optimizer.step()
+    with annotate("runner.forward"):
+        pipeline.train()
+        preds = pipeline(evaluation_mode=EvaluationMode.TRAINING, output_rasterized_mc=rasterize_mc, draws=draws,
+                         **batch)
+        if "objective" not in preds:
+            raise KeyError("In train mode, but no loss (`objective`) is found.")
+    with annotate("runner.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        torch.mean(preds["objective"]).backward()
+    with annotate("runner.optimizer"):
+        reduce_gradients(pipeline.parameters())  # over the mesh, when one is installed: in a captured step too
+        optimizer.step()
     return preds
 
 
@@ -142,9 +151,10 @@ def make_train_step(pipeline, runner_config, seed: int, rasterize_mc: bool = Fal
 
     def step(state: TrainState, batch: Dict[str, Any], draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         if draws is None:
-            draws = make_step_draws(pipeline, batch["poses"].shape[0], seed, state.step,
-                                    masked=pipeline.masked_training(batch),
-                                    n_rays_per_image=batch.get("n_rays_per_image"))
+            with annotate("runner.draws"):
+                draws = make_step_draws(pipeline, batch["poses"].shape[0], seed, state.step,
+                                        masked=pipeline.masked_training(batch),
+                                        n_rays_per_image=batch.get("n_rays_per_image"))
         set_learning_rates(runner_config, state.optimizer, state.step)
         preds = update(pipeline, state.optimizer, batch, draws, rasterize_mc)
         state.step += 1
@@ -273,11 +283,15 @@ class FusedTrainStep:
         elif arrays is not self._arrays or state.optimizer is not self._optimizer or batch_size != self._batch_size:
             raise ValueError("this fused step was built for another dataset cache, optimizer or batch size")
         first = state.step
-        _upload(self._idx[:n_steps], idx)
-        _upload(self._lr[:n_steps], learning_rates(self.runner_config, state.optimizer, range(first, first + n_steps)))
-        for k in range(n_steps):
-            out = {key: [t[k] for t in buf] if isinstance(buf, list) else buf[k] for key, buf in self._draws.items()}
-            make_step_draws(self.pipeline, batch_size, self.seed, first + k, out=out)
+        with annotate("data.batch"):
+            _upload(self._idx[:n_steps], idx)
+            _upload(self._lr[:n_steps], learning_rates(self.runner_config, state.optimizer,
+                                                       range(first, first + n_steps)))
+        with annotate("runner.draws"):
+            for k in range(n_steps):
+                out = {key: [t[k] for t in buf] if isinstance(buf, list) else buf[k]
+                       for key, buf in self._draws.items()}
+                make_step_draws(self.pipeline, batch_size, self.seed, first + k, out=out)
         self._row.zero_()
         k = 0
         if self.pipeline.device.type == "cuda" and self.graph is None:
@@ -519,20 +533,23 @@ def train_one_epoch(
     t_first = None
     n_steps = 0
     timer = Timer()
-    for i, data in enumerate(dataloader):
-        if i < skip_iters:
-            passed_iter += 1
-            timer.since_last_check()
-            continue
+    batches = iter(dataloader)
+    for _ in zip(range(skip_iters), batches):  # the iterations a resumed run already took
+        passed_iter += 1
+    timer.since_last_check()
+    for i in itertools.count(skip_iters):
         if preemption_guard is not None and preemption_guard.preempted:
             logger.info(f"{header}: preemption requested, stopping at iter {passed_iter}")
             break
-        times: Dict[str, float] = {}
-        batch = prepare_batch(data, dataloader.data_wrapper, device)
-        for hook in hooks:
-            if isinstance(hook, TrainDataHook):
-                batch = hook(data=batch, iter=passed_iter, epoch=epoch, config=config)
-        times["data"] = timer.since_last_check()
+        with annotate("data.batch"):
+            data = next(batches, None)
+            if data is None:
+                break
+            batch = prepare_batch(data, dataloader.data_wrapper, device)
+            for hook in hooks:
+                if isinstance(hook, TrainDataHook):
+                    batch = hook(data=batch, iter=passed_iter, epoch=epoch, config=config)
+        times: Dict[str, float] = {"data": timer.since_last_check()}
         trace.maybe_start(i)
         want_vis = bool(train_step_vis is not None and val_per_iter and passed_iter % val_per_iter == 0)
         with annotate("train_step_dispatch"):

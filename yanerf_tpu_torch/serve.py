@@ -3,7 +3,8 @@
 Counterpart of ``scripts/serve.py``: loads a config (and optionally a
 checkpoint) once, then answers render requests over plain HTTP (stdlib
 ``http.server``). Renders are serialized behind a lock: the card renders
-one frame at a time.
+one frame at a time. In a ``torch.profiler`` trace each request is a
+``service.render`` region, its copies to the host ``service.fetch``.
 
 Endpoints:
   GET  /health            liveness + request/latency counters (JSON)
@@ -49,6 +50,7 @@ from .ops.structures import EvaluationMode
 from .utils import resolve_device
 from .utils.config import Config, DictAction
 from .utils.images import gif_bytes, png_bytes, to_img
+from .utils.profiling import annotate
 
 # Flip y/z axes: OpenGL-style camera (z into screen) -> world (z out); the
 # Blender dataset's calibration (yanerf_tpu/datasets/blender.py)
@@ -108,14 +110,15 @@ class RenderService:
             max_depth=max_depth,
             evaluation_mode=EvaluationMode.EVALUATION,
         )
-        return preds["rendered_images"][0].cpu().numpy(), preds["rendered_depths"][0, ..., 0].cpu().numpy()
+        with annotate("service.fetch"):  # the copies wait for the frame's queued work
+            return preds["rendered_images"][0].cpu().numpy(), preds["rendered_depths"][0, ..., 0].cpu().numpy()
 
     def render(self, pose_world_3x4: np.ndarray, focal: float, min_depth=None, max_depth=None):
         """Serialized render; returns (rgb (H,W,3) f32 in [0,1], depth (H,W))."""
         lo, hi = self.default_bounds
         min_depth = lo if min_depth is None else min_depth
         max_depth = hi if max_depth is None else max_depth
-        with self._lock:
+        with self._lock, annotate("service.render"):
             t0 = time.perf_counter()
             rgb, depth = self._render_tensors(pose_world_3x4, focal, min_depth, max_depth)
             self.n_renders += 1
@@ -127,7 +130,7 @@ class RenderService:
         focal = self.default_focal if focal is None else float(focal)
         lo, hi = self.default_bounds
         frames = []
-        with self._lock:
+        with self._lock, annotate("service.render"):
             t0 = time.perf_counter()
             for i in range(n_frames):
                 pose = (orbit_pose(360.0 * i / n_frames, phi, radius) @ CAM_CALIBRATION)[:3, :4]

@@ -2,10 +2,24 @@
 
 ``trace`` wraps a region in a ``torch.profiler`` trace (a Chrome trace in
 the TensorBoard plugin's layout, readable in Perfetto or
-chrome://tracing), ``annotate`` names a region inside a trace, and
-``StepTimer`` keeps the reference's data/inference split for the periodic
-log line. ``profiler`` is the one place that picks a trace's activities;
-the runner's ``_TraceCapture`` takes it too.
+chrome://tracing), ``annotate`` names a region inside a trace (a flag
+check and nothing more while no profiler runs), and ``StepTimer`` keeps
+the reference's data/inference split for the periodic log line.
+``profiler`` is the one place that picks a trace's activities; the
+runner's ``_TraceCapture`` takes it too.
+
+The regions, nested on the host thread that opens them:
+  * train step (``runners/apis.py``): ``train_step_dispatch`` per step,
+    ``fused_dispatch_K{n}`` per fused dispatch; ``data.batch`` (the
+    loader's batch, ``prepare_batch``, the data hooks; a dispatch's row
+    and rate uploads), ``runner.draws``, and in ``update``
+    ``runner.forward`` / ``runner.backward`` (the main thread waits there
+    while autograd's thread launches the backward) / ``runner.optimizer``;
+  * frame (``serve.py``, ``pipelines/``): ``service.render`` per request,
+    ``service.fetch`` (the frame's copies to the host), ``pipeline.rays``,
+    ``pipeline.chunk`` per chunk, ``model.<class name>`` per implicit
+    function call, ``renderer.refine`` / ``renderer.composite`` /
+    ``renderer.losses``, ``pipeline.collate``.
 """
 
 from __future__ import annotations
@@ -15,8 +29,11 @@ from pathlib import Path
 from typing import Iterator, Union
 
 import torch
+import torch.autograd.profiler as autograd_profiler
 
 from .timer import Timer
+
+NO_SPAN = contextlib.nullcontext()  # what ``annotate`` returns while it records nothing
 
 
 def profiler(cuda: bool, on_trace_ready=None) -> "torch.profiler.profile":
@@ -52,12 +69,18 @@ def trace(log_dir: Union[str, Path, None], create_perfetto_link: bool = False) -
             torch.cuda.synchronize()
 
 
-def annotate(name: str) -> "torch.profiler.record_function":
+def annotate(name: str) -> "Union[torch.profiler.record_function, contextlib.nullcontext]":
     """Name a region inside an active trace: a CPU range, and on the card the span of the kernels it launched.
 
-    Without an active profiler it records nothing. The runner puts it
-    around a CUDA graph's replays, never inside a captured step.
+    While no profiler runs (``torch.profiler.profile``, entered or
+    ``start()``ed) it returns the shared no-op ``NO_SPAN`` and costs one
+    flag check; so it does while ``torch.export`` or ``torch.compile``
+    traces, and an exported program holds no profiler node. A region
+    inside a step that a CUDA graph captures records at the capture alone:
+    the replays run under the runner's ``fused_dispatch_K{n}``.
     """
+    if not autograd_profiler._is_profiler_enabled or torch.compiler.is_compiling():
+        return NO_SPAN
     return torch.profiler.record_function(name)
 
 
