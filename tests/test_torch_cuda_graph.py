@@ -1,4 +1,4 @@
-"""The fused K-step dispatch captured as a CUDA graph, on a card.
+"""The fused K-step dispatch and the EVALUATION chunk body captured as CUDA graphs, on a card.
 
 Every test here is marked ``cuda`` and skips without a card; the file
 imports no JAX:
@@ -12,6 +12,15 @@ dispatch of the fused trainer (``make_train_step_fused``: the first step
 eager on the capture's stream, then the captured graph replayed). The
 replayed steps must equal the eager ones bit for bit, K1 and K3 must be
 counted once per replay, and the packed weights must keep their address.
+
+A served frame of a small proposal and a small multipass pipeline (the
+NeRF-MLPs on K1) runs its chunk body from one captured graph, replayed
+per chunk (``pipelines/chunk_graph.py``): the frame must equal the plain
+per-chunk loop's within 1e-6 (bit for bit expected), K1 must be counted
+once per replay and NeRF-MLP, the service's counters must read one
+capture and ``n_chunks`` replays a frame after the warm-up, and after a
+train step has changed the weights in place the next frame must follow
+the new weights.
 """
 
 from collections import namedtuple
@@ -25,7 +34,8 @@ from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
 from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
 from yanerf_tpu_torch.pipelines import PIPELINES
 from yanerf_tpu_torch.runners import TrainState, apis, create_optimizer, make_train_step, make_train_step_fused
-from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose
+from yanerf_tpu_torch.ops.structures import EvaluationMode
+from yanerf_tpu_torch.serve import CAM_CALIBRATION, RenderService, orbit_pose
 
 HW = 32
 RUNNER = dict(init_lr=5e-3, min_lr=5e-4, lr_decay_type="exponential", lr_decay_rate=0.1, lr_decay_iters=10,
@@ -94,3 +104,91 @@ def test_replayed_train_steps_equal_eager_steps(cuda_device):
     flat = nerf.packed_weights().flat.data_ptr()
     trainer(fused, arrays, rows[:2])  # a shorter group replays the same graph
     assert nerf.packed_weights().flat.data_ptr() == flat and trainer.dispatches == 2 and fused.step == 6
+
+
+# --- the served frame's chunk body ------------------------------------------------------------------------
+
+
+def _frame_cfg(kind):
+    """The train step's pipeline with K1 in EVALUATION too (``proposal``), or two NeRF-MLPs coarse to fine."""
+    nerf = dict(PIPELINE["model"][2], use_pallas=True)
+    if kind == "proposal":
+        return dict(PIPELINE, model=[*PIPELINE["model"][:2], nerf])
+    return dict(PIPELINE, num_passes=2, model=[nerf, nerf], loss_weights={"loss_rgb_mse": 1.0},
+                renderer=dict(type="MultipassEmissionAbsorpsionRenderer", n_pts_per_ray_fine_training=8,
+                              n_pts_per_ray_fine_evaluation=8, bg_color=[0.0, 0.0, 0.0]))
+
+
+FRAME_KINDS = {"proposal": 1, "multipass": 2}  # NeRF-MLPs a chunk
+N_CHUNKS = HW * HW * PIPELINE["ray_sampler"]["n_pts_per_ray_evaluation"] // PIPELINE["chunk_size_grid"]
+POSE = (orbit_pose(70.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
+
+
+def _eager_frame(pipeline, pose):
+    """The frame through the plain per-chunk loop, which a frame with a gradient takes (no parameter needs one)."""
+    flags = [p.requires_grad for p in pipeline.parameters()]
+    for p in pipeline.parameters():
+        p.requires_grad_(False)
+    with torch.enable_grad():
+        preds = pipeline(poses=torch.as_tensor(pose, device=pipeline.device)[None],
+                         focal_lengths=torch.tensor([40.0], device=pipeline.device),
+                         evaluation_mode=EvaluationMode.EVALUATION)
+    for p, flag in zip(pipeline.parameters(), flags):
+        p.requires_grad_(flag)
+    return preds["rendered_images"][0].cpu().numpy(), preds["rendered_depths"][0, ..., 0].cpu().numpy()
+
+
+def _service(kind, device):
+    state = TrainState(pipeline=PIPELINES.build(_frame_cfg(kind), generator=torch.Generator().manual_seed(0),
+                                                device=device), optimizer=None, step=0)
+    state.optimizer = create_optimizer(RUNNER, state.pipeline)
+    state.pipeline.eval()
+    service = RenderService(state.pipeline, 40.0, (HW, HW), (2.0, 6.0))
+    service.warmup()
+    return state, service
+
+
+def _gap(a, b):
+    return float(np.max(np.abs(a - b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(FRAME_KINDS))
+def test_replayed_frame_equals_the_eager_loop(cuda_device, kind):
+    _, service = _service(kind, cuda_device)
+    pipeline = service._pipeline
+    assert N_CHUNKS > 1
+    stats = service.stats()["chunk_loop"]
+    assert (stats["keys"], stats["captures"], stats["eager_chunks"], stats["replayed_chunks"]) == (1, 1, 1,
+                                                                                                   N_CHUNKS - 1)
+    assert launch_count.per_replay(pipeline._chunk_graph.tally) == {"nerf_mlp_fwd.launches": FRAME_KINDS[kind]}
+    K1.launches = 0
+    rgb, depth = service.render(POSE, 40.0)
+    torch.cuda.synchronize()
+    assert K1.launches == N_CHUNKS * FRAME_KINDS[kind], "one launch per replay and NeRF-MLP"
+    stats = service.stats()["chunk_loop"]
+    assert (stats["keys"], stats["captures"], stats["replayed_chunks"]) == (1, 1, 2 * N_CHUNKS - 1)
+    eager_rgb, eager_depth = _eager_frame(pipeline, POSE)
+    print(f"{kind}: replayed against eager, rgb {_gap(rgb, eager_rgb)}, depth {_gap(depth, eager_depth)}, "
+          f"capture {stats['capture_s']:.3f} s")
+    assert _gap(rgb, eager_rgb) <= 1e-6 and _gap(depth, eager_depth) <= 1e-6
+    assert service.stats()["chunk_loop"]["replayed_chunks"] == 2 * N_CHUNKS - 1, "the eager frame replays nothing"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(FRAME_KINDS))
+def test_frame_after_a_train_step_follows_the_new_weights(cuda_device, kind):
+    state, service = _service(kind, cuda_device)
+    before, _ = service.render(POSE, 40.0)
+    gen = torch.Generator().manual_seed(1)
+    arrays = (torch.as_tensor(orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION, dtype=torch.float32)[None],
+              torch.full((1, 1), 40.0), (torch.rand(1, HW, HW, 3, generator=gen) * 255).round().to(torch.uint8))
+    batch = apis._gather_batch([a.to(cuda_device) for a in arrays], Batch, torch.zeros(1, dtype=torch.int64,
+                                                                                        device=cuda_device))
+    make_train_step(state.pipeline, RUNNER, seed=3)(state, batch)  # Adam writes the parameters in place
+    state.pipeline.eval()
+    rgb, depth = service.render(POSE, 40.0)
+    eager_rgb, eager_depth = _eager_frame(state.pipeline, POSE)
+    assert _gap(rgb, before) > 1e-4, "the replayed frame still shows the old weights"
+    assert _gap(rgb, eager_rgb) <= 1e-6 and _gap(depth, eager_depth) <= 1e-6
+    assert service.stats()["chunk_loop"]["captures"] == 1, "weights written in place keep the graph"

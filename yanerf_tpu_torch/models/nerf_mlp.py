@@ -176,6 +176,13 @@ class NeRFMLP(nn.Module):
         if self._packed is not None:
             self._packed = (None, self._packed[1])
 
+    def current_packed_weights(self) -> Optional[fused.PackedNerfMlp]:
+        """The packed weights brought up to date (:meth:`packed_weights`) if this module has packed them, else
+        None: a captured graph that reads them runs this host check before its replays."""
+        if self._packed is None and self._baked is None:
+            return None
+        return self.packed_weights()
+
     # -- forward ----------------------------------------------------------------
     def _get_colors(self, features: torch.Tensor, rays_directions: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype

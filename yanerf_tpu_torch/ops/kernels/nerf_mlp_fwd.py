@@ -53,6 +53,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...utils import device_constant
 from ..harmonics import harmonic_frequencies
 from . import launch_count
 from ._build import CudaLibrary
@@ -197,7 +198,9 @@ def pack_weights(model) -> PackedNerfMlp:
     Order: xyz layers, intermediate, density, color layers (as
     ``padded_weights`` of the Pallas kernel). Layer 0 and the skip layers
     get their embedding rows padded to ``k_xyz``; the first color layer its
-    direction-embedding rows to ``k_dir``.
+    direction-embedding rows to ``k_dir``. The buffers are never inference
+    tensors, so a pack first made while serving is rewritten in place by a
+    later train step.
     """
     if model.latent_dim != 0 or not model.input_xyz or not model.input_dir:
         raise NotImplementedError("the fused kernel covers the standard xyz+dir NeRFMLP")
@@ -207,7 +210,7 @@ def pack_weights(model) -> PackedNerfMlp:
     h = model.n_hidden_neurons_xyz
     weights: List[torch.Tensor] = []
     biases: List[torch.Tensor] = []
-    with torch.no_grad():
+    with torch.inference_mode(False), torch.no_grad():
         for i, layer in enumerate(kernel_layers(model)):
             w, rows = layer.w, _embedding_rows(model, i)
             if rows is not None:
@@ -281,9 +284,11 @@ def no_tf32():
 
 def embed_padded(x: torch.Tensor, n_freq: int, append_input: bool, k_pad: int) -> torch.Tensor:
     """The kernel's embedding of ``x (N, 3)``: ``sin | sin(. + pi/2) | x | 0-pad``, float32."""
-    freqs = torch.as_tensor(harmonic_frequencies(n_freq), dtype=torch.float32, device=x.device)
+    # device constants: a captured chunk body cannot copy from the host
+    freqs = device_constant(("harmonics", n_freq, 1.0, True), lambda: harmonic_frequencies(n_freq), torch.float32,
+                            x.device)
     t = (x[..., None] * freqs).reshape(x.shape[0], -1)
-    half_pi = torch.tensor(math.pi / 2.0, dtype=torch.float32, device=x.device)
+    half_pi = device_constant(("half_pi",), lambda: math.pi / 2.0, torch.float32, x.device)
     parts = [torch.sin(t), torch.sin(t + half_pi)] + ([x] if append_input else [])
     emb = torch.cat(parts, dim=-1)
     return F.pad(emb, (0, k_pad - emb.shape[-1]))

@@ -8,7 +8,10 @@ chunks with the reference's arithmetic, ``n_chunks = ceil(n_rays * P /
 chunk_size_grid)``, edge-padded to equal size and mapped over by
 ``chunk_map``: a loop over the chunk axis eagerly, one
 ``torch._higher_order_ops.map`` node (its body recorded once) in a traced
-program, as ``lax.map`` is in the JAX package. Under a (data x rays) mesh
+program, as ``lax.map`` is in the JAX package. A frame without a gradient
+(serving, eval) runs the same body on the static buffers of a
+``ChunkGraph`` instead (``chunk_graph.py``), on the card replayed per
+chunk from one captured CUDA graph. Under a (data x rays) mesh
 (``parallel/``) each process renders its slice of the rays of a TRAINING
 call and of every chunk, and the slices are gathered where the JAX package
 constrains the ray axis. In TRAINING the rays are Monte-Carlo samples,
@@ -33,6 +36,7 @@ does not list raises.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -40,6 +44,7 @@ import torch
 import torch.nn as nn
 
 from ..models import MODELS
+from ..ops.kernels import nerf_mlp_fwd
 from ..ops.metrics import sample_grid, view_metrics
 from ..ops.sampling import (
     gumbel_from_uniform,
@@ -52,6 +57,7 @@ from ..parallel.sharding import gather_rays, ray_parallel, shard_rays
 from ..utils import resolve_device
 from ..utils.profiling import annotate
 from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS
+from .chunk_graph import ChunkGraph
 
 
 class Draw(NamedTuple):
@@ -192,6 +198,9 @@ class NeRFPipeline(nn.Module):
         if loss_weights is None:
             loss_weights = {"loss_rgb_mse": 1.0, "loss_prev_stage_rgb_mse": 1.0}
         self.loss_weights = dict(loss_weights)
+        self._chunk_graph: Optional[ChunkGraph] = None  # the newest frame shape's static chunk loop
+        # frame shapes given static buffers, graphs captured (and their seconds), chunks replayed / run eagerly
+        self.chunk_stats = {"keys": 0, "captures": 0, "capture_s": 0.0, "replayed_chunks": 0, "eager_chunks": 0}
         self.to(device)
 
     @property
@@ -394,11 +403,15 @@ class NeRFPipeline(nn.Module):
         evaluation_mode: EvaluationMode,
         generator: Optional[torch.Generator],
     ) -> RendererOutput:
-        """Render a full grid chunk by chunk (``chunk_map``), the last chunk edge-padded and sliced away.
+        """Render a full grid chunk by chunk, the last chunk edge-padded and sliced away.
 
         The chunks are the leading axis of the mapped inputs, as the JAX
         package's ``lax.map`` takes them. A traced frame draws nothing: it
-        refuses a generator.
+        refuses a generator. Without a gradient, a ray split or a traced
+        program, and with no feature extractor (whose outputs, made anew
+        each call, the models take), the chunks run on the static buffers of
+        a ``ChunkGraph`` (a captured CUDA graph replayed per chunk on the
+        card); otherwise through ``chunk_map``.
         """
         batch_size = origins.shape[0]
         spatial = origins.shape[1:-1]
@@ -409,16 +422,14 @@ class NeRFPipeline(nn.Module):
         chunk_rays = -(-chunk_rays // ray_parallel()) * ray_parallel()  # a ray split takes equal slices
         n_padded = n_chunks * chunk_rays
 
-        def to_chunks(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-            if t is None:
-                return None
+        def padded(t: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
             t = t.reshape(batch_size, n_rays, 1, t.shape[-1])
             # padded even by 0 rays: a traced frame has the same nodes at every chunk count
-            t = torch.cat([t, t[:, -1:].expand(batch_size, n_padded - n_rays, 1, t.shape[-1])], dim=1)
-            return t.reshape(batch_size, n_chunks, chunk_rays, 1, t.shape[-1]).movedim(1, 0)
+            pad = t[:, -1:].expand(batch_size, n_padded - n_rays, 1, t.shape[-1])
+            return torch.cat([t, pad], dim=1) if out is None else torch.cat([t, pad], dim=1, out=out)
 
-        xs = {k: to_chunks(t) for k, t in (("origins", origins), ("directions", directions), ("lengths", lengths),
-                                           ("xys", xys), ("bg_color", bg_color)) if t is not None}
+        inputs = {k: t for k, t in (("origins", origins), ("directions", directions), ("lengths", lengths),
+                                    ("xys", xys), ("bg_color", bg_color)) if t is not None}
         if generator is not None and torch.compiler.is_compiling():
             raise ValueError("a traced frame draws nothing: render it without a generator")
 
@@ -439,7 +450,45 @@ class NeRFPipeline(nn.Module):
             leaf = leaf.movedim(0, 1).reshape(batch_size, n_padded, *rest)
             return leaf[:, :n_rays].reshape(batch_size, *spatial, *rest)
 
-        return chunk_map(render_one, xs, lambda stacked: _output_from_tree(stacked, collate))
+        replay = (not self.feature_extractors and not torch.compiler.is_compiling() and not torch.is_grad_enabled()
+                  and ray_parallel() == 1)
+        if not replay:
+            xs = {k: padded(t).reshape(batch_size, n_chunks, chunk_rays, 1, t.shape[-1]).movedim(1, 0)
+                  for k, t in inputs.items()}
+            return chunk_map(render_one, xs, lambda stacked: _output_from_tree(stacked, collate))
+        graph = self._chunk_graph_for(inputs, evaluation_mode, n_chunks, chunk_rays, n_padded)
+        for k, t in inputs.items():
+            padded(t, out=graph.inputs[k])
+        stacked = graph.run(render_one, generator, self.chunk_stats)
+        if graph.key is None:  # the first frame packed the NeRF-MLPs' weights: the key holds them from now on
+            graph.key = self._chunk_graph_key(inputs, evaluation_mode, n_chunks)
+        with annotate("pipeline.collate"):
+            # the caller's own tensors: the next frame overwrites the static outputs
+            return _output_from_tree(stacked, lambda leaf: collate(leaf).clone())
+
+    def _chunk_graph_key(self, inputs: Dict[str, torch.Tensor], evaluation_mode: EvaluationMode,
+                         n_chunks: int) -> Tuple:
+        """What a ``ChunkGraph`` bakes in. Brings every NeRF-MLP's packed weights up to date first (a repack in
+        place after the weights changed), so the frame's replays read the current weights."""
+        packed = [m.current_packed_weights() for m in self.modules() if hasattr(m, "current_packed_weights")]
+        return (
+            n_chunks, tuple((k, tuple(t.shape), t.dtype) for k, t in inputs.items()), evaluation_mode,
+            torch.is_grad_enabled(), torch.is_inference_mode_enabled(), inputs["origins"].device,
+            tuple(t.data_ptr() for t in itertools.chain(self.parameters(), self.buffers())),
+            tuple(None if p is None else (p.flat.data_ptr(), p.biases_flat.data_ptr()) for p in packed),
+            nerf_mlp_fwd.nerf_mlp_fwd,  # the entry K1 is called through: one patched in captures anew
+        )
+
+    def _chunk_graph_for(self, inputs: Dict[str, torch.Tensor], evaluation_mode: EvaluationMode, n_chunks: int,
+                         chunk_rays: int, n_padded: int) -> ChunkGraph:
+        """The ``ChunkGraph`` of this frame's key: the kept one, or a new one in its place."""
+        key = self._chunk_graph_key(inputs, evaluation_mode, n_chunks)
+        if self._chunk_graph is None or self._chunk_graph.key != key:
+            self._chunk_graph = None  # frees the old graph and buffers first
+            buffers = {k: t.new_empty((t.shape[0], n_padded, 1, t.shape[-1])) for k, t in inputs.items()}
+            self._chunk_graph = ChunkGraph(buffers, n_chunks, chunk_rays)
+            self.chunk_stats["keys"] += 1
+        return self._chunk_graph
 
     def _get_view_metrics(
         self,

@@ -140,6 +140,8 @@ class RenderService:
         return frames
 
     def stats(self):
+        """The counters; ``chunk_loop``: the pipeline's chunk loop (``NeRFPipeline.chunk_stats``: frame shapes
+        given static buffers, CUDA graphs captured and their seconds, chunks replayed and run eagerly)."""
         n = self.n_renders
         return {
             "status": "ok",
@@ -147,6 +149,7 @@ class RenderService:
             "mean_render_s": round(self.total_render_s / n, 4) if n else None,
             "image_hw": list(self.image_hw),
             "device": str(self.device),
+            "chunk_loop": dict(getattr(self._pipeline, "chunk_stats", {})),
         }
 
 
