@@ -38,9 +38,10 @@ each printing its numbers on a line of its own with the card's name and
 power limit:
   1. build   compile every kernel of the serving and training paths from
              the sources in this checkout, one nvcc per source, all started
-             together: the NeRF-MLP forward (K1), its pipelined twin (K2)
-             and the NeRF-MLP backward (K3); ptxas registers, spills and
-             shared memory of each;
+             together: the NeRF-MLP forward (K1), its pipelined twin (K2),
+             the NeRF-MLP backward (K3) and the hash encoding's forward (K4)
+             and tables' gradient (K5), one source; ptxas registers, spills
+             and shared memory of each;
   2. kernel  hold each kernel against its plain PyTorch version at the
              shapes the paths give it, and time both: K1 at the proposal
              eval chunk (2045 rays x 32 points), the classic coarse and fine
@@ -62,7 +63,16 @@ power limit:
              fern_ndc_proposal's eval chunk (2027 x 32), K1 also at
              synth_llff_360_unbounded's (15876 x 32); K1 on the density
              tools' lattice chunks (65,536 points, one per ray along
-             (0, 0, 1), in [-2, 2]^3 and [-1.5, 1.5]^3);
+             (0, 0, 1), in [-2, 2]^3 and [-1.5, 1.5]^3); K4 and K5 at
+             synth800_ngp's train step (8192 rays x 64 and x 192 points
+             from radius 4 at depths 2-6, 16 levels of up to 2^19 rows
+             drawn from U(-1, 1)) against the model's plain encoding and
+             its autograd backward (K4 within
+             4e-6 of the tables' largest entry; K5 and the plain backward
+             each within the rounding argued in tests/test_torch_hash_encode.py
+             of the exact sum, K5 bit for bit twice), each timed beside its
+             plain version, K5's kernels one by one, and the least time of
+             the bytes that must cross HBM (h100bench/counts/hash_grid.py);
   3. serve   for each configuration, the HTTP server on 127.0.0.1 with the
              NeRF-MLP kernel switched on answers GET /render, POST /render
              and GET /health at 800x800; K1 is launched exactly once per
@@ -85,7 +95,12 @@ power limit:
              the objective finite at every step, every parameter (every
              table) moved, the final checkpoint reloads to the same
              parameters, Adam state and step; ``step_s``, rays/s and the
-             peak device memory of the run;
+             peak device memory of the run; then ("hash") synth800_ngp
+             with the hash grid's switch on, 16 steps on that scene: K4 and
+             K5 once per step and model, then one 800x800 frame through the
+             chunk graph, K4 once per chunk and model (626), K5 never, bit
+             for bit the plain chunk loop under the same switch, its gap to
+             the switch-off frame printed; K1 and K3 on neither;
   6. fused   the proposal CLI with ``steps_per_call=20`` on a 40-frame
              scene with the device cache, 80 steps (two epochs of two whole
              groups of 20 after the first step's vis): one captured CUDA
@@ -246,7 +261,8 @@ launch on an LLFF training path or K1 on an LLFF frame, K1 or K3 on the
 multi-scene control's training, K1 on a tool or the occupancy frame, or
 either of them on the latent path, or K1 on a path of phases 13-21 (K3
 on their training paths), or K1 or K3 on phases 22-24, or K1 on a path
-of phase 25 (K3 on its training; neither on synth800_ngp.yml's). Imports
+of phase 25 (K3 on its training; neither on synth800_ngp.yml's), or K4 or
+K5 on any path but "hash". Imports
 nothing of JAX or of yanerf_tpu. The last three lines are the kernels'
 JSON record, the card's name and power limit, and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -311,7 +327,14 @@ FAMILY_TRAIN_RAYS = 512
 FAMILY_ATOL = 1e-4  # card against CPU in float32, TF32 off: sums in another order
 FAMILY_OBJECTIVE_RTOL = 1e-4
 FAMILY_MIN_GRAD_COSINE = 0.9999
-NO_LAUNCHES = {"nerf_mlp_fwd": 0, "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0}
+NO_LAUNCHES = {"nerf_mlp_fwd": 0, "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0}  # of the NeRF-MLP kernels
+NGP_KERNEL_RAYS = 8192  # synth800_ngp.yml's rays per step: K4 / K5 at 64 (coarse) and 64 + 128 (fine) points per ray
+# K4 against the plain forward, times the tables' largest entry: the same 8 float32 products, summed in another
+# order (tests/test_torch_hash_encode.py)
+HASH_FWD_ATOL = 4e-6
+# the plain backward (index_put_'s float32 sums) against the exact sum, times the row's absolute sum; K5 against
+# it at 2^-24 relative plus half its fixed-point step per term (csrc/hash_encode.cu, tests/test_torch_hash_encode.py)
+HASH_PLAIN_RTOL = 1e-5
 LLFF_HW = (378, 504)  # the LLFF configs' size (fern's 4032x3024 at factor 8)
 # 3 holdout views at test_skip 8 and 21 train views: an epoch holds the vis step and a whole group of 20;
 # the fused runs take two epochs (42 steps), synth_llff.yml per step one (21)
@@ -447,9 +470,11 @@ def kernel_keys(config) -> list:
 
 
 def kernel_mlps(pipeline) -> int:
-    """How many of ``pipeline``'s models train on K1 and K3: the switch on and the kernels' rule met."""
-    return sum(int(getattr(fn, "use_pallas_train", False) and getattr(fn, "latent_dim", 0) == 0
-                   and getattr(fn, "input_xyz", True)) for fn in pipeline.implicit_functions)
+    """How many of ``pipeline``'s models train on K1 and K3: NeRFMLPs with the switch on and the kernels' rule met."""
+    from yanerf_tpu_torch.models.nerf_mlp import NeRFMLP
+
+    return sum(int(isinstance(fn, NeRFMLP) and fn.use_pallas_train and fn.latent_dim == 0 and fn.input_xyz)
+               for fn in pipeline.implicit_functions)
 
 
 def mlp_inputs(torch, n_rays: int, pts_per_ray: int, gen):
@@ -700,6 +725,120 @@ def check_classic_train_shapes(torch, K1, K3, nerf_mlp, packed, gen, card_line):
         say(card_line, "kernel", name="nerf_mlp_bwd", shape=shape,
             **check_k3(torch, K1, K3, nerf_mlp, packed, gen, TRAIN_RAYS, pts_per_ray))
         torch.cuda.empty_cache()
+
+
+def hash_model(torch, config=None):
+    """The HashGridNeRF of ``config`` (synth800_ngp.yml) on the card, every table drawn from U(-1, 1); and its
+    config as a dict."""
+    from yanerf_tpu_torch.models import MODELS
+    from yanerf_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(str(SYNTH800_NGP_CONFIG if config is None else config)).pipeline.model.to_dict()
+    model = MODELS.build(dict(cfg, generator=torch.Generator().manual_seed(0))).cuda()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for table in model.tables:
+            table.copy_(torch.rand(table.shape, generator=gen) * 2.0 - 1.0)
+    return model, cfg
+
+
+def hash_corners(torch, model, points, level: int):
+    """The plain path's corner rows and trilinear weights of ``level``, ``(n, 8)`` each."""
+    x01 = torch.clamp((points + model.scene_bound) / (2.0 * model.scene_bound), 0.0, 1.0)
+    upper = torch.tensor([[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)], device=points.device).bool()
+    scaled = x01 * model.resolutions[level]
+    cell = torch.floor(scaled)
+    frac = scaled - cell
+    w = torch.where(upper, frac[:, None, :], 1.0 - frac[:, None, :])
+    return model._corner_indices(cell, level), w[..., 0] * w[..., 1] * w[..., 2]
+
+
+def hash_points(torch, n_rays: int, pts_per_ray: int, gen):
+    """``(n_rays * pts_per_ray, 3)`` ray points on the card as the cell draws them: cameras on the sphere of radius
+    4 looking through [-1, 1]^3, sorted depths in [2, 6] (lego.yml's near and far); some fall outside the box."""
+    origins = torch.randn(n_rays, 1, 3, generator=gen)
+    origins = 4.0 * origins / origins.norm(dim=-1, keepdim=True)
+    dirs = torch.rand(n_rays, 1, 3, generator=gen) * 2.0 - 1.0 - origins
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    lengths = torch.sort(torch.rand(n_rays, pts_per_ray, 1, generator=gen) * 4.0 + 2.0, dim=1).values
+    return (origins + lengths * dirs).reshape(-1, 3).contiguous().cuda()
+
+
+def check_hash(torch, HE, model, cfg: dict, n_rays: int, pts_per_ray: int, gen):
+    """K4 and K5 against the model's plain encoding and its autograd backward at ``n_rays`` x ``pts_per_ray``
+    ray points (``hash_points``); returns (K4's numbers, K5's numbers).
+
+    K4: within HASH_FWD_ATOL of the tables' largest entry. K5: every row
+    within the rounding its docstring argues of the exact sum (float64 of
+    the same float32 products), the plain backward within HASH_PLAIN_RTOL of
+    the row's absolute sum of it, and two launches give the same bits.
+    Times (CUDA events): each kernel, its plain version, each of K5's
+    kernels (torch.profiler), and the least time of the bytes that must
+    cross HBM (``h100bench/counts/hash_grid.py``).
+    """
+    from h100bench.counts.hash_grid import encoding_work
+
+    points = hash_points(torch, n_rays, pts_per_ray, gen)
+    n, tables, sizes = points.shape[0], list(model.tables), model.level_table_sizes
+    k4 = lambda: HE.hash_encode_fwd_op(points, tables, model.resolutions, model.scene_bound)  # noqa: E731
+    with torch.no_grad():
+        enc, plain_enc = k4(), model.encode(tables, points)
+    fwd_err = float((enc - plain_enc).abs().max())
+    fwd_atol = HASH_FWD_ATOL * max(float(t.detach().abs().max()) for t in tables)
+    cot = (torch.randn(n, enc.shape[1], generator=gen) * 1e-3).cuda()
+    k5 = lambda: HE.hash_encode_bwd_op(points, cot, model.resolutions, sizes, model.scene_bound)  # noqa: E731
+    flat = k5()
+    deterministic = bool(torch.equal(flat, k5()))
+    plain_enc = model.encode(tables, points)
+    plain_grads = torch.autograd.grad(plain_enc, tables, cot, retain_graph=True)
+    step = 2.0 ** (math.frexp(float(cot.abs().max()))[1] + math.ceil(math.log2(n)) - 61)  # 2^-S of K5
+    k5_worst = plain_worst = bwd_err = 0.0
+    for level, (got, plain) in enumerate(zip(torch.split(flat, sizes), plain_grads)):
+        rows, w = hash_corners(torch, model, points, level)
+        terms = (w[..., None] * cot[:, None, 2 * level:2 * level + 2]).reshape(-1, 2).double()  # float32 products
+        index = rows.reshape(-1)
+        exact = torch.zeros(got.shape, dtype=torch.float64, device=got.device).index_add_(0, index, terms)
+        absum = torch.zeros_like(exact).index_add_(0, index, terms.abs())
+        count = torch.zeros_like(exact).index_add_(0, index, torch.ones_like(terms))
+        k5_worst = max(k5_worst, float(((got.double() - exact).abs() / (2.0 ** -24 * exact.abs() + count * step / 2
+                                                                         + 1e-45)).max()))
+        plain_worst = max(plain_worst, float(((plain.double() - exact).abs() / (HASH_PLAIN_RTOL * absum
+                                                                                + 1e-45)).max()))
+        bwd_err = max(bwd_err, float((got - plain).abs().max()))
+        del rows, w, terms, index, exact, absum, count
+    finite = bool(torch.isfinite(enc).all() and torch.isfinite(flat).all())
+    if not finite or fwd_err > fwd_atol or k5_worst > 1.0 or plain_worst > 1.0 or not deterministic:
+        raise SystemExit(f"hash_encode at {n} points: K4 max abs err {fwd_err} (atol {fwd_atol}), K5's worst error "
+                         f"over its bound {k5_worst}, the plain backward's {plain_worst}, same bits twice "
+                         f"{deterministic}, finite {finite}")
+    work = encoding_work(cfg, n)
+    bound_ms, bound_by = bound(*work)
+    with torch.no_grad():
+        fwd = dict(points=n, **input_range(points), max_abs_err=fwd_err, atol=fwd_atol, ms=time_ms(torch, k4),
+                   plain_ms=time_ms(torch, lambda: model.encode(tables, points), iters=5), bound_ms=bound_ms,
+                   bound_by=bound_by, gbytes=work[1] / 1e9)
+    bwd = dict(points=n, max_abs_err=bwd_err, worst_error_over_bound=k5_worst,
+               plain_worst_error_over_bound=plain_worst, plain_rtol=HASH_PLAIN_RTOL, deterministic=deterministic,
+               ms=time_ms(torch, k5), pass_ms=kernel_ms(torch, k5),
+               plain_ms=time_ms(torch, lambda: torch.autograd.grad(plain_enc, tables, cot, retain_graph=True),
+                                iters=5),
+               bound_ms=bound_ms, bound_by=bound_by, gbytes=work[1] / 1e9)
+    for numbers in (fwd, bwd):
+        numbers["share_of_bound"] = bound_ms / numbers["ms"]
+    return fwd, bwd
+
+
+def check_hash_shapes(torch, HE, card_line):
+    """K4 and K5 at synth800_ngp.yml's train step, coarse and fine pass; returns the fine pass's numbers."""
+    model, cfg = hash_model(torch)
+    gen = torch.Generator().manual_seed(2)
+    for name, pts_per_ray in zip(("coarse", "fine"), CLASSIC_TRAIN_PTS):
+        shape = f"synth800_ngp train step, {name} pass, {NGP_KERNEL_RAYS} rays x {pts_per_ray} points"
+        fwd, bwd = check_hash(torch, HE, model, cfg, NGP_KERNEL_RAYS, pts_per_ray, gen)
+        say(card_line, "kernel", name="hash_encode_fwd", shape=shape, **fwd)
+        say(card_line, "kernel", name="hash_encode_bwd", shape=shape, **bwd)
+        torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame: int):
@@ -1069,6 +1208,96 @@ def family_frame(torch, K1, K3, service, card_line: str, config_name: str, view=
     return launches
 
 
+def hash_kernel_path(torch, K1, K3, HE, card_line: str, scene: Path, out_dir: Path, config=None, steps=None) -> dict:
+    """synth800_ngp.yml with the hash grid's switch on: trained per step through the CLI, then one frame.
+
+    The training (``use_pallas_train``, ``steps`` steps) launches K4 and K5
+    once per step and HashGridNeRF; its test frames render with the plain
+    path, as NeRFMLP's switch does. The frame (``use_pallas``, after one
+    warm-up frame that captures the chunk graph) launches K4 once per chunk
+    and model and K5 never, and equals the plain chunk loop under the same
+    switch bit for bit. Neither launches K1 or K3. K4 / K5 are counted from 0
+    for each, and the counts the hash kernels had before are put back, so
+    that they go on counting launches outside this path. On the CPU (the
+    tests) the switch takes the plain path and nothing launches. Returns the
+    kernels' launches on both paths.
+    """
+    import numpy as np
+
+    from yanerf_tpu_torch.ops.structures import EvaluationMode
+    from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose, service_from_config
+    from yanerf_tpu_torch.utils import Config
+
+    config = SYNTH800_NGP_CONFIG if config is None else config
+    steps = NGP_TRAIN_STEPS if steps is None else steps
+    on_card = DEVICE == "cuda"
+    outside = HE.launches, HE.bwd_launches
+
+    def launches():
+        return {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                "nerf_mlp_bwd": K3.launches, "hash_encode_fwd": HE.launches, "hash_encode_bwd": HE.bwd_launches}
+
+    HE.launches = HE.bwd_launches = 0
+    numbers, _ = train(torch, K1, K3, scene, out_dir, config, steps,
+                       extra_options=["pipeline.model.use_pallas_train=True"])
+    paths = {"synth800_ngp_kernels_train": launches()}
+    torch.cuda.empty_cache()
+
+    cfg = Config.fromfile(str(config))
+    cfg.pipeline.model.use_pallas = True
+    service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
+    pipeline = service._pipeline
+    n_models = len(pipeline.implicit_functions)
+    service.warmup()
+    pose = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
+    K1.launches = K1.pipelined_launches = K3.launches = HE.launches = HE.bwd_launches = 0
+    t = time.perf_counter()
+    rgb, depth = service.render(pose, service.default_focal)
+    frame_s = time.perf_counter() - t
+    paths["synth800_ngp_kernels_frame"] = launches()
+    lo, hi = service.default_bounds
+    for p in pipeline.parameters():
+        p.requires_grad_(False)
+
+    def plain_loop():  # a frame with a gradient takes the plain chunk loop (no parameter needs one)
+        with torch.enable_grad():
+            preds = pipeline(poses=torch.as_tensor(pose, device=pipeline.device)[None],
+                             focal_lengths=torch.tensor([service.default_focal], device=pipeline.device),
+                             min_depth=lo, max_depth=hi, evaluation_mode=EvaluationMode.EVALUATION)
+        return preds["rendered_images"][0].cpu().numpy(), preds["rendered_depths"][0, ..., 0].cpu().numpy()
+
+    t = time.perf_counter()
+    loop_rgb, loop_depth = plain_loop()
+    loop_s = time.perf_counter() - t
+    for fn in pipeline.implicit_functions:
+        fn.use_pallas = False
+    plain_rgb, plain_depth = plain_loop()
+    del service, pipeline
+    torch.cuda.empty_cache()
+    chunks = frame_chunks(cfg)
+    train_l, frame_l = paths["synth800_ngp_kernels_train"], paths["synth800_ngp_kernels_frame"]
+    checks = {
+        "train": all(numbers["checks"].values()),
+        "k4_k5_per_step_and_model": train_l["hash_encode_fwd"] == train_l["hash_encode_bwd"]
+        == (n_models * steps if on_card else 0),
+        "k4_per_chunk_and_model": frame_l["hash_encode_fwd"] == (n_models * chunks if on_card else 0)
+        and frame_l["hash_encode_bwd"] == 0,
+        "no_nerf_mlp_kernel": all({k: v[k] for k in NO_LAUNCHES} == NO_LAUNCHES for v in paths.values()),
+        "frame_equals_plain_loop": bool(np.array_equal(rgb, loop_rgb) and np.array_equal(depth, loop_depth)),
+        "frame_finite": bool(np.isfinite(rgb).all() and np.isfinite(depth).all()),
+    }
+    say(card_line, "hash", config=Path(config).name, steps=steps, ms_per_step=numbers["ms_per_step"],
+        train_rays_per_s=numbers["train_rays_per_s"], peak_memory_gb=numbers["peak_memory_gb"],
+        objective_first=numbers["objective_first"], objective_last=numbers["objective_last"],
+        params_moved=numbers["params_moved"], frame_s=frame_s, plain_loop_frame_s=loop_s, chunks=chunks,
+        launches=paths, kernels_vs_plain_rgb_gap=float(np.abs(rgb - plain_rgb).max()),
+        kernels_vs_plain_depth_gap=float(np.abs(depth - plain_depth).max()), checks=checks)
+    if not all(checks.values()):
+        raise SystemExit(f"hash phase failed: {checks}")
+    HE.launches, HE.bwd_launches = outside
+    return paths
+
+
 def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, train_rays: int = FAMILY_TRAIN_RAYS,
                  options=None, density_bias: float = 0.0, items=(0,), probe_biases=()):
     """The card against the CPU for a family's eager path: one eval chunk and one train step, in float32.
@@ -1220,7 +1449,7 @@ def step_equivalence(torch, scene: Path, config=None, masks=None):
         K1.launches = K1.pipelined_launches = K3.launches = 0
         preds = make_train_step(pipe, cfg.runner, 0)(state, batch, draws)
         sync(torch)
-        launches = launch_count.totals()
+        launches = {k: n for k, n in launch_count.totals().items() if k in NO_LAUNCHES}  # the NeRF-MLP kernels'
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
         grads = [[p.grad for p in pipe.implicit_functions[i].parameters()] for i in nerf_mlps]
         out[name] = (float(preds["objective"].mean()), grads, peak_gb, launches)
@@ -2333,13 +2562,16 @@ def parity_smoke_phase(card_line: str, tmp: Path, smoke_args=()) -> dict:
     seconds = time.perf_counter() - t
     record = json.loads(out.read_text()) if out.exists() else {}
     stages = record.get("stages", {})
-    launches = {"nerf_mlp_fwd": 0, "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0}
+    launches, hash_launches = dict(NO_LAUNCHES), 0
     for log in work.rglob("run.log"):
         lines = [ln for ln in log.read_text().splitlines() if "kernel launches: " in ln]
         if lines:
             for k, v in json.loads(lines[-1].split("kernel launches: ", 1)[1]).items():
-                launches[k] += v
-    checks = {"exit_0": proc.returncode == 0, "ok": record.get("ok") is True,
+                if k in launches:
+                    launches[k] += v
+                else:  # K4 / K5: the smoke's configs leave the hash grid's switch off
+                    hash_launches += v
+    checks = {"exit_0": proc.returncode == 0, "ok": record.get("ok") is True, "no_hash_kernel": hash_launches == 0,
               "stages_ok": bool(stages) and all(stage.get("ok") for stage in stages.values()),
               "time_to_quality_reached": bool(stages.get("time_to_quality", {}).get("reached"))}
     say(card_line, "parity smoke", seconds=seconds, stages=stages, launches=launches, checks=checks)
@@ -2660,6 +2892,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
+    from yanerf_tpu_torch.ops.kernels import hash_encode as HE
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
     from yanerf_tpu_torch.serve import service_from_config
@@ -2675,7 +2908,7 @@ def main() -> int:
     from yanerf_tpu_torch import native
 
     libraries = {"nerf_mlp_fwd": K1.LIBRARY, "nerf_mlp_fwd_pipelined": K1.PIPELINED_LIBRARY,
-                 "nerf_mlp_bwd": K3.LIBRARY}
+                 "nerf_mlp_bwd": K3.LIBRARY, "hash_encode": HE.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         host_build = pool.submit(native.LIBRARY.load)
@@ -2714,6 +2947,8 @@ def main() -> int:
         "[-2, 2]^3 along (0, 0, 1)", **k1_lattice)
     say(card_line, "kernel", name="nerf_mlp_fwd", shape=f"extract_mesh's lattice chunk, {LATTICE_CHUNK} points of "
         "[-1.5, 1.5]^3 along (0, 0, 1)", **check_k1(torch, K1, nerf_mlp, packed, LATTICE_CHUNK, 1, gen, "lattice_mesh"))
+    hash_fwd, hash_bwd = check_hash_shapes(torch, HE, card_line)
+    HE.launches = HE.bwd_launches = 0  # from here on, launches of K4 / K5 outside hash_kernel_path fail the run
     torch.cuda.empty_cache()
 
     # 3. serve and 4. frame, proposal then classic
@@ -2778,6 +3013,8 @@ def main() -> int:
         if not all(numbers["checks"].values()):
             raise SystemExit(f"ngp train phase failed: {numbers['checks']}")
         torch.cuda.empty_cache()
+        # synth800_ngp.yml with the hash grid's switch on: K4 and K5 on its training, K4 on its frame
+        hash_paths = hash_kernel_path(torch, K1, K3, HE, card_line, scene, Path(tmp) / "results_ngp_kernels")
         mip_numbers, new_paths["mip_train_fused"] = fused_train(torch, K1, K3, fused_scene, Path(tmp) / "results_mip",
                                                                 MIP_CONFIG, MIP_FUSED_TRAIN_STEPS, MIP_STEPS_PER_CALL)
         new_paths["mip_train_per_step"] = mip_numbers["per_step_launches"]
@@ -2869,6 +3106,12 @@ def main() -> int:
         paths.update({name: launches.get(kernel, 0) for name, launches in trace_paths.items()})
         return paths
 
+    def hash_by_path(kernel):
+        """K4 / K5 on the switch-on path; every other path leaves the switch off and launches neither."""
+        paths = {name: launches[kernel] for name, launches in hash_paths.items()}
+        paths["switch_off_paths"] = HE.launches if kernel == "hash_encode_fwd" else HE.bwd_launches
+        return paths
+
     record = {
         "kernels": [
             dict(entry("nerf_mlp_fwd", "yanerf_tpu_torch/csrc/nerf_mlp_fwd.cu",
@@ -2879,6 +3122,10 @@ def main() -> int:
                   "yanerf_tpu/ops/pallas/nerf_mlp_kernel.py:296", k2, by_path("nerf_mlp_fwd_pipelined")),
             entry("nerf_mlp_bwd", "yanerf_tpu_torch/csrc/nerf_mlp_bwd.cu", "yanerf_tpu/ops/pallas/nerf_mlp_bwd.py:67",
                   k3, by_path("nerf_mlp_bwd")),
+            entry("hash_encode_fwd", "yanerf_tpu_torch/csrc/hash_encode.cu", "yanerf_tpu/models/hash_grid.py:292",
+                  hash_fwd, hash_by_path("hash_encode_fwd")),
+            entry("hash_encode_bwd", "yanerf_tpu_torch/csrc/hash_encode.cu", "yanerf_tpu/models/hash_grid.py:123",
+                  hash_bwd, hash_by_path("hash_encode_bwd")),
         ]
     }
     missing = [k["name"] for k in record["kernels"] if k["launches"] == 0]
@@ -2887,6 +3134,9 @@ def main() -> int:
     refused = {name: launches for name, launches in new_paths.items() if launches != NO_LAUNCHES}
     if refused:
         raise SystemExit(f"a NeRF-MLP kernel ran on a path whose models refuse it: {refused}")
+    if HE.launches or HE.bwd_launches:
+        raise SystemExit(f"a hash-encoding kernel ran on a path with the switch off: K4 {HE.launches}, "
+                         f"K5 {HE.bwd_launches}")
     def kernels_missing(name, launches):
         """K1 on every path; K3 on every training path and on no frame."""
         trains = not name.endswith("_frame")

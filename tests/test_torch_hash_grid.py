@@ -196,8 +196,9 @@ def test_hash_grid_parameters_init_and_refusals():
     with pytest.raises(ValueError, match="scene_bound >= 2.0"):
         MODELS.build(dict(SMALL, contract_coords=True))
     o, d, l = map(torch.from_numpy, _inputs())
-    with pytest.raises(ValueError, match="no fused kernel"):
-        model(o, d, l, use_pallas=True)
+    with torch.no_grad():  # on the CPU the switch takes the plain path: the kernels run on CUDA points only
+        on, off = model(o, d, l, use_pallas=True), model(o, d, l, use_pallas=False)
+    assert all(torch.equal(on[k], off[k]) for k in ("rays_densities", "rays_features"))
     with pytest.raises(ValueError, match="latent"):
         model(o, d, l, global_codes=torch.zeros(2, 4))
     # encode_chunk changes nothing
@@ -475,3 +476,23 @@ def test_chip_smoke_new_family_phases_run_on_the_cpu(tmp_path, monkeypatch):
         assert all(family["checks"].values()), family
         assert family["card_step_bit_equal_twice"] and family["eval_chunk_max_abs_err"] == 0.0
     assert len(family["tables_grad_cosine"]) == 8
+
+
+def test_chip_smoke_hash_kernel_path_runs_on_the_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's "hash" phase (the hash grid's switch on, trained, then a frame) at a tiny size: on the CPU
+    the switch takes the plain path, so neither K4 nor K5 launches, and the hash kernels' counts from before the
+    phase are put back."""
+    import chip_smoke
+    from yanerf_tpu_torch.ops.kernels import hash_encode as HE
+    from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
+    from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(HE, "launches", 5)
+    monkeypatch.setattr(HE, "bwd_launches", 7)
+    ngp_path = _write_drive(tmp_path / "ngp", "ngp")
+    paths = chip_smoke.hash_kernel_path(torch, K1, K3, HE, "cpu", tmp_path / "ngp" / "data",
+                                        tmp_path / "smoke_ngp_kernels", ngp_path, 4)
+    none = dict(chip_smoke.NO_LAUNCHES, hash_encode_fwd=0, hash_encode_bwd=0)
+    assert paths == {"synth800_ngp_kernels_train": none, "synth800_ngp_kernels_frame": none}
+    assert (HE.launches, HE.bwd_launches) == (5, 7)

@@ -19,6 +19,14 @@ and the direction embedding. The tables are float32; the MLPs follow
 (``tables.3``, ``density_mlp.0.w``, ``color_mlp.2.b``) are the JAX param
 tree's dotted paths, so ``convert.py`` loads it as it is.
 
+Two paths for the encoding, chosen by ``use_pallas`` (the pipeline passes
+``use_pallas_train`` in its place in training, as for ``NeRFMLP``): with the
+switch on and CUDA points the encoding runs on the hash-encoding kernels,
+K4 forward and K5 the tables' gradient (``ops/kernels/hash_encode.py``), or
+raises; with the switch off, or on the CPU, it runs the plain path below.
+Every shipped config leaves the switch off. The encoding is the span
+``model.hash_encode`` of a trace.
+
 ``encode_chunk`` is taken for the configs' sake and changes nothing: in the
 JAX package it bounded the size of one XLA scatter's lowering. The port
 encodes every point in one pass. With ``contract_coords`` the points are
@@ -36,8 +44,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.harmonics import harmonic_embedding, harmonic_embedding_dim
+from ..ops.kernels import hash_encode
 from ..ops.rays import contract_points, ray_bundle_to_ray_points
 from ..utils import device_constant
+from ..utils.profiling import annotate
 from .builder import MODELS
 from .layers import Linear, _uniform, init_linear_default, linear
 from .nerf_mlp import as_torch_dtype
@@ -109,9 +119,13 @@ class HashGridNeRF(nn.Module):
         compute_dtype: str = "float32",
         contract_coords: bool = False,
         encode_chunk: int = 1 << 17,
+        use_pallas: bool = False,
+        use_pallas_train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
+        self.use_pallas = use_pallas
+        self.use_pallas_train = use_pallas_train
         # the contraction's codomain is |x| < 2: a smaller box would clip the whole background onto its faces
         if contract_coords and float(scene_bound) < 2.0:
             raise ValueError(f"contract_coords=True requires scene_bound >= 2.0 (the contraction's codomain is "
@@ -196,16 +210,22 @@ class HashGridNeRF(nn.Module):
         use_pallas: Optional[bool] = None,
         **kwargs,
     ) -> Dict[str, Any]:
-        """Raw densities ``(B, *spatial, P, 1)`` and colors ``(B, *spatial, P, C)``; ``use_pallas`` may only be off."""
-        if use_pallas:
-            raise ValueError("HashGridNeRF has no fused kernel; use_pallas must be off")
+        """Raw densities ``(B, *spatial, P, 1)`` and colors ``(B, *spatial, P, C)``; ``use_pallas`` (default: the
+        model's own) puts the encoding of CUDA points on K4 / K5."""
+        use_pallas = self.use_pallas if use_pallas is None else use_pallas
         if global_codes is not None:
             raise ValueError("HashGridNeRF does not support latent conditioning")
         cd = self.compute_dtype
         points = ray_bundle_to_ray_points(origins, directions, lengths)
         if self.contract_coords:
             points = contract_points(points)
-        enc = self.encode(list(self.tables), points).to(cd)
+        with annotate("model.hash_encode"):
+            if use_pallas and points.is_cuda:
+                enc = hash_encode.hash_encode(points.reshape(-1, 3).contiguous(), list(self.tables), self.resolutions,
+                                              self.scene_bound).reshape(*points.shape[:-1], self.encoding_dim)
+            else:
+                enc = self.encode(list(self.tables), points)
+        enc = enc.to(cd)
         h = F.relu(linear(self.density_mlp[0], enc, cd))
         geo = linear(self.density_mlp[1], h, cd).to(torch.float32)
         raw_density = geo[..., :1]  # the raymarcher applies the activation and the bias

@@ -5,6 +5,8 @@
 | ``nerf_mlp_fwd`` (K1) | ``yanerf_tpu/ops/pallas/nerf_mlp_kernel.py::_nerf_mlp_kernel`` | ``csrc/nerf_mlp_fwd.cu`` |
 | ``nerf_mlp_fwd(..., pipelined=True)`` (K2) | ``nerf_mlp_kernel.py::_nerf_mlp_kernel_pipelined`` | ``csrc/nerf_mlp_fwd_pipelined.cu`` |
 | ``nerf_mlp_bwd`` (K3) | ``yanerf_tpu/ops/pallas/nerf_mlp_bwd.py::_nerf_mlp_bwd_kernel`` | ``csrc/nerf_mlp_bwd.cu`` |
+| ``hash_encode_fwd`` (K4) | none: XLA gathers of ``yanerf_tpu/models/hash_grid.py`` | ``csrc/hash_encode.cu`` |
+| ``hash_encode_bwd`` (K5) | none: its scatter-adds (the tables' gradient) | ``csrc/hash_encode.cu`` |
 
 K1, K2 and K3's recomputed forward run one tile engine,
 ``csrc/nerf_mlp_tile.cuh`` (on ``hopper.cuh``); K1 and K2 give the same
@@ -16,5 +18,8 @@ loaded with ``ctypes``; importing this package compiles nothing. K1 and K2
 are launched through the ``torch.library`` operator
 ``yanerf_tpu_torch::nerf_mlp_fwd`` (``nerf_mlp_fwd.nerf_mlp_fwd_op``), so
 a traced program (``export.py``) records them by name; K3 is called by
-``FusedNerfMlp.backward`` directly.
+``FusedNerfMlp.backward`` directly. K4 and K5 are the operators
+``yanerf_tpu_torch::hash_encode_fwd`` / ``hash_encode_bwd``, joined by
+``hash_encode.HashEncode``, the path of ``HashGridNeRF`` under
+``use_pallas`` on the card.
 """

@@ -18,7 +18,8 @@ The regions, nested on the host thread that opens them:
   * frame (``serve.py``, ``pipelines/``): ``service.render`` per request,
     ``service.fetch`` (the frame's copies to the host), ``pipeline.rays``,
     ``pipeline.chunk`` per chunk, ``model.<class name>`` per implicit
-    function call, ``renderer.refine`` / ``renderer.composite`` /
+    function call (in a ``HashGridNeRF``'s, ``model.hash_encode`` around the
+    encoding), ``renderer.refine`` / ``renderer.composite`` /
     ``renderer.losses``, ``pipeline.collate``.
 """
 
