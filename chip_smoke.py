@@ -39,9 +39,9 @@ power limit:
   1. build   compile every kernel of the serving and training paths from
              the sources in this checkout, one nvcc per source, all started
              together: the NeRF-MLP forward (K1), its pipelined twin (K2),
-             the NeRF-MLP backward (K3) and the hash encoding's forward (K4)
-             and tables' gradient (K5), one source; ptxas registers, spills
-             and shared memory of each;
+             the NeRF-MLP backward (K3), the hash encoding's forward (K4)
+             and tables' gradient (K5), one source, and the inverse-CDF
+             sampler (K6); ptxas registers, spills and shared memory of each;
   2. kernel  hold each kernel against its plain PyTorch version at the
              shapes the paths give it, and time both: K1 at the proposal
              eval chunk (2045 rays x 32 points), the classic coarse and fine
@@ -73,11 +73,26 @@ power limit:
              of the exact sum, K5 bit for bit twice), each timed beside its
              plain version, K5's kernels one by one, and the least time of
              the bytes that must cross HBM (h100bench/counts/hash_grid.py);
+             K6 at the refinements' shapes (2,045 rays x 62 bins x 64, 32
+             and 128 samples on a det linspace; 4,096 x 62 x 64 and 48 on
+             stratified draws, x 128 on unstratified ones) against its plain
+             arithmetic run on the CPU bit for bit (its float64 CDF, then the
+             plain version's inverse) and the same bits twice; against its
+             plain version on the card within rtol 1e-5 / atol 2e-5 but for
+             at most 0.01% of the samples, each in or beside a bin of mass
+             under 1e-3; timed beside the plain version and beside the least
+             time of its bytes (bound_ms);
   3. serve   for each configuration, the HTTP server on 127.0.0.1 with the
              NeRF-MLP kernel switched on answers GET /render, POST /render
              and GET /health at 800x800; K1 is launched exactly once per
              chunk and NeRFMLP (313 times per proposal frame, 626 per
-             classic frame), K3 never;
+             classic frame), K3 never; K6 exactly once per chunk and
+             refinement (626 per proposal frame, 313 per classic frame, the
+             same in the classic frame of "frame", the ngp frame's, the
+             hash, occupancy, .pth and exported frames); every train step
+             below, per step or replayed, launches K6 once per refinement
+             (the eval frames around the steps not counted), and each path's
+             K6 launches are its own in the kernels' record;
   4. frame   for each configuration, one frame with K1 and again with its
              plain version: PSNR >= 40 dB; the classic frame also with K2
              at the kernel entry, which must equal the K1 frame bit for bit
@@ -262,7 +277,7 @@ multi-scene control's training, K1 on a tool or the occupancy frame, or
 either of them on the latent path, or K1 on a path of phases 13-21 (K3
 on their training paths), or K1 or K3 on phases 22-24, or K1 on a path
 of phase 25 (K3 on its training; neither on synth800_ngp.yml's), or K4 or
-K5 on any path but "hash". Imports
+K5 on any path but "hash", or K6 on no path. Imports
 nothing of JAX or of yanerf_tpu. The last three lines are the kernels'
 JSON record, the card's name and power limit, and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -335,6 +350,18 @@ HASH_FWD_ATOL = 4e-6
 # the plain backward (index_put_'s float32 sums) against the exact sum, times the row's absolute sum; K5 against
 # it at 2^-24 relative plus half its fixed-point step per term (csrc/hash_encode.cu, tests/test_torch_hash_encode.py)
 HASH_PLAIN_RTOL = 1e-5
+# K6 at the paths' shapes (rays, bins, samples, draws): the frames' two proposal refinements and the classic fine
+# pass of a 2,045-ray eval chunk (det: one linspace row), the train steps' (stratified proposal draws, the classic
+# fine pass's unstratified ones)
+SAMPLE_PDF_SHAPES = ((2045, 62, 64, "det"), (2045, 62, 32, "det"), (2045, 62, 128, "det"),
+                     (4096, 62, 64, "stratified"), (4096, 62, 48, "stratified"), (4096, 62, 128, "drawn"))
+SAMPLE_PDF_EPS = 1e-5
+SAMPLE_PDF_RTOL, SAMPLE_PDF_ATOL = 1e-5, 2e-5  # tests/test_torch_ops.py's sample_pdf tolerances
+# samples beyond them lie in or beside a bin of mass under SAMPLE_PDF_NEAR_EPS, where the two CDFs, a few ulps
+# apart, move a sample that far; at most this share of them (the most seen: 4.4e-5 in the tests' inputs, 1.5e-5 in
+# these)
+SAMPLE_PDF_NEAR_EPS = 1e-3
+SAMPLE_PDF_MAX_FAR = 1e-4
 LLFF_HW = (378, 504)  # the LLFF configs' size (fern's 4032x3024 at factor 8)
 # 3 holdout views at test_skip 8 and 21 train views: an epoch holds the vis step and a whole group of 20;
 # the fused runs take two epochs (42 steps), synth_llff.yml per step one (21)
@@ -841,8 +868,169 @@ def check_hash_shapes(torch, HE, card_line):
     return fwd, bwd
 
 
-def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame: int):
-    """The port's HTTP server answers at full width; returns the launches of its two frames."""
+def graph_ms(torch, fn, calls: int = 50, replays: int = 20) -> float:
+    """Device ms of one call of ``fn`` with no host in the way: ``calls`` calls captured in one CUDA graph, the
+    graph replayed ``replays`` times between CUDA events. (A kernel that takes microseconds, launched eagerly,
+    waits on the host's dispatch of each call.)"""
+    from yanerf_tpu_torch.ops.kernels import launch_count
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with launch_count.capturing():  # these launches are not a path's
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def pdf_inputs(torch, n_rays: int, n_bins: int, n_samples: int, draws: str, gen):
+    """A refinement's inputs on the card, as the renderer hands them to K6: edges the midpoints of sorted depths in
+    [2, 6], weights the inner ``n_bins`` of a pass's weights (a view; a third of the rays empty, a third one
+    surface of a few bins, a third uniform draws), and the u's (``det``: one linspace row; else draws)."""
+    from yanerf_tpu_torch.ops.rays import linspace01
+
+    z = torch.sort(torch.rand(n_rays, n_bins + 2, generator=gen) * 4.0 + 2.0, dim=-1).values
+    idx = torch.arange(n_bins + 2, dtype=torch.float32)
+    surface = torch.exp(-0.5 * ((idx - torch.rand(n_rays, 1, generator=gen) * (n_bins + 2))
+                                / (0.3 + 2.0 * torch.rand(n_rays, 1, generator=gen))) ** 2)
+    kind = torch.randint(0, 3, (n_rays, 1), generator=gen)
+    full = torch.where(kind == 0, torch.zeros_like(surface),
+                       torch.where(kind == 1, surface, torch.rand(n_rays, n_bins + 2, generator=gen)))
+    if draws == "det":
+        u = linspace01(n_samples, device="cuda").expand(n_rays, n_samples)
+    else:
+        u = torch.rand(n_rays, n_samples, generator=gen).cuda()
+    return (0.5 * (z[..., 1:] + z[..., :-1])).cuda(), full.cuda()[..., 1:-1], u, draws == "stratified"
+
+
+def near_light_bins(torch, SP, weights, u, stratified: bool):
+    """Which samples fall in or beside a bin of mass under SAMPLE_PDF_NEAR_EPS, under the plain version's CDF or
+    K6's (``SP.k6_cdf``): where the two CDFs, a few ulps apart, may move a sample beyond the tolerance."""
+    masses = torch.clamp(weights, min=0.0) + SAMPLE_PDF_EPS
+    plain = torch.cumsum(masses / masses.sum(dim=-1, keepdim=True), dim=-1)
+    plain = torch.cat([torch.zeros_like(plain[..., :1]), plain], dim=-1)
+    ours = SP.k6_cdf(weights, SAMPLE_PDF_EPS)
+    n_bins, n_samples = weights.shape[-1], u.shape[-1]
+    x = (torch.arange(n_samples, dtype=u.dtype, device=u.device) + u) / n_samples if stratified else u
+    x = x.contiguous()
+    step = torch.minimum(plain.diff(dim=-1), ours.diff(dim=-1))
+    near = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    for cdf in (plain, ours):
+        held = torch.searchsorted(cdf[..., :-1].contiguous(), x, right=True) - 1  # the bin u falls in
+        for i in (held - 1, held, held + 1):
+            near |= torch.gather(step, -1, i.clamp(0, n_bins - 1)) < SAMPLE_PDF_NEAR_EPS
+    return near
+
+
+def check_sample_pdf(torch, SP, n_rays: int, n_bins: int, n_samples: int, draws: str, gen) -> dict:
+    """K6 at ``n_rays`` x ``n_bins`` x ``n_samples``; returns its numbers.
+
+    K6 must be its own arithmetic bit for bit (``SP.k6_arithmetic`` run on
+    the CPU: its float64 CDF, then the plain version's inverse) and give the
+    same bits twice. Against the plain version on the card every sample lies
+    within SAMPLE_PDF_RTOL / ATOL, or in or beside a bin of mass under
+    SAMPLE_PDF_NEAR_EPS (``near_light_bins``), and at most
+    SAMPLE_PDF_MAX_FAR of them lie beyond. Times (CUDA events): K6 on the
+    device (``ms``, from ``graph_ms``: a stream of eager calls this short
+    waits on the host's dispatch of each, which ``time_ms`` would time), the
+    plain version eagerly (``plain_ms``), and the least time of the bytes
+    that must cross HBM (``bound_ms``: edges, weights and u read once, a det
+    linspace row once, the samples written).
+    """
+    bins, weights, u, stratified = pdf_inputs(torch, n_rays, n_bins, n_samples, draws, gen)
+    k6 = lambda: SP.sample_pdf_op(bins, weights, u, stratified, SAMPLE_PDF_EPS)  # noqa: E731
+    plain = lambda: SP.sample_pdf_plain(bins, weights, u, stratified, SAMPLE_PDF_EPS)  # noqa: E731
+    got, want = k6(), plain()
+    deterministic = bool(torch.equal(got, k6()))
+    own = SP.k6_arithmetic(bins.cpu(), weights.cpu(), u.cpu(), stratified, SAMPLE_PDF_EPS)
+    own_bits = bool(torch.equal(got.cpu(), own))
+    gap = (got - want).abs()
+    beyond = gap > SAMPLE_PDF_ATOL + SAMPLE_PDF_RTOL * want.abs()
+    far = int(beyond.sum())
+    uncertified = int((beyond & ~near_light_bins(torch, SP, weights, u, stratified)).sum())
+    if not own_bits or not deterministic or uncertified or far > SAMPLE_PDF_MAX_FAR * got.numel():
+        raise SystemExit(f"sample_pdf at {n_rays} x {n_bins} x {n_samples}, {draws} u: its own arithmetic bit for "
+                         f"bit {own_bits}, the same bits twice {deterministic}; {far} samples beyond rtol "
+                         f"{SAMPLE_PDF_RTOL} / atol {SAMPLE_PDF_ATOL} of the plain version (largest gap "
+                         f"{float(gap.max())}), {uncertified} of them away from any bin of mass under "
+                         f"{SAMPLE_PDF_NEAR_EPS}")
+    io_bytes = 4 * (n_rays * (2 * n_bins + 1 + n_samples) + (n_samples if draws == "det" else n_rays * n_samples))
+    ms = graph_ms(torch, k6)
+    bound_ms = io_bytes / PEAK_BYTES_PER_S * 1e3
+    return dict(rays=n_rays, bins=n_bins, samples=n_samples, draws=draws, own_arithmetic_bit_equal=own_bits,
+                max_abs_err=float(gap.max()), beyond_tolerance=far, deterministic=deterministic, ms=ms, us=1e3 * ms,
+                plain_ms=time_ms(torch, plain), bound_ms=bound_ms, bound_by="bytes", share_of_bound=bound_ms / ms,
+                mbytes=io_bytes / 1e6)
+
+
+def check_sample_pdf_shapes(torch, SP, card_line) -> dict:
+    """K6 at every shape of SAMPLE_PDF_SHAPES; returns the numbers at the served proposal frame's first refinement
+    (2,045 rays x 62 bins x 64 samples)."""
+    gen = torch.Generator().manual_seed(3)
+    numbers = {}
+    for n_rays, n_bins, n_samples, draws in SAMPLE_PDF_SHAPES:
+        numbers[n_rays, n_samples] = check_sample_pdf(torch, SP, n_rays, n_bins, n_samples, draws, gen)
+        say(card_line, "kernel", name="sample_pdf", shape=f"{n_rays} rays x {n_bins} bins x {n_samples} samples, "
+            f"{draws} u", **numbers[n_rays, n_samples])
+    return numbers[2045, 64]
+
+
+def refinements(pipeline) -> int:
+    """K6's launches in one forward of ``pipeline``: one per refinement, between each pass and the next."""
+    return len(pipeline.implicit_functions) - 1
+
+
+def train_tally(pipeline, n_mlps: int) -> dict:
+    """The launches one replay of ``pipeline``'s captured train step makes: K1 and K3 once per NeRF-MLP on them,
+    K6 once per refinement."""
+    tally = {"nerf_mlp_fwd.launches": n_mlps, "nerf_mlp_bwd.launches": n_mlps} if n_mlps else {}
+    if refinements(pipeline):
+        tally["sample_pdf.launches"] = refinements(pipeline)
+    return tally
+
+
+def reset_k6() -> None:
+    """Start a path's count of K6's launches."""
+    from yanerf_tpu_torch.ops.kernels import sample_pdf as SP
+
+    SP.launches = 0
+
+
+def k6_launches() -> int:
+    """K6's launches since ``reset_k6`` (none on CPU tensors, as in the tests: the plain version runs)."""
+    from yanerf_tpu_torch.ops.kernels import sample_pdf as SP
+
+    return SP.launches
+
+
+def with_k6(launches: dict) -> dict:
+    """A path's ``launches`` of the NeRF-MLP kernels and K6's since ``reset_k6``, where it launched."""
+    return dict(launches, sample_pdf=k6_launches()) if k6_launches() else launches
+
+
+def nerf_mlp_launches(launches: dict) -> dict:
+    """The NeRF-MLP kernels' part of a path's ``launches``."""
+    return {k: launches.get(k, 0) for k in NO_LAUNCHES}
+
+
+def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame: int, k6_per_frame: int):
+    """The port's HTTP server answers at full width; returns the launches of its two frames.
+
+    K1 must launch ``k1_per_frame`` times a frame, K6 ``k6_per_frame``
+    (once per chunk and refinement) where the service runs on the card.
+    """
     import numpy as np
 
     from yanerf_tpu_torch.serve import create_server, orbit_pose
@@ -860,6 +1048,7 @@ def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame
     latencies = {}
     try:
         K1.launches = K1.pipelined_launches = K3.launches = 0
+        reset_k6()
         t = time.perf_counter()
         with urllib.request.urlopen(f"{url}/render?theta=30&phi=-30&radius=4", timeout=600) as resp:
             png, png_type = resp.read(), resp.headers["Content-Type"]
@@ -871,8 +1060,8 @@ def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame
         with urllib.request.urlopen(req, timeout=600) as resp:
             grid = json.loads(resp.read())
         latencies["POST /render json"] = time.perf_counter() - t
-        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                    "nerf_mlp_bwd": K3.launches}
+        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                            "nerf_mlp_bwd": K3.launches})
         t = time.perf_counter()
         with urllib.request.urlopen(f"{url}/health", timeout=60) as resp:
             health = json.loads(resp.read())
@@ -888,11 +1077,14 @@ def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame
         "json_shape": grid["shape"] == [h, w, 3] and arr.shape == (h, w, 3),
         "json_finite": bool(np.isfinite(arr).all()),
         "health": health["status"] == "ok" and health["renders"] >= FRAMES_PER_RUN,
-        "launches_per_frame": launches == {"nerf_mlp_fwd": k1_per_frame * FRAMES_PER_RUN,
-                                           "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0},
+        "launches_per_frame": nerf_mlp_launches(launches) == {"nerf_mlp_fwd": k1_per_frame * FRAMES_PER_RUN,
+                                                              "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0},
+        "k6_once_per_chunk_and_refinement": launches.get("sample_pdf", 0)
+        == (k6_per_frame * FRAMES_PER_RUN if service.device.type == "cuda" else 0),
     }
     say(card_line, "serve", config=config_name, warmup_s=warmup_s, latency_s=latencies, launches=launches,
-        k1_launches_per_frame=launches["nerf_mlp_fwd"] / FRAMES_PER_RUN, frame_hw=[h, w], checks=checks,
+        k1_launches_per_frame=launches["nerf_mlp_fwd"] / FRAMES_PER_RUN,
+        k6_launches_per_frame=launches.get("sample_pdf", 0) / FRAMES_PER_RUN, frame_hw=[h, w], checks=checks,
         server_mean_render_s=health["mean_render_s"])
     if not all(checks.values()):
         raise SystemExit(f"{config_name} serve phase failed: {checks}")
@@ -915,12 +1107,13 @@ def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool, v
         view = ((orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32), service.default_focal,
                 None, None)
     pose_world, focal, lo, hi = view
-    numbers, launches = {}, {}
+    numbers = {}
     K1.launches = K1.pipelined_launches = 0
+    reset_k6()
     t = time.perf_counter()
     rgb_kernel, depth_kernel = service.render(pose_world, focal, lo, hi)
     numbers["kernel_frame_s"] = time.perf_counter() - t
-    launches["nerf_mlp_fwd"] = K1.launches
+    launches = with_k6({"nerf_mlp_fwd": K1.launches})
     checks = {"finite": bool(np.isfinite(rgb_kernel).all())}
     if k1_per_frame is not None:
         checks["k1_once_per_chunk_and_nerf_mlp"] = launches["nerf_mlp_fwd"] == k1_per_frame > 0
@@ -950,15 +1143,18 @@ def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool, v
 
 
 class observe_run:
-    """Inside the block, record what ``yanerf_tpu_torch.run`` trains: the parameters it starts from and the
-    objective of every step, per step (``make_train_step``) and per fused dispatch (``FusedTrainStep``)."""
+    """Inside the block, record what ``yanerf_tpu_torch.run`` trains: the parameters it starts from, the
+    objective of every step, per step (``make_train_step``) and per fused dispatch (``FusedTrainStep``), and K6's
+    launches inside the steps (``k6_in_steps``; the eval frames around them not counted)."""
 
     def __init__(self, torch):
         import yanerf_tpu_torch.runners as runners
+        from yanerf_tpu_torch.ops.kernels import sample_pdf as SP
         from yanerf_tpu_torch.runners import apis
 
         self.torch = torch
         self.initial, self.objectives = {}, []
+        self.k6_in_steps = 0
         make_step, dispatch = runners.make_train_step, apis.FusedTrainStep.__call__
 
         def observed_step(pipeline, runner_config, seed, **kwargs):
@@ -966,7 +1162,9 @@ class observe_run:
             step = make_step(pipeline, runner_config, seed, **kwargs)
 
             def wrapped(state, batch, draws=None):
+                before = SP.launches
                 preds = step(state, batch, draws)
+                self.k6_in_steps += SP.launches - before
                 self.objectives.append(preds["objective"].flatten())
                 return preds
 
@@ -974,7 +1172,9 @@ class observe_run:
 
         def observed_dispatch(trainer, state, arrays, idx):
             self._start(trainer.pipeline)
+            before = SP.launches
             hist = dispatch(trainer, state, arrays, idx)
+            self.k6_in_steps += SP.launches - before
             self.objectives.append(hist["objective"].flatten())
             return hist
 
@@ -1009,6 +1209,7 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
 
     Every NeRFMLP of the config trains on K1 and K3 (once per step each); a
     config with none (the mip-NeRF and hash-grid families) launches neither.
+    Each step launches K6 once per refinement on the card.
     """
     import yanerf_tpu_torch.runners as runners
     from yanerf_tpu_torch import run
@@ -1025,12 +1226,13 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
         K1.launches = K1.pipelined_launches = K3.launches = 0
+        reset_k6()
         t = time.perf_counter()
         result = run.main(argv)
         sync(torch)
         run_s = time.perf_counter() - t
-        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                    "nerf_mlp_bwd": K3.launches}
+        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                            "nerf_mlp_bwd": K3.launches})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
     initial, objectives = seen.initial, seen.objectives
 
@@ -1061,6 +1263,8 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
         "k3_per_nerf_mlp_per_step": launches["nerf_mlp_bwd"] == n_mlps * n_steps and (n_mlps > 0) == bool(keys),
         "k1_per_nerf_mlp_per_step": launches["nerf_mlp_fwd"] == n_mlps * n_steps
         and launches["nerf_mlp_fwd_pipelined"] == 0 and (n_mlps > 0) == bool(keys),
+        "k6_per_refinement_per_step": seen.k6_in_steps
+        == (refinements(state.pipeline) * n_steps if DEVICE == "cuda" else 0),
         "objective_finite": bool(torch.isfinite(objective).all()),
         "params_moved": moved == len(initial),
         "checkpoint_reloads": same_params and same_adam and reloaded.step == n_steps,
@@ -1070,6 +1274,7 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
         config=Path(config).name, nerf_mlps_on_kernels=n_mlps, steps=n_steps, run_s=run_s, ms_per_step=ms_per_step,
         step_s_per_epoch=step_s,
         train_rays_per_s=n_rays / ms_per_step * 1e3, rays_per_step=n_rays, peak_memory_gb=peak_gb, launches=launches,
+        k6_in_steps=seen.k6_in_steps,
         objective_first=float(objective[0]), objective_last=float(objective[-1]),
         params_moved=f"{moved}/{len(initial)}", test_stats=result["test_stats"], checks=checks,
     )
@@ -1107,6 +1312,7 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
         K1.launches = K1.pipelined_launches = K3.launches = 0
+        reset_k6()
         t = time.perf_counter()
         with observe_run(torch) as seen:
             result = run.main(argv)
@@ -1115,8 +1321,9 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
         result["objective"], result["params_moved"] = seen.objective(), (seen.moved(result["state"].pipeline),
                                                                           len(seen.initial))
-        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                    "nerf_mlp_bwd": K3.launches}
+        result["k6_in_steps"] = seen.k6_in_steps
+        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                            "nerf_mlp_bwd": K3.launches})
         return result, launches, result["run_s"]
 
     def gap(a, b):
@@ -1140,7 +1347,7 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
     step_s = {"fused": [s.get("step_s") for s in fused["train_stats"]],
               "per_step": [s.get("step_s") for s in per_step["train_stats"]]}
     on_card = DEVICE == "cuda"
-    per_replay = {"nerf_mlp_fwd.launches": n_mlps, "nerf_mlp_bwd.launches": n_mlps} if n_mlps else {}
+    per_replay = train_tally(fused["state"].pipeline, n_mlps)
     checks = {
         # on the card a captured graph, on the CPU (the tests) the same step uncaptured
         "fused_path_ran": trainer is not None and (trainer.graph is not None) == on_card
@@ -1151,6 +1358,8 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         "k1_k3_per_step": fused_launches["nerf_mlp_fwd"] == fused_launches["nerf_mlp_bwd"]
         == n_mlps * steps == per_step_launches["nerf_mlp_fwd"] == per_step_launches["nerf_mlp_bwd"]
         and fused_launches["nerf_mlp_fwd_pipelined"] == 0 and (n_mlps > 0) == bool(keys),
+        "k6_per_refinement_per_step": fused["k6_in_steps"] == per_step["k6_in_steps"]
+        == (refinements(fused["state"].pipeline) * steps if on_card else 0),
         # bit for bit where the per-step loop itself is; otherwise no further than it is from itself
         "equal_to_per_step": fused_equal if per_step_equal else fused_gap <= per_step_gap,
         "objective_finite_every_step": fused["objective"].numel() == steps * batch_size  # one per image and step
@@ -1168,7 +1377,8 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         peak_memory_gb={"fused": fused["peak_memory_gb"], "per_step": per_step["peak_memory_gb"]},
         objective_first=float(fused["objective"][0]), objective_last=float(fused["objective"][-1]),
         params_moved="{}/{}".format(*fused["params_moved"]), launches=fused_launches,
-        per_step_launches=per_step_launches,
+        per_step_launches=per_step_launches, k6_in_steps={k: r["k6_in_steps"] for k, r in (("fused", fused),
+                                                                                            ("per_step", per_step))},
         per_step_runs_bit_equal=per_step_equal, per_step_max_param_diff=per_step_gap,
         fused_bit_equal_to_per_step=fused_equal, fused_max_param_diff=fused_gap,
         val_stats=fused["val_stats"], test_stats=fused["test_stats"], checks=checks,
@@ -1190,16 +1400,17 @@ def family_frame(torch, K1, K3, service, card_line: str, config_name: str, view=
         view = ((orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32), service.default_focal,
                 None, None)
     K1.launches = K1.pipelined_launches = K3.launches = 0
+    reset_k6()
     t = time.perf_counter()
     rgb, depth = service.render(*view)
     frame_s = time.perf_counter() - t
-    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                "nerf_mlp_bwd": K3.launches}
+    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                        "nerf_mlp_bwd": K3.launches})
     checks = {
         "finite": bool(np.isfinite(rgb).all() and np.isfinite(depth).all()),
         "rgb_in_0_1": bool(rgb.min() >= 0.0 and rgb.max() <= 1.0),
         "shape": rgb.shape == (*service.image_hw, 3),
-        "no_nerf_mlp_kernel": launches == NO_LAUNCHES,
+        "no_nerf_mlp_kernel": nerf_mlp_launches(launches) == NO_LAUNCHES,
     }
     say(card_line, "frame", config=config_name, frame_s=frame_s, launches=launches, mean_rgb=float(rgb.mean()),
         checks=checks)
@@ -1215,8 +1426,9 @@ def hash_kernel_path(torch, K1, K3, HE, card_line: str, scene: Path, out_dir: Pa
     once per step and HashGridNeRF; its test frames render with the plain
     path, as NeRFMLP's switch does. The frame (``use_pallas``, after one
     warm-up frame that captures the chunk graph) launches K4 once per chunk
-    and model and K5 never, and equals the plain chunk loop under the same
-    switch bit for bit. Neither launches K1 or K3. K4 / K5 are counted from 0
+    and model, K6 once per chunk and refinement and K5 never, and equals the
+    plain chunk loop under the same switch bit for bit. Neither launches K1
+    or K3. K4 / K5 are counted from 0
     for each, and the counts the hash kernels had before are put back, so
     that they go on counting launches outside this path. On the CPU (the
     tests) the switch takes the plain path and nothing launches. Returns the
@@ -1234,8 +1446,9 @@ def hash_kernel_path(torch, K1, K3, HE, card_line: str, scene: Path, out_dir: Pa
     outside = HE.launches, HE.bwd_launches
 
     def launches():
-        return {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                "nerf_mlp_bwd": K3.launches, "hash_encode_fwd": HE.launches, "hash_encode_bwd": HE.bwd_launches}
+        return with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                        "nerf_mlp_bwd": K3.launches, "hash_encode_fwd": HE.launches,
+                        "hash_encode_bwd": HE.bwd_launches})
 
     HE.launches = HE.bwd_launches = 0
     numbers, _ = train(torch, K1, K3, scene, out_dir, config, steps,
@@ -1247,10 +1460,11 @@ def hash_kernel_path(torch, K1, K3, HE, card_line: str, scene: Path, out_dir: Pa
     cfg.pipeline.model.use_pallas = True
     service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
     pipeline = service._pipeline
-    n_models = len(pipeline.implicit_functions)
+    n_models, n_refinements = len(pipeline.implicit_functions), refinements(pipeline)
     service.warmup()
     pose = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
     K1.launches = K1.pipelined_launches = K3.launches = HE.launches = HE.bwd_launches = 0
+    reset_k6()
     t = time.perf_counter()
     rgb, depth = service.render(pose, service.default_focal)
     frame_s = time.perf_counter() - t
@@ -1282,6 +1496,7 @@ def hash_kernel_path(torch, K1, K3, HE, card_line: str, scene: Path, out_dir: Pa
         == (n_models * steps if on_card else 0),
         "k4_per_chunk_and_model": frame_l["hash_encode_fwd"] == (n_models * chunks if on_card else 0)
         and frame_l["hash_encode_bwd"] == 0,
+        "k6_per_chunk_and_refinement": frame_l.get("sample_pdf", 0) == (n_refinements * chunks if on_card else 0),
         "no_nerf_mlp_kernel": all({k: v[k] for k in NO_LAUNCHES} == NO_LAUNCHES for v in paths.values()),
         "frame_equals_plain_loop": bool(np.array_equal(rgb, loop_rgb) and np.array_equal(depth, loop_depth)),
         "frame_finite": bool(np.isfinite(rgb).all() and np.isfinite(depth).all()),
@@ -1415,7 +1630,8 @@ def step_equivalence(torch, scene: Path, config=None, masks=None):
 
     ``masks`` (``mask_crop`` / ``sampling_prob_mask`` / ``n_rays_per_image``) join the batch, whose pixels
     are then drawn by the mask; the result then also holds ``drawn_xys``, the pixels the steps drew. Each
-    step's kernel launches are counted from 0 (``launches_kernels``, ``launches_eager``).
+    step's kernel launches are counted from 0 (``launches_kernels``, ``launches_eager``); on the card each
+    step launches K6 once per refinement.
     """
     from yanerf_tpu_torch.datasets import BlenderDataset
     from yanerf_tpu_torch.ops.kernels import launch_count
@@ -1447,9 +1663,11 @@ def step_equivalence(torch, scene: Path, config=None, masks=None):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         K1.launches = K1.pipelined_launches = K3.launches = 0
+        reset_k6()
         preds = make_train_step(pipe, cfg.runner, 0)(state, batch, draws)
         sync(torch)
-        launches = {k: n for k, n in launch_count.totals().items() if k in NO_LAUNCHES}  # the NeRF-MLP kernels'
+        # the NeRF-MLP kernels' and K6's
+        launches = with_k6({k: n for k, n in launch_count.totals().items() if k in NO_LAUNCHES})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
         grads = [[p.grad for p in pipe.implicit_functions[i].parameters()] for i in nerf_mlps]
         out[name] = (float(preds["objective"].mean()), grads, peak_gb, launches)
@@ -1460,6 +1678,8 @@ def step_equivalence(torch, scene: Path, config=None, masks=None):
     checks = {
         "objective": abs(obj_k - obj_e) <= STEP_OBJECTIVE_RTOL * abs(obj_e) and math.isfinite(obj_k),
         "nerf_mlp_grad_cosine": all(c >= STEP_MIN_GRAD_COSINE for c in grad_cos),
+        "k6_per_refinement": launches_k.get("sample_pdf", 0) == launches_e.get("sample_pdf", 0)
+        == (refinements(kernel_pipe) if DEVICE == "cuda" else 0),
     }
     result = dict(config=Path(config).name, objective_kernels=obj_k, objective_eager=obj_e,
                   objective_rtol=STEP_OBJECTIVE_RTOL, nerf_mlp_grad_cosine=grad_cos,
@@ -1833,12 +2053,13 @@ def run_tool(torch, K1, K3, module, argv, plain: bool = False):
 
     sync(torch)
     K1.launches = K1.pipelined_launches = K3.launches = 0
+    reset_k6()
     t = time.perf_counter()
     with mock.patch.object(K1, "nerf_mlp_fwd", K1.nerf_mlp_fwd_plain) if plain else contextlib.nullcontext():
         out = module.main(argv)
     sync(torch)
-    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                "nerf_mlp_bwd": K3.launches}
+    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                        "nerf_mlp_bwd": K3.launches})
     return out, launches, time.perf_counter() - t
 
 
@@ -1960,12 +2181,15 @@ def occupancy_phase(torch, K1, card_line: str, tmp: Path) -> dict:
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
         K1.launches = 0
+        reset_k6()
         t = time.perf_counter()
         rgb, _ = service.render(pose, service.default_focal)
         numbers[mode] = dict(frame_s=time.perf_counter() - t, k1_launches=K1.launches, mean_rgb=float(rgb.mean()),
                              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None)
-        launches[mode] = {"nerf_mlp_fwd": K1.launches}
+        launches[mode] = with_k6({"nerf_mlp_fwd": K1.launches})
         checks[f"{mode}_k1_per_chunk"] = K1.launches == frame_chunks(cfg) and bool(np.isfinite(rgb).all())
+        checks[f"{mode}_k6_per_chunk_and_refinement"] = launches[mode].get("sample_pdf", 0) == (
+            refinements(service._pipeline) * frame_chunks(cfg) if DEVICE == "cuda" else 0)
         if mode == "no_grid":
             continue
         sampler = service._pipeline.ray_sampler
@@ -2006,6 +2230,7 @@ import numpy as np
 import torch
 from yanerf_tpu_torch.export import load_artifact
 from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
+from yanerf_tpu_torch.ops.kernels import sample_pdf as K6
 
 artifact, poses, focals, out, device = sys.argv[1:6]
 t = time.perf_counter()
@@ -2016,13 +2241,14 @@ with torch.inference_mode():
     t = time.perf_counter()
     render(poses, focals).cpu()
     first_s = time.perf_counter() - t
-    K1.launches = K1.pipelined_launches = 0
+    K1.launches = K1.pipelined_launches = K6.launches = 0
     t = time.perf_counter()
     frame = render(poses, focals).cpu()
     frame_s = time.perf_counter() - t
 np.save(out, frame.numpy())
 print(json.dumps({"load_s": load_s, "first_frame_s": first_s, "frame_s": frame_s,
-                  "launches": {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches}}))
+                  "launches": {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                               **({"sample_pdf": K6.launches} if K6.launches else {})}}))
 """
 
 
@@ -2071,18 +2297,22 @@ def pth_serve_phase(torch, K1, K3, service, card_line: str, tmp: Path, config=No
     rgb, depth = service.render(pose, focal)
     sync(torch)
     K1.launches = K1.pipelined_launches = K3.launches = 0
+    reset_k6()
     t = time.perf_counter()
     rgb_pth, depth_pth = from_pth.render(pose, focal)
     frame_s = time.perf_counter() - t
-    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                "nerf_mlp_bwd": K3.launches}
+    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                        "nerf_mlp_bwd": K3.launches})
     direct = dict(service._pipeline.named_parameters())
     n_mlps = sum(int(type(fn).__name__ == "NeRFMLP" and fn.use_pallas) for fn in from_pth._pipeline.implicit_functions)
     checks = {
         "weights_from_the_file": all(torch.equal(p, direct[k]) for k, p in from_pth._pipeline.named_parameters()),
         "frame_bit_equal": bool(np.array_equal(rgb_pth, rgb) and np.array_equal(depth_pth, depth)),
-        "k1_once_per_chunk_and_nerf_mlp": launches == {"nerf_mlp_fwd": n_mlps * frame_chunks(cfg),
-                                                       "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0},
+        "k1_once_per_chunk_and_nerf_mlp": nerf_mlp_launches(launches) == {"nerf_mlp_fwd": n_mlps * frame_chunks(cfg),
+                                                                          "nerf_mlp_fwd_pipelined": 0,
+                                                                          "nerf_mlp_bwd": 0},
+        "k6_once_per_chunk_and_refinement": launches.get("sample_pdf", 0)
+        == (refinements(from_pth._pipeline) * frame_chunks(cfg) if DEVICE == "cuda" else 0),
     }
     say(card_line, "pth serve", config=Path(config).name, tensors=n_tensors, pth_mb=pth.stat().st_size / 1e6,
         write_s=write_s, load_s=load_s, frame_s=frame_s, launches=launches, frame_hw=list(rgb.shape[:2]),
@@ -2117,14 +2347,16 @@ def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None
     chunks, small_chunks = frame_chunks(cfg), frame_chunks(kernel_config(config, small_options))
     service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
     n_kernel_mlps = sum(int(getattr(fn, "use_pallas", False)) for fn in service._pipeline.implicit_functions)
+    n_refinements = refinements(service._pipeline)
     pose, focal = orbit_view(service)
     service.render(pose, focal)  # warm-up
     sync(torch)
     K1.launches = K1.pipelined_launches = 0
+    reset_k6()
     t = time.perf_counter()
     rgb, _ = service.render(pose, focal)
     serve_s = time.perf_counter() - t
-    serve_launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches}
+    serve_launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches})
     del service
 
     poses = torch.eye(4, dtype=torch.float32)[None].clone()
@@ -2152,10 +2384,11 @@ def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None
         render(*inputs)
         sync(torch)
         K1.launches = 0
+        reset_k6()
         t = time.perf_counter()
         direct = render(*inputs)[0].cpu().numpy()
         direct_s = time.perf_counter() - t
-        direct_launches = K1.launches
+        direct_launches, direct_k6 = K1.launches, k6_launches()
     del program, render
     np.save(tmp / "poses.npy", poses.numpy())
     np.save(tmp / "focals.npy", focals.numpy())
@@ -2180,12 +2413,14 @@ def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None
         "k1_once_per_chunk": serve_launches["nerf_mlp_fwd"] == n_kernel_mlps * chunks
         and direct_launches == restored_launches["nerf_mlp_fwd"] == (n_kernel_mlps * chunks if on_card else 0)
         and serve_launches["nerf_mlp_fwd_pipelined"] == restored_launches["nerf_mlp_fwd_pipelined"] == 0,
+        "k6_once_per_chunk_and_refinement": serve_launches.get("sample_pdf", 0) == direct_k6
+        == restored_launches.get("sample_pdf", 0) == (n_refinements * chunks if on_card else 0),
     }
     if on_card:  # the exported renderer as a deliverable: written in seconds, a few MB
         checks["export_under_60_s"] = export_s < EXPORT_MAX_S
         checks["artifact_under_20_mb"] = numbers["mb"] < EXPORT_MAX_MB
     say(card_line, "export", config=Path(config).name, options=options, frame_hw=list(rgb.shape[:2]),
-        serve_frame_s=serve_s, direct_frame_s=direct_s, direct_launches=direct_launches,
+        serve_frame_s=serve_s, direct_frame_s=direct_s, direct_launches=direct_launches, direct_k6_launches=direct_k6,
         serve_launches=serve_launches, restored_launches=restored_launches, restored_max_abs_err=err,
         restored_bit_equal=bool(np.array_equal(restored, rgb)), fresh_process_s=process_s, **restored_numbers,
         **numbers, small=small_numbers, checks=checks)
@@ -2210,12 +2445,13 @@ def debug_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, confi
             *extra_options]
     sync(torch)
     K1.launches = K1.pipelined_launches = K3.launches = 0
+    reset_k6()
     t = time.perf_counter()
     result = run.main(argv)
     sync(torch)
     run_s = time.perf_counter() - t
-    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                "nerf_mlp_bwd": K3.launches}
+    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                        "nerf_mlp_bwd": K3.launches})
     out = result["output_dir"]
     steps = result["state"].step
     n_mlps = kernel_mlps(result["state"].pipeline)
@@ -2257,13 +2493,14 @@ def lego_tpu_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, co
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     K1.launches = K1.pipelined_launches = K3.launches = 0
+    reset_k6()
     t = time.perf_counter()
     with observe_run(torch) as seen:
         result = run.main(argv)
     sync(torch)
     run_s = time.perf_counter() - t
-    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                "nerf_mlp_bwd": K3.launches}
+    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                        "nerf_mlp_bwd": K3.launches})
     state, trainer = result["state"], result["train_step_fused"]
     sampler = state.pipeline.ray_sampler.sampler(EvaluationMode.TRAINING)
     n_mlps = kernel_mlps(state.pipeline)
@@ -2274,10 +2511,10 @@ def lego_tpu_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, co
     checks = {
         "approx_top_k": bool(sampler.approx_top_k) and not sampler.pixel_replacement,
         "fused_path_ran": trainer is not None and trainer.dispatches > 0 and (trainer.graph is not None) == on_card,
-        "launches_per_replay": tally == ({"nerf_mlp_fwd.launches": n_mlps, "nerf_mlp_bwd.launches": n_mlps}
-                                         if on_card else {}),
+        "launches_per_replay": tally == (train_tally(state.pipeline, n_mlps) if on_card else {}),
         "k1_k3_per_step": launches["nerf_mlp_fwd"] == launches["nerf_mlp_bwd"] == n_mlps * state.step > 0
         and launches["nerf_mlp_fwd_pipelined"] == 0 and state.step == steps,
+        "k6_per_refinement_per_step": seen.k6_in_steps == (refinements(state.pipeline) * state.step if on_card else 0),
         "objective_finite": objective.numel() == state.step and bool(torch.isfinite(objective).all()),
         "params_moved": seen.moved(state.pipeline) == len(seen.initial),
         "test_metrics_finite": all(math.isfinite(v) for v in result["test_stats"].values()),
@@ -2339,11 +2576,12 @@ def async_save_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, 
                 *(f"datasets.{i}.base_dir={scene}" for i in range(3)), *extra_options]
         sync(torch)
         K1.launches = K1.pipelined_launches = K3.launches = 0
+        reset_k6()
         with mock.patch.object(runners, "save_checkpoint", saving), mock.patch.object(runners, "train_one_epoch",
                                                                                       epoch_fn):
             result = run.main(argv)
-        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                    "nerf_mlp_bwd": K3.launches}
+        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                            "nerf_mlp_bwd": K3.launches})
         periodic = [r for r in records if r["periodic"]]
         final = records[-1]
         loop_s = final["t0"] - started[0] - sum(r["side_s"] for r in records)
@@ -2542,7 +2780,7 @@ def mask_phase(torch, card_line: str, scene: Path, config=None, n_rays: int = TR
         step["checks"].update({
             "drawn_pixels_weighted": bool((drawn > 0).all()) and flat.numel() == n_rays,
             "k1_k3_once": launches["nerf_mlp_fwd"] == launches["nerf_mlp_bwd"] == step["nerf_mlps"] > 0,
-            "eager_launches_none": step["launches_eager"] == NO_LAUNCHES,
+            "eager_launches_none": nerf_mlp_launches(step["launches_eager"]) == NO_LAUNCHES,
         })
         say(card_line, "masks", kind=kind, rays=int(flat.numel()), layers=layers, **step)
         if not all(step["checks"].values()):
@@ -2562,15 +2800,19 @@ def parity_smoke_phase(card_line: str, tmp: Path, smoke_args=()) -> dict:
     seconds = time.perf_counter() - t
     record = json.loads(out.read_text()) if out.exists() else {}
     stages = record.get("stages", {})
-    launches, hash_launches = dict(NO_LAUNCHES), 0
+    launches, k6, hash_launches = dict(NO_LAUNCHES), 0, 0
     for log in work.rglob("run.log"):
         lines = [ln for ln in log.read_text().splitlines() if "kernel launches: " in ln]
         if lines:
             for k, v in json.loads(lines[-1].split("kernel launches: ", 1)[1]).items():
                 if k in launches:
                     launches[k] += v
-                else:  # K4 / K5: the smoke's configs leave the hash grid's switch off
+                elif k == "sample_pdf":
+                    k6 += v
+                elif k.startswith("hash_encode"):  # K4 / K5: the smoke's configs leave the hash grid's switch off
                     hash_launches += v
+    if k6:
+        launches["sample_pdf"] = k6
     checks = {"exit_0": proc.returncode == 0, "ok": record.get("ok") is True, "no_hash_kernel": hash_launches == 0,
               "stages_ok": bool(stages) and all(stage.get("ok") for stage in stages.values()),
               "time_to_quality_reached": bool(stages.get("time_to_quality", {}).get("reached"))}
@@ -2597,11 +2839,12 @@ def trajectory_phase(torch, K1, K3, card_line: str, scene: Path, steps: int = TR
 
     cfg = trajectory.flagship_config(CONFIG if config is None else config)
     K1.launches = K1.pipelined_launches = K3.launches = 0
+    reset_k6()
     t = time.perf_counter()
     record = trajectory.trajectory(cfg, scene, steps, DEVICE, checkpoints=(10, 100, steps))
     seconds = time.perf_counter() - t
-    launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                "nerf_mlp_bwd": K3.launches}
+    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                        "nerf_mlp_bwd": K3.launches})
     per_kernel = 2 * (steps + 1) if DEVICE == "cuda" else 0  # two arms each, a launch per step and the step 0 gradient
     keys = ("grad_cosine", "grad_rel_err", "sign_agreement", "grad_rel_err_f32",
             *(f"rel_update_{c}" for c in record["checkpoints"]))
@@ -2648,12 +2891,13 @@ def distributed_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path,
                 *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(config)), f"runner.num_iters={steps}",
                 f"runner.steps_per_call={FUSED_STEPS_PER_CALL}", *(f"datasets.{i}.base_dir={scene}" for i in range(3))]
         K1.launches = K1.pipelined_launches = K3.launches = 0
+        reset_k6()
         t = time.perf_counter()
         result = run.main(argv)
         sync(torch)
         result["run_s"] = time.perf_counter() - t
-        result["launches"] = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                              "nerf_mlp_bwd": K3.launches}
+        result["launches"] = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                                      "nerf_mlp_bwd": K3.launches})
         return result
 
     warm = cli("warm_up")  # the process's first run of this config pays its one-off costs
@@ -2789,12 +3033,13 @@ def trace_regions_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Pat
                 f"runner.profile_start_iter={profile[0]}", f"runner.profile_num_iters={profile[1]}",
                 *(f"datasets.{i}.base_dir={data}" for i in range(3)), "datasets.2.test_skip=1", *extra]
         K1.launches = K1.pipelined_launches = K3.launches = 0
+        reset_k6()
         t = time.perf_counter()
         result = run.main(argv)
         sync(torch)
         seconds = time.perf_counter() - t
-        launches = {"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                    "nerf_mlp_bwd": K3.launches}
+        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                            "nerf_mlp_bwd": K3.launches})
         events = json.loads((out_dir / name / "trace" / "train_trace.json").read_text())["traceEvents"]
         return result, launches, timed_lines((result["output_dir"] / "run.log").read_text()), events, seconds
 
@@ -2895,6 +3140,7 @@ def main() -> int:
     from yanerf_tpu_torch.ops.kernels import hash_encode as HE
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
+    from yanerf_tpu_torch.ops.kernels import sample_pdf as SP
     from yanerf_tpu_torch.serve import service_from_config
     from yanerf_tpu_torch.synth_scene import write_scene
     from yanerf_tpu_torch.utils import Config
@@ -2908,7 +3154,7 @@ def main() -> int:
     from yanerf_tpu_torch import native
 
     libraries = {"nerf_mlp_fwd": K1.LIBRARY, "nerf_mlp_fwd_pipelined": K1.PIPELINED_LIBRARY,
-                 "nerf_mlp_bwd": K3.LIBRARY, "hash_encode": HE.LIBRARY}
+                 "nerf_mlp_bwd": K3.LIBRARY, "hash_encode": HE.LIBRARY, "sample_pdf": SP.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         host_build = pool.submit(native.LIBRARY.load)
@@ -2949,16 +3195,22 @@ def main() -> int:
         "[-1.5, 1.5]^3 along (0, 0, 1)", **check_k1(torch, K1, nerf_mlp, packed, LATTICE_CHUNK, 1, gen, "lattice_mesh"))
     hash_fwd, hash_bwd = check_hash_shapes(torch, HE, card_line)
     HE.launches = HE.bwd_launches = 0  # from here on, launches of K4 / K5 outside hash_kernel_path fail the run
+    pdf = check_sample_pdf_shapes(torch, SP, card_line)
     torch.cuda.empty_cache()
 
-    # 3. serve and 4. frame, proposal then classic
-    serve_launches = {"proposal": serve(torch, K1, K3, service, card_line, CONFIG.name, CHUNKS_PER_FRAME)}
+    # 3. serve and 4. frame, proposal then classic; K6 once per chunk and refinement (two proposal refinements,
+    # one classic fine pass)
+    serve_launches = {"proposal": serve(torch, K1, K3, service, card_line, CONFIG.name, CHUNKS_PER_FRAME,
+                                        2 * CHUNKS_PER_FRAME)}
     frame(torch, K1, service, card_line, CONFIG.name, with_k2=False)
     del service, nerf_mlps, nerf_mlp
     service, nerf_mlps = build_service(CLASSIC_CONFIG)
     serve_launches["classic"] = serve(torch, K1, K3, service, card_line, CLASSIC_CONFIG.name,
-                                      len(nerf_mlps) * CHUNKS_PER_FRAME)
+                                      len(nerf_mlps) * CHUNKS_PER_FRAME, (len(nerf_mlps) - 1) * CHUNKS_PER_FRAME)
     classic_frame_launches = frame(torch, K1, service, card_line, CLASSIC_CONFIG.name, with_k2=True)
+    if classic_frame_launches.get("sample_pdf", 0) != (len(nerf_mlps) - 1) * CHUNKS_PER_FRAME:
+        raise SystemExit(f"the classic frame launched K6 {classic_frame_launches.get('sample_pdf', 0)} times, not "
+                         f"once per chunk and refinement")
     # the classic frame from a reference-layout .pth; the flagship's frame as an exported program
     with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
         checkpoint_paths = {"pth_serve": pth_serve_phase(torch, K1, K3, service, card_line, Path(tmp))}
@@ -2972,7 +3224,8 @@ def main() -> int:
     for name, config in (("ngp", NGP_CONFIG), ("mip", MIP_CONFIG)):
         service = service_from_config(Config.fromfile(str(config)), checkpoint=None, device="cuda", seed=0)
         if name == "ngp":
-            new_paths["ngp_serve"] = serve(torch, K1, K3, service, card_line, config.name, 0)
+            new_paths["ngp_serve"] = serve(torch, K1, K3, service, card_line, config.name, 0,
+                                           refinements(service._pipeline) * frame_chunks(Config.fromfile(str(config))))
         new_paths[f"{name}_frame"] = family_frame(torch, K1, K3, service, card_line, config.name)
         del service
         torch.cuda.empty_cache()
@@ -3091,12 +3344,12 @@ def main() -> int:
         }
 
     def by_path(kernel):
-        paths = {f"{name}_serve": launches[kernel] for name, launches in serve_launches.items()}
+        paths = {f"{name}_serve": launches.get(kernel, 0) for name, launches in serve_launches.items()}
         paths["classic_frame"] = classic_frame_launches.get(kernel, 0)
-        paths.update({f"{name}_train": launches[kernel] for name, launches in train_launches.items()
+        paths.update({f"{name}_train": launches.get(kernel, 0) for name, launches in train_launches.items()
                       if name != "proposal_fused"})
-        paths["proposal_train_fused"] = train_launches["proposal_fused"][kernel]
-        paths.update({name: launches[kernel] for name, launches in new_paths.items()})
+        paths["proposal_train_fused"] = train_launches["proposal_fused"].get(kernel, 0)
+        paths.update({name: launches.get(kernel, 0) for name, launches in new_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in llff_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in config_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in slice_paths.items()})
@@ -3112,6 +3365,9 @@ def main() -> int:
         paths["switch_off_paths"] = HE.launches if kernel == "hash_encode_fwd" else HE.bwd_launches
         return paths
 
+    # K6 on every path, the hash kernels' too
+    k6_paths = dict(by_path("sample_pdf"), **{name: launches.get("sample_pdf", 0) for name, launches in
+                                              hash_paths.items()})
     record = {
         "kernels": [
             dict(entry("nerf_mlp_fwd", "yanerf_tpu_torch/csrc/nerf_mlp_fwd.cu",
@@ -3126,12 +3382,14 @@ def main() -> int:
                   hash_fwd, hash_by_path("hash_encode_fwd")),
             entry("hash_encode_bwd", "yanerf_tpu_torch/csrc/hash_encode.cu", "yanerf_tpu/models/hash_grid.py:123",
                   hash_bwd, hash_by_path("hash_encode_bwd")),
+            entry("sample_pdf", "yanerf_tpu_torch/csrc/sample_pdf.cu", "yanerf_tpu/ops/sample_pdf.py:33", pdf,
+                  k6_paths),
         ]
     }
     missing = [k["name"] for k in record["kernels"] if k["launches"] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on their paths: {missing}")
-    refused = {name: launches for name, launches in new_paths.items() if launches != NO_LAUNCHES}
+    refused = {name: launches for name, launches in new_paths.items() if nerf_mlp_launches(launches) != NO_LAUNCHES}
     if refused:
         raise SystemExit(f"a NeRF-MLP kernel ran on a path whose models refuse it: {refused}")
     if HE.launches or HE.bwd_launches:
@@ -3147,7 +3405,8 @@ def main() -> int:
         raise SystemExit(f"a NeRF-MLP kernel did not run on an LLFF path: {idle}")
     # the shipped configs: as on the LLFF paths, but the hash grid's, which launch neither
     idle = {name: launches for name, launches in config_paths.items()
-            if (launches != NO_LAUNCHES if name.startswith("synth800_ngp_") else kernels_missing(name, launches))}
+            if (nerf_mlp_launches(launches) != NO_LAUNCHES if name.startswith("synth800_ngp_")
+                else kernels_missing(name, launches))}
     if idle:
         raise SystemExit(f"a NeRF-MLP kernel did not run on a path of the shipped configs, or ran on the hash "
                          f"grid's: {idle}")
@@ -3157,7 +3416,7 @@ def main() -> int:
                 "occupancy_frame": ("nerf_mlp_fwd",), "occupancy_frame_exact": ("nerf_mlp_fwd",)}
     idle = {name: slice_paths[name] for name, kernels in expected.items()
             if any(slice_paths[name].get(k, 0) == 0 for k in kernels)}
-    if idle or slice_paths["multiscene_latent_train_fused"] != NO_LAUNCHES:
+    if idle or nerf_mlp_launches(slice_paths["multiscene_latent_train_fused"]) != NO_LAUNCHES:
         raise SystemExit(f"a NeRF-MLP kernel did not run on a path of multi-scene training, the tools or the "
                          f"occupancy frame, or ran on the latent path: {idle}, "
                          f"{slice_paths['multiscene_latent_train_fused']}")

@@ -437,7 +437,7 @@ def test_chip_smoke_classic_phases_run_on_the_cpu(tmp_path, monkeypatch):
                                           "serve": {"default_focal": 10.0}}), device="cpu")
     assert [fn.use_pallas for fn in service._pipeline.implicit_functions] == [True, True]
     chunks = 8  # 64 rays x 5 coarse points at chunk_size_grid 40
-    launches = chip_smoke.serve(torch, K1, K3, service, "cpu", "classic", 2 * chunks)
+    launches = chip_smoke.serve(torch, K1, K3, service, "cpu", "classic", 2 * chunks, chunks)
     assert launches["nerf_mlp_fwd"] == 2 * 2 * chunks and launches["nerf_mlp_bwd"] == 0
     assert chip_smoke.frame(torch, K1, service, "cpu", "classic", with_k2=True) == {
         "nerf_mlp_fwd": 2 * chunks, "nerf_mlp_fwd_pipelined": 2 * chunks}

@@ -11,16 +11,17 @@ times from the same start: eagerly (``make_train_step``), and as one
 dispatch of the fused trainer (``make_train_step_fused``: the first step
 eager on the capture's stream, then the captured graph replayed). The
 replayed steps must equal the eager ones bit for bit, K1 and K3 must be
-counted once per replay, and the packed weights must keep their address.
+counted once per replay (K6 twice: one per proposal), and the packed
+weights must keep their address.
 
 A served frame of a small proposal and a small multipass pipeline (the
 NeRF-MLPs on K1) runs its chunk body from one captured graph, replayed
 per chunk (``pipelines/chunk_graph.py``): the frame must equal the plain
 per-chunk loop's within 1e-6 (bit for bit expected), K1 must be counted
-once per replay and NeRF-MLP, the service's counters must read one
-capture and ``n_chunks`` replays a frame after the warm-up, and after a
-train step has changed the weights in place the next frame must follow
-the new weights.
+once per replay and NeRF-MLP (K6 once per refinement), the service's
+counters must read one capture and ``n_chunks`` replays a frame after the
+warm-up, and after a train step has changed the weights in place the next
+frame must follow the new weights.
 """
 
 from collections import namedtuple
@@ -95,7 +96,8 @@ def test_replayed_train_steps_equal_eager_steps(cuda_device):
     hist = trainer(fused, arrays, rows)
     torch.cuda.synchronize()
     assert trainer.graph is not None and trainer.capture_s is not None
-    assert launch_count.per_replay(trainer.tally) == {"nerf_mlp_fwd.launches": 1, "nerf_mlp_bwd.launches": 1}
+    assert launch_count.per_replay(trainer.tally) == {"nerf_mlp_fwd.launches": 1, "nerf_mlp_bwd.launches": 1,
+                                                      "sample_pdf.launches": 2}  # K6: one per proposal
     assert K1.launches == K3.launches == len(rows), "one eager step, then one launch of each per replay"
     assert fused.step == eager.step == len(rows)
     assert torch.equal(hist["objective"][:, 0], torch.cat(eager_objectives))
@@ -120,6 +122,7 @@ def _frame_cfg(kind):
 
 
 FRAME_KINDS = {"proposal": 1, "multipass": 2}  # NeRF-MLPs a chunk
+REFINEMENTS = {"proposal": 2, "multipass": 1}  # K6's launches a chunk
 N_CHUNKS = HW * HW * PIPELINE["ray_sampler"]["n_pts_per_ray_evaluation"] // PIPELINE["chunk_size_grid"]
 POSE = (orbit_pose(70.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
 
@@ -161,7 +164,8 @@ def test_replayed_frame_equals_the_eager_loop(cuda_device, kind):
     stats = service.stats()["chunk_loop"]
     assert (stats["keys"], stats["captures"], stats["eager_chunks"], stats["replayed_chunks"]) == (1, 1, 1,
                                                                                                    N_CHUNKS - 1)
-    assert launch_count.per_replay(pipeline._chunk_graph.tally) == {"nerf_mlp_fwd.launches": FRAME_KINDS[kind]}
+    assert launch_count.per_replay(pipeline._chunk_graph.tally) == {"nerf_mlp_fwd.launches": FRAME_KINDS[kind],
+                                                                    "sample_pdf.launches": REFINEMENTS[kind]}
     K1.launches = 0
     rgb, depth = service.render(POSE, 40.0)
     torch.cuda.synchronize()

@@ -452,11 +452,12 @@ def test_chip_smoke_new_family_phases_run_on_the_cpu(tmp_path, monkeypatch):
         monkeypatch.setattr(module, name, counting)
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     for family in ("mip", "ngp"):
-        service = service_from_config(Config({"pipeline": FAMILIES[family](hw=8),
-                                              "serve": {"default_focal": 10.0}}), device="cpu")
+        cfg = Config({"pipeline": FAMILIES[family](hw=8), "serve": {"default_focal": 10.0}})
+        service = service_from_config(cfg, device="cpu")
         assert chip_smoke.family_frame(torch, K1, K3, service, "cpu", family) == chip_smoke.NO_LAUNCHES
         if family == "ngp":
-            assert chip_smoke.serve(torch, K1, K3, service, "cpu", family, 0) == chip_smoke.NO_LAUNCHES
+            k6_per_frame = chip_smoke.refinements(service._pipeline) * chip_smoke.frame_chunks(cfg)
+            assert chip_smoke.serve(torch, K1, K3, service, "cpu", family, 0, k6_per_frame) == chip_smoke.NO_LAUNCHES
 
     ngp_path, mip_path = _write_drive(tmp_path / "ngp", "ngp"), _write_drive(tmp_path / "mip", "mip")
     data = tmp_path / "ngp" / "data"

@@ -13,11 +13,12 @@ Counterpart of ``scripts/export.py``: the EVALUATION render of the config's
 full grid, weights baked in, traced by ``torch.export.export`` and written
 by ``torch.export.save`` as one ``.pt2`` file. The consumer does not need
 the config system, the registries or the checkpoint layout. The JAX
-artifact embeds its Mosaic kernel; this one names the operator
-``yanerf_tpu_torch::nerf_mlp_fwd`` (``ops/kernels/nerf_mlp_fwd.py``), and
-:func:`load_artifact` brings it: importing that module registers the
-operator, whose CUDA kernel (K1) is built from ``csrc/`` at its first
-launch.
+artifact embeds its Mosaic kernel; this one names the operators
+``yanerf_tpu_torch::nerf_mlp_fwd`` (``ops/kernels/nerf_mlp_fwd.py``) and
+``yanerf_tpu_torch::sample_pdf`` (``ops/kernels/sample_pdf.py``), and
+:func:`load_artifact` brings them: importing those modules registers the
+operators, whose CUDA kernels (K1, K6) are built from ``csrc/`` at their
+first launch.
 
 The chunk loop stays a loop, as ``lax.map`` does in the JAX artifact: the
 pipeline maps its chunk body over the stacked chunk axis
@@ -142,7 +143,7 @@ def load_artifact(path: Union[str, Path]) -> nn.Module:
     Needs torch and the port's ``ops.kernels`` modules, nothing of the
     config system.
     """
-    from .ops.kernels import nerf_mlp_fwd  # noqa: F401  (registers yanerf_tpu_torch::nerf_mlp_fwd)
+    from .ops.kernels import nerf_mlp_fwd, sample_pdf  # noqa: F401  (register the program's two operators)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.export.load(str(path)).module()

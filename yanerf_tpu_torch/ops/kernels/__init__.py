@@ -7,6 +7,7 @@
 | ``nerf_mlp_bwd`` (K3) | ``yanerf_tpu/ops/pallas/nerf_mlp_bwd.py::_nerf_mlp_bwd_kernel`` | ``csrc/nerf_mlp_bwd.cu`` |
 | ``hash_encode_fwd`` (K4) | none: XLA gathers of ``yanerf_tpu/models/hash_grid.py`` | ``csrc/hash_encode.cu`` |
 | ``hash_encode_bwd`` (K5) | none: its scatter-adds (the tables' gradient) | ``csrc/hash_encode.cu`` |
+| ``sample_pdf`` (K6) | none: XLA's mask of ``yanerf_tpu/ops/sample_pdf.py`` | ``csrc/sample_pdf.cu`` |
 
 K1, K2 and K3's recomputed forward run one tile engine,
 ``csrc/nerf_mlp_tile.cuh`` (on ``hopper.cuh``); K1 and K2 give the same
@@ -21,5 +22,7 @@ a traced program (``export.py``) records them by name; K3 is called by
 ``FusedNerfMlp.backward`` directly. K4 and K5 are the operators
 ``yanerf_tpu_torch::hash_encode_fwd`` / ``hash_encode_bwd``, joined by
 ``hash_encode.HashEncode``, the path of ``HashGridNeRF`` under
-``use_pallas`` on the card.
+``use_pallas`` on the card. K6 is the operator
+``yanerf_tpu_torch::sample_pdf``, which ``ops/sample_pdf.py`` calls on
+every device: the plain version on the CPU, K6 on the card.
 """

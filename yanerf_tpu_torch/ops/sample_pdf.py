@@ -1,9 +1,13 @@
 """Hierarchical importance sampling: inverse-CDF ``sample_pdf``.
 
-Counterpart of ``yanerf_tpu/ops/sample_pdf.py``, with the same gather-free
-formulation: each u is matched to its bin by a disjoint interval mask over
-the ``(n_samples x n_bins)`` tile, the last bin is half-open, and u at or
-above the CDF top is pinned to the top edge.
+Counterpart of ``yanerf_tpu/ops/sample_pdf.py``. The draws are made here as
+there (the linspace of ``det``, the generator's or the fed ``u``); the
+sampling itself is the operator ``yanerf_tpu_torch::sample_pdf``
+(``ops/kernels/sample_pdf.py``): on CPU tensors the JAX package's
+gather-free formulation (each u matched to its bin by a disjoint interval
+mask over the ``(n_samples x n_bins)`` tile, the last bin half-open, u at or
+above the CDF top pinned to the top edge), on CUDA tensors the kernel K6,
+which computes the same function a ray at a time.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from .kernels.sample_pdf import sample_pdf_op
 from .rays import linspace01
 
 
@@ -41,43 +46,15 @@ def sample_pdf(
             stratification is applied to them as to drawn ones.
 
     Returns:
-        ``(..., n_samples)`` samples.
+        ``(..., n_samples)`` samples, detached.
     """
     dtype = bins.dtype
-    weights = torch.clamp(weights, min=0.0) + eps
-    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
-
+    lead = weights.shape[:-1]
     if det:
-        u = linspace01(n_samples, dtype=dtype, device=bins.device).expand(*cdf.shape[:-1], n_samples)
-    else:
-        if u is None:
-            if generator is None:
-                raise ValueError("random sample_pdf requires a generator or fed-in pdf_u")
-            u = torch.rand(
-                (*cdf.shape[:-1], n_samples), generator=generator, dtype=dtype, device=bins.device
-            )
-        if stratified:
-            u = (torch.arange(n_samples, dtype=dtype, device=bins.device) + u) / n_samples
-
-    cdf_lo = cdf[..., :-1]
-    cdf_hi = cdf[..., 1:]
-    bins_lo = bins[..., :-1]
-    bins_hi = bins[..., 1:]
-
-    n_bins = cdf_lo.shape[-1]
-    is_last = torch.arange(n_bins, device=bins.device) == n_bins - 1
-
-    u_e = u[..., :, None]
-    lo = cdf_lo[..., None, :]
-    hi = cdf_hi[..., None, :]
-    in_bin = (lo <= u_e) & ((u_e < hi) | is_last)
-
-    denom = cdf_hi - cdf_lo
-    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
-    t = (u_e - lo) / denom[..., None, :]
-    val = bins_lo[..., None, :] + t * (bins_hi - bins_lo)[..., None, :]
-    top = torch.clamp(hi, max=1.0)
-    val = torch.where(is_last & (u_e >= top), bins_hi[..., None, :], val)
-    return torch.sum(torch.where(in_bin, val, torch.zeros_like(val)), dim=-1)
+        u = linspace01(n_samples, dtype=dtype, device=bins.device).expand(*lead, n_samples)
+    elif u is None:
+        if generator is None:
+            raise ValueError("random sample_pdf requires a generator or fed-in pdf_u")
+        u = torch.rand((*lead, n_samples), generator=generator, dtype=dtype, device=bins.device)
+    # no gradient flows through the samples (their one caller detaches them)
+    return sample_pdf_op(bins.detach(), weights.detach(), u.detach(), stratified and not det, eps)
