@@ -10,7 +10,8 @@ and sorted), and the two families with no NeRF-MLP kernel on lego.yml's
 multipass renderer: configs/nerf/synth800_mip.yml ("mip": two 8x256
 MipNeRFMLPs on the integrated positional encoding, softplus densities) and
 configs/nerf/lego_ngp.yml ("ngp": two HashGridNeRFs, 16 levels of 2^19
-rows, 64-wide MLPs, 8192 rays per step); then LLFF captures, NDC rays and
+rows, 64-wide MLPs, 8192 rays per step, encoding on K4 / K5, which the
+device picks with no config key); then LLFF captures, NDC rays and
 unbounded scenes: configs/nerf/fern_ndc_proposal.yml ("ndc": the proposal
 estimator on NDC rays), synth_llff_360_unbounded.yml ("unbounded": all
 three models on contracted points, disparity spacing, per-image bounds),
@@ -29,8 +30,8 @@ on the committed captures ``tests/data/llff_jpeg`` (baseline JPEGs),
 ``tests/data/llff_jpeg_progressive`` (progressive) and
 ``tests/data/llff_jpeg_arith`` (arithmetic-coded), the JPEG kinds of
 ``tests/data/jpeg_kinds`` on the host, sampling masks on the
-flagship, and the parity runbook's smoke; then the kernel arms' training
-trajectories and the fused CLI in a one-rank process group; and, after the
+flagship, and the parity runbook's smoke; then the fused CLI in a one-rank
+process group; and, after the
 LLFF phases, the seven shipped configs no other phase names (synth800.yml,
 synth800_ngp.yml, synth800_proposal_2p40.yml, synth_llff_360.yml,
 synth_llff_360u.yml, synth_llff_ndc.yml, fern_ndc.yml). Phases,
@@ -89,7 +90,7 @@ power limit:
              classic frame), K3 never; K6 exactly once per chunk and
              refinement (626 per proposal frame, 313 per classic frame, the
              same in the classic frame of "frame", the ngp frame's, the
-             hash, occupancy, .pth and exported frames); every train step
+             occupancy, .pth and exported frames); every train step
              below, per step or replayed, launches K6 once per refinement
              (the eval frames around the steps not counted), and each path's
              K6 launches are its own in the kernels' record;
@@ -98,7 +99,10 @@ power limit:
              at the kernel entry, which must equal the K1 frame bit for bit
              (626 K2 launches, the path K2 runs on); one frame each of
              ngp (also over HTTP, as in "serve") and mip: RGB finite and in
-             [0, 1], no launch of K1, K2 or K3, the frame seconds;
+             [0, 1], no launch of K1, K2 or K3, K4 once per chunk and
+             HashGridNeRF (626 per ngp frame), K5 never, the frame seconds;
+             a hash grid's frame (this one and synth800_ngp's in "configs")
+             bit for bit the same view through the eager chunk loop;
   5. train   write a procedural 800x800 Blender-format scene from a seed
              and train each configuration on it through
              ``python -m yanerf_tpu_torch.run`` with ``use_pallas_train`` on
@@ -106,16 +110,12 @@ power limit:
              noise 0.2 and pixels drawn without replacement), and ngp (16
              steps at 8192 rays on the uint8 device cache), per step
              (``steps_per_call=1``): K1 and K3
-             launched exactly once per step and NeRFMLP (never for ngp),
-             the objective finite at every step, every parameter (every
-             table) moved, the final checkpoint reloads to the same
+             launched exactly once per step and NeRFMLP (never for ngp), K5
+             once per step and HashGridNeRF and K4 as often (and in the eval
+             frames), the objective finite at every step, every parameter
+             (every table) moved, the final checkpoint reloads to the same
              parameters, Adam state and step; ``step_s``, rays/s and the
-             peak device memory of the run; then ("hash") synth800_ngp
-             with the hash grid's switch on, 16 steps on that scene: K4 and
-             K5 once per step and model, then one 800x800 frame through the
-             chunk graph, K4 once per chunk and model (626), K5 never, bit
-             for bit the plain chunk loop under the same switch, its gap to
-             the switch-off frame printed; K1 and K3 on neither;
+             peak device memory of the run;
   6. fused   the proposal CLI with ``steps_per_call=20`` on a 40-frame
              scene with the device cache, 80 steps (two epochs of two whole
              groups of 20 after the first step's vis): one captured CUDA
@@ -138,7 +138,8 @@ power limit:
              step;
   8. family  for mip and ngp, in float32 (TF32 off) from the same weights,
              batch and draws, one eval chunk (2045 rays, both passes) and one
-             train step at 512 rays on the card and on the CPU: the chunk's
+             train step at 512 rays on the card (ngp's encoding on K4 / K5)
+             and on the CPU (its plain path): the chunk's
              outputs within 1e-4, the objectives within 1e-4 relative, each
              parameter tensor's gradient (every table) at a cosine >= 0.9999;
              the card's step twice, whether its gradients are bit-equal;
@@ -226,21 +227,12 @@ power limit:
  21. parity smoke  ``python -m yanerf_tpu_torch.repro_parity --smoke
              --device cuda``: every stage ok, the time-to-quality stage at
              its target, the kernels' launches read from its runs' logs;
- 22. trajectory  ``yanerf_tpu_torch.trajectory`` on the 40-frame scene:
-             the flagship trained 500 steps on the fused dispatch along
-             the eager model, K1 + K3, K1 alone (the eager backward), K3
-             alone (the eager forward) and the eager model one float32 ulp
-             off, from one init and one draw stream; for every NeRF-MLP
-             tensor the step-0 gradient's cosine, relative error and sign
-             agreement against the eager arm, its error against the
-             float32 gradient, and the weights' distance from the eager
-             arm at 10, 100 and 500 steps; K1 and K3 on their arms only;
- 23. distributed  the fused flagship CLI (40 steps at 20 per dispatch) in a
+ 22. distributed  the fused flagship CLI (40 steps at 20 per dispatch) in a
              process group of one rank on this card (NCCL, a free local
              port): the runner's one-rank mesh, the gradient all-reduce
              captured in the CUDA graph, the evals' gather; weights, Adam's
              moments and test stats bit for bit the run without a group;
- 24. trace regions  the fused flagship CLI (steps_per_call 8, 24 steps
+ 23. trace regions  the fused flagship CLI (steps_per_call 8, 24 steps
              on 24 of the 40 views, a test eval of 2 frames at 800x800)
              with ``runner.profile_dir`` over the dispatch of steps 8-15,
              then 6 per-step iterations with every step and frame logged,
@@ -253,7 +245,7 @@ power limit:
              per-step and frame line of the logs, finite and >= 0; the
              device time in the span per step beside the CLI's ``step_s``,
              and the frames' ``inference`` median.
- 25. configs  (run after "llff") the rows of ``SHIPPED_CONFIGS`` as they
+ 24. configs  (run after "llff") the rows of ``SHIPPED_CONFIGS`` as they
              ship: synth800.yml per step from the device cache (one epoch of
              the 40-frame scene), synth800_ngp.yml per step (16 steps on 16 of
              its views), synth800_proposal_2p40.yml fused at 20 (one epoch;
@@ -264,8 +256,9 @@ power limit:
              per step through the host DataLoader on a copy of
              ``tests/data/llff_jpeg`` at factor 2; each fused run against two
              per-step runs, bit for bit; a test view of each (K1 once per chunk
-             and NeRFMLP against its plain version; the hash grid's with no
-             kernel) but synth800_proposal_2p40's (synth800_proposal.yml's
+             and NeRFMLP against its plain version; the hash grid's on K4 once
+             per chunk and model, as its training is on K4 / K5, with no
+             config key) but synth800_proposal_2p40's (synth800_proposal.yml's
              frame, run in "llff"); "family" for each but that one, +1 on the
              density biases wherever a NeRFMLP renders (synth800's chunk also
              at +0, its CPU sensitivity printed); one "configs" line per config
@@ -275,9 +268,10 @@ Any failure exits non-zero, and so does a run in which K1 or K3 did not
 launch on an LLFF training path or K1 on an LLFF frame, K1 or K3 on the
 multi-scene control's training, K1 on a tool or the occupancy frame, or
 either of them on the latent path, or K1 on a path of phases 13-21 (K3
-on their training paths), or K1 or K3 on phases 22-24, or K1 on a path
-of phase 25 (K3 on its training; neither on synth800_ngp.yml's), or K4 or
-K5 on any path but "hash", or K6 on no path. Imports
+on their training paths), or K1 or K3 on phases 22-23, or K1 on a path
+of phase 24 (K3 on its training; neither on synth800_ngp.yml's), or K4
+absent from a path whose pipeline has a hash grid (each such path records
+how many) or K4 / K5 present on any other, or K6 on no path. Imports
 nothing of JAX or of yanerf_tpu. The last three lines are the kernels'
 JSON record, the card's name and power limit, and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -398,7 +392,6 @@ JPEG_STEPS_PER_CALL = 8
 JPEG_TRAIN_STEPS = 40  # four epochs of 10 steps
 JPEG_DECODE_REPEATS = 3  # each decode timing is the fastest of this many passes over the capture
 MASK_LAYERS = 2  # the multi-layer sampling_prob_mask: one ray budget per layer
-TRAJECTORY_STEPS = 500  # the arms' weights compared at 10, 100 and 500 steps: keeps the script near 600 s
 TRACE_STEPS_PER_CALL = 8
 TRACE_FUSED_STEPS = 24  # one epoch of 24 views: the vis step, then groups of 7, 8 (profiled) and 8
 TRACE_FUSED_PROFILE = (8, 8)  # profile_start_iter, profile_num_iters: the trace holds the dispatch of steps 8-15
@@ -1001,23 +994,34 @@ def train_tally(pipeline, n_mlps: int) -> dict:
     return tally
 
 
-def reset_k6() -> None:
-    """Start a path's count of K6's launches."""
+def reset_counts() -> None:
+    """Start a path's count of K4, K5 and K6's launches."""
+    from yanerf_tpu_torch.ops.kernels import hash_encode as HE
     from yanerf_tpu_torch.ops.kernels import sample_pdf as SP
 
-    SP.launches = 0
+    HE.launches = HE.bwd_launches = SP.launches = 0
 
 
 def k6_launches() -> int:
-    """K6's launches since ``reset_k6`` (none on CPU tensors, as in the tests: the plain version runs)."""
+    """K6's launches since ``reset_counts`` (none on CPU tensors, as in the tests: the plain version runs)."""
     from yanerf_tpu_torch.ops.kernels import sample_pdf as SP
 
     return SP.launches
 
 
-def with_k6(launches: dict) -> dict:
-    """A path's ``launches`` of the NeRF-MLP kernels and K6's since ``reset_k6``, where it launched."""
-    return dict(launches, sample_pdf=k6_launches()) if k6_launches() else launches
+def with_counts(launches: dict, hash_grids: int = 0) -> dict:
+    """A path's ``launches`` of the NeRF-MLP kernels, and K4, K5 and K6's since ``reset_counts`` where they
+    launched; ``hash_grids``, where the path's pipeline has any, is what the final check expects K4 / K5 from."""
+    from yanerf_tpu_torch.ops.kernels import hash_encode as HE
+
+    counted = {"hash_encode_fwd": HE.launches, "hash_encode_bwd": HE.bwd_launches, "sample_pdf": k6_launches(),
+               "hash_grids": hash_grids}
+    return dict(launches, **{k: n for k, n in counted.items() if n})
+
+
+def hash_kernel_models(pipeline) -> int:
+    """How many of ``pipeline``'s models are HashGridNeRFs, which encode on K4 / K5 on the card."""
+    return sum(int(type(fn).__name__ == "HashGridNeRF") for fn in pipeline.implicit_functions)
 
 
 def nerf_mlp_launches(launches: dict) -> dict:
@@ -1048,7 +1052,7 @@ def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame
     latencies = {}
     try:
         K1.launches = K1.pipelined_launches = K3.launches = 0
-        reset_k6()
+        reset_counts()
         t = time.perf_counter()
         with urllib.request.urlopen(f"{url}/render?theta=30&phi=-30&radius=4", timeout=600) as resp:
             png, png_type = resp.read(), resp.headers["Content-Type"]
@@ -1060,8 +1064,8 @@ def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame
         with urllib.request.urlopen(req, timeout=600) as resp:
             grid = json.loads(resp.read())
         latencies["POST /render json"] = time.perf_counter() - t
-        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                            "nerf_mlp_bwd": K3.launches})
+        launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                               "nerf_mlp_bwd": K3.launches}, hash_kernel_models(service._pipeline))
         t = time.perf_counter()
         with urllib.request.urlopen(f"{url}/health", timeout=60) as resp:
             health = json.loads(resp.read())
@@ -1109,11 +1113,11 @@ def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool, v
     pose_world, focal, lo, hi = view
     numbers = {}
     K1.launches = K1.pipelined_launches = 0
-    reset_k6()
+    reset_counts()
     t = time.perf_counter()
     rgb_kernel, depth_kernel = service.render(pose_world, focal, lo, hi)
     numbers["kernel_frame_s"] = time.perf_counter() - t
-    launches = with_k6({"nerf_mlp_fwd": K1.launches})
+    launches = with_counts({"nerf_mlp_fwd": K1.launches})
     checks = {"finite": bool(np.isfinite(rgb_kernel).all())}
     if k1_per_frame is not None:
         checks["k1_once_per_chunk_and_nerf_mlp"] = launches["nerf_mlp_fwd"] == k1_per_frame > 0
@@ -1209,7 +1213,8 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
 
     Every NeRFMLP of the config trains on K1 and K3 (once per step each); a
     config with none (the mip-NeRF and hash-grid families) launches neither.
-    Each step launches K6 once per refinement on the card.
+    On the card each step launches K6 once per refinement, and K4 and K5
+    once per HashGridNeRF.
     """
     import yanerf_tpu_torch.runners as runners
     from yanerf_tpu_torch import run
@@ -1226,13 +1231,13 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
         K1.launches = K1.pipelined_launches = K3.launches = 0
-        reset_k6()
+        reset_counts()
         t = time.perf_counter()
         result = run.main(argv)
         sync(torch)
         run_s = time.perf_counter() - t
-        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                            "nerf_mlp_bwd": K3.launches})
+        launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                               "nerf_mlp_bwd": K3.launches}, hash_kernel_models(result["state"].pipeline))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
     initial, objectives = seen.initial, seen.objectives
 
@@ -1254,7 +1259,7 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
     step_s = [s["step_s"] for s in result["train_stats"] if "step_s" in s]
     ms_per_step = 1e3 * sorted(step_s)[len(step_s) // 2]
     n_rays = cfg.pipeline.ray_sampler.n_rays_per_image_sampled_from_mask
-    n_mlps = kernel_mlps(state.pipeline)
+    n_mlps, n_hash = kernel_mlps(state.pipeline), hash_kernel_models(state.pipeline)
     checks = {
         "steps": n_steps == steps == len(objectives),
         # once per step and NeRFMLP (none without one); the test frame at the
@@ -1265,13 +1270,17 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
         and launches["nerf_mlp_fwd_pipelined"] == 0 and (n_mlps > 0) == bool(keys),
         "k6_per_refinement_per_step": seen.k6_in_steps
         == (refinements(state.pipeline) * n_steps if DEVICE == "cuda" else 0),
+        # K5 once per step and hash grid; K4 as often, and again in the eval frames
+        "k5_per_hash_grid_per_step": launches.get("hash_encode_bwd", 0)
+        == (n_hash * n_steps if DEVICE == "cuda" else 0) <= launches.get("hash_encode_fwd", 0),
         "objective_finite": bool(torch.isfinite(objective).all()),
         "params_moved": moved == len(initial),
         "checkpoint_reloads": same_params and same_adam and reloaded.step == n_steps,
         "test_metrics_finite": all(math.isfinite(v) for v in result["test_stats"].values()),
     }
     numbers = dict(
-        config=Path(config).name, nerf_mlps_on_kernels=n_mlps, steps=n_steps, run_s=run_s, ms_per_step=ms_per_step,
+        config=Path(config).name, nerf_mlps_on_kernels=n_mlps, hash_grids_on_kernels=n_hash, steps=n_steps,
+        run_s=run_s, ms_per_step=ms_per_step,
         step_s_per_epoch=step_s,
         train_rays_per_s=n_rays / ms_per_step * 1e3, rays_per_step=n_rays, peak_memory_gb=peak_gb, launches=launches,
         k6_in_steps=seen.k6_in_steps,
@@ -1312,7 +1321,7 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
         K1.launches = K1.pipelined_launches = K3.launches = 0
-        reset_k6()
+        reset_counts()
         t = time.perf_counter()
         with observe_run(torch) as seen:
             result = run.main(argv)
@@ -1322,8 +1331,8 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         result["objective"], result["params_moved"] = seen.objective(), (seen.moved(result["state"].pipeline),
                                                                           len(seen.initial))
         result["k6_in_steps"] = seen.k6_in_steps
-        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                            "nerf_mlp_bwd": K3.launches})
+        launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                               "nerf_mlp_bwd": K3.launches}, hash_kernel_models(result["state"].pipeline))
         return result, launches, result["run_s"]
 
     def gap(a, b):
@@ -1388,8 +1397,33 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
     return numbers, fused_launches
 
 
-def family_frame(torch, K1, K3, service, card_line: str, config_name: str, view=None):
-    """One frame of a family with no NeRF-MLP kernel: RGB finite and in [0, 1], no launch of K1, K2 or K3.
+def eager_frame(torch, service, view):
+    """``service``'s frame of ``view`` through the plain per-chunk loop, which a frame with a gradient takes (no
+    parameter needs one), where a served frame replays the chunk graph."""
+    from yanerf_tpu_torch.ops.structures import EvaluationMode
+
+    pipeline = service._pipeline
+    pose, focal, lo, hi = view
+    bounds = service.default_bounds
+    flags = [p.requires_grad for p in pipeline.parameters()]
+    for p in pipeline.parameters():
+        p.requires_grad_(False)
+    try:
+        with torch.enable_grad():
+            preds = pipeline(poses=torch.as_tensor(pose, device=pipeline.device)[None],
+                             focal_lengths=torch.tensor([focal], dtype=torch.float32, device=pipeline.device),
+                             min_depth=bounds[0] if lo is None else lo, max_depth=bounds[1] if hi is None else hi,
+                             evaluation_mode=EvaluationMode.EVALUATION)
+    finally:
+        for p, flag in zip(pipeline.parameters(), flags):
+            p.requires_grad_(flag)
+    return preds["rendered_images"][0].cpu().numpy(), preds["rendered_depths"][0, ..., 0].cpu().numpy()
+
+
+def family_frame(torch, K1, K3, service, card_line: str, config_name: str, view=None, k4_per_frame: int = 0):
+    """One frame of a family with no NeRF-MLP kernel: RGB finite and in [0, 1], no launch of K1, K2 or K3; on the
+    card K4 ``k4_per_frame`` times (once per chunk and HashGridNeRF), K5 never. A hash grid's frame is rendered
+    again through the eager chunk loop, and the two must be bit-equal.
 
     ``view`` is ``(pose 3x4, focal, min_depth, max_depth)``, else the orbit camera of "frame"."""
     import numpy as np
@@ -1400,117 +1434,34 @@ def family_frame(torch, K1, K3, service, card_line: str, config_name: str, view=
         view = ((orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32), service.default_focal,
                 None, None)
     K1.launches = K1.pipelined_launches = K3.launches = 0
-    reset_k6()
+    reset_counts()
     t = time.perf_counter()
     rgb, depth = service.render(*view)
     frame_s = time.perf_counter() - t
-    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                        "nerf_mlp_bwd": K3.launches})
+    n_hash = hash_kernel_models(service._pipeline)
+    launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                           "nerf_mlp_bwd": K3.launches}, n_hash)
+    numbers = {}
+    if n_hash:
+        t = time.perf_counter()
+        loop_rgb, loop_depth = eager_frame(torch, service, view)
+        numbers = dict(eager_loop_frame_s=time.perf_counter() - t,
+                       frame_equals_eager_loop=bool(np.array_equal(rgb, loop_rgb)
+                                                    and np.array_equal(depth, loop_depth)))
     checks = {
         "finite": bool(np.isfinite(rgb).all() and np.isfinite(depth).all()),
         "rgb_in_0_1": bool(rgb.min() >= 0.0 and rgb.max() <= 1.0),
         "shape": rgb.shape == (*service.image_hw, 3),
         "no_nerf_mlp_kernel": nerf_mlp_launches(launches) == NO_LAUNCHES,
+        "k4_per_chunk_and_hash_grid": launches.get("hash_encode_fwd", 0)
+        == (k4_per_frame if service.device.type == "cuda" else 0) and "hash_encode_bwd" not in launches,
+        "frame_equals_eager_loop": numbers.get("frame_equals_eager_loop", True),
     }
     say(card_line, "frame", config=config_name, frame_s=frame_s, launches=launches, mean_rgb=float(rgb.mean()),
-        checks=checks)
+        **numbers, checks=checks)
     if not all(checks.values()):
         raise SystemExit(f"{config_name} frame phase failed: {checks}")
     return launches
-
-
-def hash_kernel_path(torch, K1, K3, HE, card_line: str, scene: Path, out_dir: Path, config=None, steps=None) -> dict:
-    """synth800_ngp.yml with the hash grid's switch on: trained per step through the CLI, then one frame.
-
-    The training (``use_pallas_train``, ``steps`` steps) launches K4 and K5
-    once per step and HashGridNeRF; its test frames render with the plain
-    path, as NeRFMLP's switch does. The frame (``use_pallas``, after one
-    warm-up frame that captures the chunk graph) launches K4 once per chunk
-    and model, K6 once per chunk and refinement and K5 never, and equals the
-    plain chunk loop under the same switch bit for bit. Neither launches K1
-    or K3. K4 / K5 are counted from 0
-    for each, and the counts the hash kernels had before are put back, so
-    that they go on counting launches outside this path. On the CPU (the
-    tests) the switch takes the plain path and nothing launches. Returns the
-    kernels' launches on both paths.
-    """
-    import numpy as np
-
-    from yanerf_tpu_torch.ops.structures import EvaluationMode
-    from yanerf_tpu_torch.serve import CAM_CALIBRATION, orbit_pose, service_from_config
-    from yanerf_tpu_torch.utils import Config
-
-    config = SYNTH800_NGP_CONFIG if config is None else config
-    steps = NGP_TRAIN_STEPS if steps is None else steps
-    on_card = DEVICE == "cuda"
-    outside = HE.launches, HE.bwd_launches
-
-    def launches():
-        return with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                        "nerf_mlp_bwd": K3.launches, "hash_encode_fwd": HE.launches,
-                        "hash_encode_bwd": HE.bwd_launches})
-
-    HE.launches = HE.bwd_launches = 0
-    numbers, _ = train(torch, K1, K3, scene, out_dir, config, steps,
-                       extra_options=["pipeline.model.use_pallas_train=True"])
-    paths = {"synth800_ngp_kernels_train": launches()}
-    torch.cuda.empty_cache()
-
-    cfg = Config.fromfile(str(config))
-    cfg.pipeline.model.use_pallas = True
-    service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
-    pipeline = service._pipeline
-    n_models, n_refinements = len(pipeline.implicit_functions), refinements(pipeline)
-    service.warmup()
-    pose = (orbit_pose(30.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
-    K1.launches = K1.pipelined_launches = K3.launches = HE.launches = HE.bwd_launches = 0
-    reset_k6()
-    t = time.perf_counter()
-    rgb, depth = service.render(pose, service.default_focal)
-    frame_s = time.perf_counter() - t
-    paths["synth800_ngp_kernels_frame"] = launches()
-    lo, hi = service.default_bounds
-    for p in pipeline.parameters():
-        p.requires_grad_(False)
-
-    def plain_loop():  # a frame with a gradient takes the plain chunk loop (no parameter needs one)
-        with torch.enable_grad():
-            preds = pipeline(poses=torch.as_tensor(pose, device=pipeline.device)[None],
-                             focal_lengths=torch.tensor([service.default_focal], device=pipeline.device),
-                             min_depth=lo, max_depth=hi, evaluation_mode=EvaluationMode.EVALUATION)
-        return preds["rendered_images"][0].cpu().numpy(), preds["rendered_depths"][0, ..., 0].cpu().numpy()
-
-    t = time.perf_counter()
-    loop_rgb, loop_depth = plain_loop()
-    loop_s = time.perf_counter() - t
-    for fn in pipeline.implicit_functions:
-        fn.use_pallas = False
-    plain_rgb, plain_depth = plain_loop()
-    del service, pipeline
-    torch.cuda.empty_cache()
-    chunks = frame_chunks(cfg)
-    train_l, frame_l = paths["synth800_ngp_kernels_train"], paths["synth800_ngp_kernels_frame"]
-    checks = {
-        "train": all(numbers["checks"].values()),
-        "k4_k5_per_step_and_model": train_l["hash_encode_fwd"] == train_l["hash_encode_bwd"]
-        == (n_models * steps if on_card else 0),
-        "k4_per_chunk_and_model": frame_l["hash_encode_fwd"] == (n_models * chunks if on_card else 0)
-        and frame_l["hash_encode_bwd"] == 0,
-        "k6_per_chunk_and_refinement": frame_l.get("sample_pdf", 0) == (n_refinements * chunks if on_card else 0),
-        "no_nerf_mlp_kernel": all({k: v[k] for k in NO_LAUNCHES} == NO_LAUNCHES for v in paths.values()),
-        "frame_equals_plain_loop": bool(np.array_equal(rgb, loop_rgb) and np.array_equal(depth, loop_depth)),
-        "frame_finite": bool(np.isfinite(rgb).all() and np.isfinite(depth).all()),
-    }
-    say(card_line, "hash", config=Path(config).name, steps=steps, ms_per_step=numbers["ms_per_step"],
-        train_rays_per_s=numbers["train_rays_per_s"], peak_memory_gb=numbers["peak_memory_gb"],
-        objective_first=numbers["objective_first"], objective_last=numbers["objective_last"],
-        params_moved=numbers["params_moved"], frame_s=frame_s, plain_loop_frame_s=loop_s, chunks=chunks,
-        launches=paths, kernels_vs_plain_rgb_gap=float(np.abs(rgb - plain_rgb).max()),
-        kernels_vs_plain_depth_gap=float(np.abs(depth - plain_depth).max()), checks=checks)
-    if not all(checks.values()):
-        raise SystemExit(f"hash phase failed: {checks}")
-    HE.launches, HE.bwd_launches = outside
-    return paths
 
 
 def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, train_rays: int = FAMILY_TRAIN_RAYS,
@@ -1522,7 +1473,7 @@ def family_check(torch, scene: Path, config, eval_rays: int = FAMILY_EVAL_RAYS, 
     FAMILY_ATOL, the objectives within FAMILY_OBJECTIVE_RTOL relative and
     each parameter tensor's gradient at a cosine >= FAMILY_MIN_GRAD_COSINE.
     The train step runs twice on the card; whether the two runs' gradients
-    are bit-equal is printed (the hash grid's scatter-add backward). The
+    are bit-equal is printed (the hash grid's backward is K5 there). The
     batch is the ``items`` of the config's train dataset on ``scene`` (the
     first one by default; ``options``: more config overrides), their
     per-image bounds and scene ids included, the eval chunk taken from each.
@@ -1663,11 +1614,11 @@ def step_equivalence(torch, scene: Path, config=None, masks=None):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         K1.launches = K1.pipelined_launches = K3.launches = 0
-        reset_k6()
+        reset_counts()
         preds = make_train_step(pipe, cfg.runner, 0)(state, batch, draws)
         sync(torch)
         # the NeRF-MLP kernels' and K6's
-        launches = with_k6({k: n for k, n in launch_count.totals().items() if k in NO_LAUNCHES})
+        launches = with_counts({k: n for k, n in launch_count.totals().items() if k in NO_LAUNCHES})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
         grads = [[p.grad for p in pipe.implicit_functions[i].parameters()] for i in nerf_mlps]
         out[name] = (float(preds["objective"].mean()), grads, peak_gb, launches)
@@ -1859,7 +1810,8 @@ def shipped_configs_phase(torch, K1, K3, card_line: str, tmp: Path, scenes=None,
     per-step runs, two epochs of the LLFF scenes, one of the 40 views); a
     frame of the scene's first test view with K1 against its plain version,
     none for synth800_proposal_2p40 (its frame is synth800_proposal.yml's)
-    and none of the kernels for the hash grid; "family" (the card against the
+    and K4 for the hash grid (K4 / K5 on its training), which the device
+    picks with no config key; "family" (the card against the
     CPU in float32, +1 on the density biases wherever a NeRFMLP renders) but
     for synth800_proposal_2p40 (synth800_proposal's model), whose logged
     rates must follow its 40k / 45k schedule instead.
@@ -1937,7 +1889,8 @@ def shipped_configs_phase(torch, K1, K3, card_line: str, tmp: Path, scenes=None,
             t = time.perf_counter()
             if kind == "blender_ngp":
                 service = service_from_config(cfg, checkpoint=None, device=DEVICE, seed=0)
-                paths[f"{name}_frame"] = family_frame(torch, K1, K3, service, card_line, config.name, view)
+                paths[f"{name}_frame"] = family_frame(torch, K1, K3, service, card_line, config.name, view,
+                                                      hash_kernel_models(service._pipeline) * frame_chunks(cfg))
             else:
                 service, nerf_mlps = build_service(config)
                 paths[f"{name}_frame"] = frame(torch, K1, service, card_line, config.name, with_k2=False, view=view,
@@ -2053,13 +2006,13 @@ def run_tool(torch, K1, K3, module, argv, plain: bool = False):
 
     sync(torch)
     K1.launches = K1.pipelined_launches = K3.launches = 0
-    reset_k6()
+    reset_counts()
     t = time.perf_counter()
     with mock.patch.object(K1, "nerf_mlp_fwd", K1.nerf_mlp_fwd_plain) if plain else contextlib.nullcontext():
         out = module.main(argv)
     sync(torch)
-    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                        "nerf_mlp_bwd": K3.launches})
+    launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                           "nerf_mlp_bwd": K3.launches})
     return out, launches, time.perf_counter() - t
 
 
@@ -2181,12 +2134,12 @@ def occupancy_phase(torch, K1, card_line: str, tmp: Path) -> dict:
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
         K1.launches = 0
-        reset_k6()
+        reset_counts()
         t = time.perf_counter()
         rgb, _ = service.render(pose, service.default_focal)
         numbers[mode] = dict(frame_s=time.perf_counter() - t, k1_launches=K1.launches, mean_rgb=float(rgb.mean()),
                              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None)
-        launches[mode] = with_k6({"nerf_mlp_fwd": K1.launches})
+        launches[mode] = with_counts({"nerf_mlp_fwd": K1.launches})
         checks[f"{mode}_k1_per_chunk"] = K1.launches == frame_chunks(cfg) and bool(np.isfinite(rgb).all())
         checks[f"{mode}_k6_per_chunk_and_refinement"] = launches[mode].get("sample_pdf", 0) == (
             refinements(service._pipeline) * frame_chunks(cfg) if DEVICE == "cuda" else 0)
@@ -2297,12 +2250,12 @@ def pth_serve_phase(torch, K1, K3, service, card_line: str, tmp: Path, config=No
     rgb, depth = service.render(pose, focal)
     sync(torch)
     K1.launches = K1.pipelined_launches = K3.launches = 0
-    reset_k6()
+    reset_counts()
     t = time.perf_counter()
     rgb_pth, depth_pth = from_pth.render(pose, focal)
     frame_s = time.perf_counter() - t
-    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                        "nerf_mlp_bwd": K3.launches})
+    launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                           "nerf_mlp_bwd": K3.launches})
     direct = dict(service._pipeline.named_parameters())
     n_mlps = sum(int(type(fn).__name__ == "NeRFMLP" and fn.use_pallas) for fn in from_pth._pipeline.implicit_functions)
     checks = {
@@ -2352,11 +2305,11 @@ def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None
     service.render(pose, focal)  # warm-up
     sync(torch)
     K1.launches = K1.pipelined_launches = 0
-    reset_k6()
+    reset_counts()
     t = time.perf_counter()
     rgb, _ = service.render(pose, focal)
     serve_s = time.perf_counter() - t
-    serve_launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches})
+    serve_launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches})
     del service
 
     poses = torch.eye(4, dtype=torch.float32)[None].clone()
@@ -2384,7 +2337,7 @@ def export_phase(torch, K1, card_line: str, tmp: Path, config=None, options=None
         render(*inputs)
         sync(torch)
         K1.launches = 0
-        reset_k6()
+        reset_counts()
         t = time.perf_counter()
         direct = render(*inputs)[0].cpu().numpy()
         direct_s = time.perf_counter() - t
@@ -2445,13 +2398,13 @@ def debug_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, confi
             *extra_options]
     sync(torch)
     K1.launches = K1.pipelined_launches = K3.launches = 0
-    reset_k6()
+    reset_counts()
     t = time.perf_counter()
     result = run.main(argv)
     sync(torch)
     run_s = time.perf_counter() - t
-    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                        "nerf_mlp_bwd": K3.launches})
+    launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                           "nerf_mlp_bwd": K3.launches})
     out = result["output_dir"]
     steps = result["state"].step
     n_mlps = kernel_mlps(result["state"].pipeline)
@@ -2493,14 +2446,14 @@ def lego_tpu_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, co
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     K1.launches = K1.pipelined_launches = K3.launches = 0
-    reset_k6()
+    reset_counts()
     t = time.perf_counter()
     with observe_run(torch) as seen:
         result = run.main(argv)
     sync(torch)
     run_s = time.perf_counter() - t
-    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                        "nerf_mlp_bwd": K3.launches})
+    launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                           "nerf_mlp_bwd": K3.launches})
     state, trainer = result["state"], result["train_step_fused"]
     sampler = state.pipeline.ray_sampler.sampler(EvaluationMode.TRAINING)
     n_mlps = kernel_mlps(state.pipeline)
@@ -2576,12 +2529,12 @@ def async_save_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, 
                 *(f"datasets.{i}.base_dir={scene}" for i in range(3)), *extra_options]
         sync(torch)
         K1.launches = K1.pipelined_launches = K3.launches = 0
-        reset_k6()
+        reset_counts()
         with mock.patch.object(runners, "save_checkpoint", saving), mock.patch.object(runners, "train_one_epoch",
                                                                                       epoch_fn):
             result = run.main(argv)
-        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                            "nerf_mlp_bwd": K3.launches})
+        launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                               "nerf_mlp_bwd": K3.launches})
         periodic = [r for r in records if r["periodic"]]
         final = records[-1]
         loop_s = final["t0"] - started[0] - sum(r["side_s"] for r in records)
@@ -2809,7 +2762,7 @@ def parity_smoke_phase(card_line: str, tmp: Path, smoke_args=()) -> dict:
                     launches[k] += v
                 elif k == "sample_pdf":
                     k6 += v
-                elif k.startswith("hash_encode"):  # K4 / K5: the smoke's configs leave the hash grid's switch off
+                elif k.startswith("hash_encode"):  # K4 / K5: none of the smoke's configs holds a hash grid
                     hash_launches += v
     if k6:
         launches["sample_pdf"] = k6
@@ -2820,46 +2773,6 @@ def parity_smoke_phase(card_line: str, tmp: Path, smoke_args=()) -> dict:
     if not all(checks.values()):
         raise SystemExit(f"parity smoke phase failed: {checks}\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
     return {"parity_smoke_train": launches}
-
-
-def trajectory_phase(torch, K1, K3, card_line: str, scene: Path, steps: int = TRAJECTORY_STEPS, config=None) -> dict:
-    """"trajectory": the flagship trained along the eager model and the three kernel arms from one init.
-
-    ``yanerf_tpu_torch.trajectory`` at ``steps`` steps on the fused dispatch
-    (``steps_per_call: 20``): eager, K1 + K3, K1 alone (the eager
-    backward), K3 alone (the eager forward) and the eager model one float32
-    ulp off, each tensor of the NeRFMLP against the eager arm: the step-0
-    gradient's cosine, relative error and sign agreement, its error against
-    the float32 gradient, and the weights' distance at 10, 100 and
-    ``steps`` steps. K1 must launch on the K1 + K3 and K1 arms only, K3 on
-    the K1 + K3 and K3 arms only, once per step each (the step-0 gradient
-    included), and every arm's train PSNR must be finite.
-    """
-    from yanerf_tpu_torch import trajectory
-
-    cfg = trajectory.flagship_config(CONFIG if config is None else config)
-    K1.launches = K1.pipelined_launches = K3.launches = 0
-    reset_k6()
-    t = time.perf_counter()
-    record = trajectory.trajectory(cfg, scene, steps, DEVICE, checkpoints=(10, 100, steps))
-    seconds = time.perf_counter() - t
-    launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                        "nerf_mlp_bwd": K3.launches})
-    per_kernel = 2 * (steps + 1) if DEVICE == "cuda" else 0  # two arms each, a launch per step and the step 0 gradient
-    keys = ("grad_cosine", "grad_rel_err", "sign_agreement", "grad_rel_err_f32",
-            *(f"rel_update_{c}" for c in record["checkpoints"]))
-    per_tensor = {arm: {name: [row.get(k) for k in keys] for name, row in rows.items()}
-                  for arm, rows in record["per_tensor"].items()}
-    checks = {
-        "k1_on_its_arms": launches["nerf_mlp_fwd"] == per_kernel and launches["nerf_mlp_fwd_pipelined"] == 0,
-        "k3_on_its_arms": launches["nerf_mlp_bwd"] == per_kernel,
-        "finite": all(math.isfinite(row["tail_psnr"]) for row in record["summary"].values()),
-    }
-    say(card_line, "trajectory", steps=steps, seconds=seconds, launches=launches, summary=record["summary"],
-        columns=list(keys), per_tensor=per_tensor, checks=checks)
-    if not all(checks.values()):
-        raise SystemExit(f"trajectory phase failed: {checks}")
-    return {"trajectory_train_fused": launches}
 
 
 def distributed_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path, config=None, steps=None) -> dict:
@@ -2891,13 +2804,13 @@ def distributed_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Path,
                 *(f"{key}.use_pallas_train=True" for key in nerf_mlp_keys(config)), f"runner.num_iters={steps}",
                 f"runner.steps_per_call={FUSED_STEPS_PER_CALL}", *(f"datasets.{i}.base_dir={scene}" for i in range(3))]
         K1.launches = K1.pipelined_launches = K3.launches = 0
-        reset_k6()
+        reset_counts()
         t = time.perf_counter()
         result = run.main(argv)
         sync(torch)
         result["run_s"] = time.perf_counter() - t
-        result["launches"] = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                                      "nerf_mlp_bwd": K3.launches})
+        result["launches"] = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                                         "nerf_mlp_bwd": K3.launches})
         return result
 
     warm = cli("warm_up")  # the process's first run of this config pays its one-off costs
@@ -3033,13 +2946,13 @@ def trace_regions_phase(torch, K1, K3, card_line: str, scene: Path, out_dir: Pat
                 f"runner.profile_start_iter={profile[0]}", f"runner.profile_num_iters={profile[1]}",
                 *(f"datasets.{i}.base_dir={data}" for i in range(3)), "datasets.2.test_skip=1", *extra]
         K1.launches = K1.pipelined_launches = K3.launches = 0
-        reset_k6()
+        reset_counts()
         t = time.perf_counter()
         result = run.main(argv)
         sync(torch)
         seconds = time.perf_counter() - t
-        launches = with_k6({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
-                            "nerf_mlp_bwd": K3.launches})
+        launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
+                               "nerf_mlp_bwd": K3.launches})
         events = json.loads((out_dir / name / "trace" / "train_trace.json").read_text())["traceEvents"]
         return result, launches, timed_lines((result["output_dir"] / "run.log").read_text()), events, seconds
 
@@ -3194,7 +3107,6 @@ def main() -> int:
     say(card_line, "kernel", name="nerf_mlp_fwd", shape=f"extract_mesh's lattice chunk, {LATTICE_CHUNK} points of "
         "[-1.5, 1.5]^3 along (0, 0, 1)", **check_k1(torch, K1, nerf_mlp, packed, LATTICE_CHUNK, 1, gen, "lattice_mesh"))
     hash_fwd, hash_bwd = check_hash_shapes(torch, HE, card_line)
-    HE.launches = HE.bwd_launches = 0  # from here on, launches of K4 / K5 outside hash_kernel_path fail the run
     pdf = check_sample_pdf_shapes(torch, SP, card_line)
     torch.cuda.empty_cache()
 
@@ -3219,14 +3131,17 @@ def main() -> int:
         checkpoint_paths.update(export_phase(torch, K1, card_line, Path(tmp)))
     torch.cuda.empty_cache()
 
-    # the families with no NeRF-MLP kernel: a frame of each, lego_ngp.yml also over HTTP
+    # the families with no NeRF-MLP kernel: a frame of each, lego_ngp.yml (on K4) also over HTTP
     new_paths = {}
     for name, config in (("ngp", NGP_CONFIG), ("mip", MIP_CONFIG)):
-        service = service_from_config(Config.fromfile(str(config)), checkpoint=None, device="cuda", seed=0)
+        cfg = Config.fromfile(str(config))
+        service = service_from_config(cfg, checkpoint=None, device="cuda", seed=0)
         if name == "ngp":
             new_paths["ngp_serve"] = serve(torch, K1, K3, service, card_line, config.name, 0,
-                                           refinements(service._pipeline) * frame_chunks(Config.fromfile(str(config))))
-        new_paths[f"{name}_frame"] = family_frame(torch, K1, K3, service, card_line, config.name)
+                                           refinements(service._pipeline) * frame_chunks(cfg))
+        k4_per_frame = hash_kernel_models(service._pipeline) * frame_chunks(cfg)
+        new_paths[f"{name}_frame"] = family_frame(torch, K1, K3, service, card_line, config.name,
+                                                  k4_per_frame=k4_per_frame)
         del service
         torch.cuda.empty_cache()
 
@@ -3266,8 +3181,6 @@ def main() -> int:
         if not all(numbers["checks"].values()):
             raise SystemExit(f"ngp train phase failed: {numbers['checks']}")
         torch.cuda.empty_cache()
-        # synth800_ngp.yml with the hash grid's switch on: K4 and K5 on its training, K4 on its frame
-        hash_paths = hash_kernel_path(torch, K1, K3, HE, card_line, scene, Path(tmp) / "results_ngp_kernels")
         mip_numbers, new_paths["mip_train_fused"] = fused_train(torch, K1, K3, fused_scene, Path(tmp) / "results_mip",
                                                                 MIP_CONFIG, MIP_FUSED_TRAIN_STEPS, MIP_STEPS_PER_CALL)
         new_paths["mip_train_per_step"] = mip_numbers["per_step_launches"]
@@ -3309,10 +3222,8 @@ def main() -> int:
                                                                       Path(tmp) / "async_save")
         torch.cuda.empty_cache()
 
-        # the kernel arms' trajectories from one init; the fused CLI in a one-rank process group
-        split_paths = trajectory_phase(torch, K1, K3, card_line, fused_scene)
-        torch.cuda.empty_cache()
-        split_paths.update(distributed_phase(torch, K1, K3, card_line, fused_scene, Path(tmp) / "distributed"))
+        # the fused CLI in a one-rank process group
+        group_paths = distributed_phase(torch, K1, K3, card_line, fused_scene, Path(tmp) / "distributed")
         torch.cuda.empty_cache()
 
         # the runner's named trace regions and its log's data / inference fields, through the CLI
@@ -3355,19 +3266,10 @@ def main() -> int:
         paths.update({name: launches.get(kernel, 0) for name, launches in slice_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in checkpoint_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in capture_paths.items()})
-        paths.update({name: launches.get(kernel, 0) for name, launches in split_paths.items()})
+        paths.update({name: launches.get(kernel, 0) for name, launches in group_paths.items()})
         paths.update({name: launches.get(kernel, 0) for name, launches in trace_paths.items()})
         return paths
 
-    def hash_by_path(kernel):
-        """K4 / K5 on the switch-on path; every other path leaves the switch off and launches neither."""
-        paths = {name: launches[kernel] for name, launches in hash_paths.items()}
-        paths["switch_off_paths"] = HE.launches if kernel == "hash_encode_fwd" else HE.bwd_launches
-        return paths
-
-    # K6 on every path, the hash kernels' too
-    k6_paths = dict(by_path("sample_pdf"), **{name: launches.get("sample_pdf", 0) for name, launches in
-                                              hash_paths.items()})
     record = {
         "kernels": [
             dict(entry("nerf_mlp_fwd", "yanerf_tpu_torch/csrc/nerf_mlp_fwd.cu",
@@ -3379,11 +3281,11 @@ def main() -> int:
             entry("nerf_mlp_bwd", "yanerf_tpu_torch/csrc/nerf_mlp_bwd.cu", "yanerf_tpu/ops/pallas/nerf_mlp_bwd.py:67",
                   k3, by_path("nerf_mlp_bwd")),
             entry("hash_encode_fwd", "yanerf_tpu_torch/csrc/hash_encode.cu", "yanerf_tpu/models/hash_grid.py:292",
-                  hash_fwd, hash_by_path("hash_encode_fwd")),
+                  hash_fwd, by_path("hash_encode_fwd")),
             entry("hash_encode_bwd", "yanerf_tpu_torch/csrc/hash_encode.cu", "yanerf_tpu/models/hash_grid.py:123",
-                  hash_bwd, hash_by_path("hash_encode_bwd")),
+                  hash_bwd, by_path("hash_encode_bwd")),
             entry("sample_pdf", "yanerf_tpu_torch/csrc/sample_pdf.cu", "yanerf_tpu/ops/sample_pdf.py:33", pdf,
-                  k6_paths),
+                  by_path("sample_pdf")),
         ]
     }
     missing = [k["name"] for k in record["kernels"] if k["launches"] == 0]
@@ -3392,9 +3294,13 @@ def main() -> int:
     refused = {name: launches for name, launches in new_paths.items() if nerf_mlp_launches(launches) != NO_LAUNCHES}
     if refused:
         raise SystemExit(f"a NeRF-MLP kernel ran on a path whose models refuse it: {refused}")
-    if HE.launches or HE.bwd_launches:
-        raise SystemExit(f"a hash-encoding kernel ran on a path with the switch off: K4 {HE.launches}, "
-                         f"K5 {HE.bwd_launches}")
+    # K4 on every path whose pipeline has a hash grid (its phase recorded them) and on no other, K5 on none other
+    # (each phase holds its own exact counts: K5 once per step and hash grid on training, never on a frame)
+    k4, k5, grids = by_path("hash_encode_fwd"), by_path("hash_encode_bwd"), by_path("hash_grids")
+    wrong = {name: [k4[name], k5[name], grids[name]] for name in k4
+             if (k4[name] > 0) != (grids[name] > 0) or (k5[name] > 0 and not grids[name])}
+    if wrong:
+        raise SystemExit(f"K4 / K5 did not run on a path of the hash grid, or ran on another: {wrong}")
     def kernels_missing(name, launches):
         """K1 on every path; K3 on every training path and on no frame."""
         trains = not name.endswith("_frame")
@@ -3403,7 +3309,7 @@ def main() -> int:
     idle = {name: launches for name, launches in llff_paths.items() if kernels_missing(name, launches)}
     if idle:
         raise SystemExit(f"a NeRF-MLP kernel did not run on an LLFF path: {idle}")
-    # the shipped configs: as on the LLFF paths, but the hash grid's, which launch neither
+    # the shipped configs: as on the LLFF paths, but the hash grid's, which launch neither (K4 / K5 instead)
     idle = {name: launches for name, launches in config_paths.items()
             if (nerf_mlp_launches(launches) != NO_LAUNCHES if name.startswith("synth800_ngp_")
                 else kernels_missing(name, launches))}
@@ -3432,11 +3338,11 @@ def main() -> int:
     if idle:
         raise SystemExit(f"a NeRF-MLP kernel did not run on a path of the JPEG captures, the masks or the parity "
                          f"smoke: {idle}")
-    # K1 and K3 on the trajectory's arms and on the one-rank group's training
-    idle = {name: launches for name, launches in split_paths.items()
+    # K1 and K3 on the one-rank group's training
+    idle = {name: launches for name, launches in group_paths.items()
             if launches.get("nerf_mlp_fwd", 0) == 0 or launches.get("nerf_mlp_bwd", 0) == 0}
     if idle:
-        raise SystemExit(f"a NeRF-MLP kernel did not run on the trajectory or the distributed path: {idle}")
+        raise SystemExit(f"a NeRF-MLP kernel did not run on the distributed path: {idle}")
     idle = {name: launches for name, launches in trace_paths.items()
             if launches.get("nerf_mlp_fwd", 0) == 0 or launches.get("nerf_mlp_bwd", 0) == 0}
     if idle:

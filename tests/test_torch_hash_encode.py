@@ -11,10 +11,14 @@ in tests/test_torch_hash_grid.py):
     cancellation, in other orders; the plain path's on one thread, where
     its sum order is the same in every run);
   * the whole model's forward against the reference's at rtol / atol 1e-5;
-  * the switch: ``use_pallas`` on CPU points takes the plain path bit for bit;
-    the operators refuse CPU tensors, a kernel that cannot be built raises,
-    and points that ask for a gradient raise; the fake implementations'
-    shapes; ``launch_count.totals`` lists K4 / K5 beside the NeRF-MLP kernels,
+  * the device rule: the kernels take the shipped widths and not more than 16
+    levels, 4 features a level or a hashed table of other than a power-of-two
+    rows; CPU points take the plain path in every case, and the config keys
+    ``use_pallas`` / ``use_pallas_train`` select nothing; the operators
+    refuse CPU tensors, a kernel that cannot be built raises, and points
+    that ask for a gradient raise; the launch check refuses the widths the
+    kernels do not take; the fake implementations' shapes;
+    ``launch_count.totals`` lists K4 / K5 beside the NeRF-MLP kernels,
     whether they launched yet or not.
 
 On the card (marked ``cuda``, skipped without one):
@@ -29,14 +33,24 @@ On the card (marked ``cuda``, skipped without one):
     finite, nothing on zero cotangents;
   * K4 + K5 captured in one CUDA graph, replayed, bit for bit the eager pair,
     launches counted per replay;
-  * the model with ``use_pallas`` against the plain path, forward and every
-    gradient.
+  * the model on the kernels, as the device picks them, against the plain
+    path, forward and every gradient; CUDA points of widths the kernels do
+    not take raise, and never fall back to the plain path.
+  * configs/nerf/lego_ngp.yml exported on the card records K4's operator,
+    and a fresh process that imports only ``export.load_artifact`` loads
+    the program and gives the direct frame.
 
     python -m pytest tests/test_torch_hash_encode.py -m cuda --noconftest
 """
 
 import contextlib
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
 
 import pytest
 import torch
@@ -44,6 +58,8 @@ import torch
 from h100bench.reference import hash_grid as reference
 from yanerf_tpu_torch.models import MODELS
 from yanerf_tpu_torch.ops.kernels import _build, hash_encode, launch_count
+
+REPO = Path(__file__).resolve().parent.parent
 
 # 4 levels at resolutions 4, 8, 16, 32: dense while (N + 1)^3 <= 2^10 (4 and 8), hashed above
 SMALL = dict(type="HashGridNeRF", n_levels=4, table_size_log2=10, n_features_per_level=2, base_resolution=4,
@@ -131,21 +147,54 @@ def test_plain_model_follows_the_reference():
     torch.testing.assert_close(out["rays_features"], color, rtol=1e-5, atol=1e-5)
 
 
-# -- the switch and the operators off the card ----------------------------------------------------------------
+# -- the device rule and the operators off the card ----------------------------------------------------------------
 
 
 def test_the_switch_on_the_cpu_takes_the_plain_path():
-    model = _model(SMALL, use_pallas=True, use_pallas_train=True)
-    assert model.use_pallas and model.use_pallas_train and not _model(SMALL).use_pallas
+    """``use_pallas`` / ``use_pallas_train`` are still accepted and select nothing: with them the model gives the
+    plain path's outputs and table gradients bit for bit."""
+    model, plain = _model(SMALL, use_pallas=True, use_pallas_train=True), _model(SMALL)
+    assert not hasattr(model, "use_pallas") and not hasattr(model, "use_pallas_train")
     o, d = torch.randn(1, 5, 3), torch.randn(1, 5, 3)
     lengths = torch.sort(torch.rand(1, 5, 6) * 3 + 1, dim=-1).values
-    on = model(o, d, lengths)
-    off = model(o, d, lengths, use_pallas=False)
+    on, off = model(o, d, lengths), plain(o, d, lengths)
     for key in ("rays_densities", "rays_features"):
         assert torch.equal(on[key], off[key])
     grads_on = torch.autograd.grad(on["rays_features"].sum(), list(model.tables))
-    grads_off = torch.autograd.grad(off["rays_features"].sum(), list(model.tables))
+    grads_off = torch.autograd.grad(off["rays_features"].sum(), list(plain.tables))
     assert all(torch.equal(a, b) for a, b in zip(grads_on, grads_off))
+
+
+REFUSED = [(dict(SMALL, n_levels=17), None), (dict(SMALL, n_features_per_level=4), None), (SMALL, 1000)]
+REFUSED_IDS = ["17_levels", "4_features", "hashed_table_of_1000_rows"]
+
+
+def _tables(model, hashed_rows):
+    """The model's tables, each hashed level's cut to ``hashed_rows`` rows where that is given."""
+    return [t if hashed_rows is None or model._is_dense(level) else t[:hashed_rows]
+            for level, t in enumerate(model.tables)]
+
+
+@pytest.mark.parametrize("cfg,hashed_rows,takes", [
+    (SHIPPED, None, True), (SMALL, None, True), (COLLIDING, None, True), *[(*case, False) for case in REFUSED],
+], ids=["shipped", "dense_and_hashed", "colliding", *REFUSED_IDS])
+def test_the_device_picks_the_encoding(cfg, hashed_rows, takes, monkeypatch):
+    """``takes_widths`` holds for the shipped widths, and not for more than 16 levels, 4 features a level or a hashed
+    table whose rows are not a power of two (the launch check refuses those on the card). On CPU points every case
+    runs the plain path."""
+    model = _model(cfg)
+    sizes = [t.shape[0] for t in _tables(model, hashed_rows)]
+    assert hash_encode.takes_widths(model.resolutions, sizes, model.n_features_per_level) is takes
+
+    def kernels(*args, **kwargs):
+        raise AssertionError("K4 ran on CPU points")
+
+    monkeypatch.setattr(hash_encode, "hash_encode", kernels)
+    o, d = torch.randn(1, 4, 3), torch.randn(1, 4, 3)
+    lengths = torch.sort(torch.rand(1, 4, 5) * 3 + 1, dim=-1).values
+    out = model(o, d, lengths)
+    grads = torch.autograd.grad(out["rays_features"].sum(), list(model.tables))
+    assert out["rays_features"].shape == (1, 4, 5, 3) and all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_the_kernels_raise_where_they_cannot_run(monkeypatch, tmp_path):
@@ -301,20 +350,81 @@ def test_k4_and_k5_in_a_captured_graph_equal_eager(cuda_device):
 
 
 @pytest.mark.cuda
-def test_the_model_on_the_kernels_against_the_plain_path(cuda_device):
+def test_the_model_on_the_kernels_against_the_plain_path(cuda_device, monkeypatch):
     kernels = _card_model(SHIPPED, cuda_device, scale=0.5)
-    kernels.use_pallas = True
     plain = _card_model(SHIPPED, cuda_device, scale=0.5)
     gen = torch.Generator().manual_seed(13)
     o, d = (torch.randn(2, 300, 3, generator=gen) * 0.3).to(cuda_device), torch.randn(2, 300, 3, generator=gen).to(
         cuda_device)
     lengths = torch.sort(torch.rand(2, 300, 64, generator=gen) * 4 + 2, dim=-1).values.to(cuda_device)
+
+    def forward_and_grads(model):
+        out = model(o, d, lengths)
+        return out, torch.autograd.grad(out["rays_features"].sum() + out["rays_densities"].sum(),
+                                        list(model.parameters()))
+
     before = hash_encode.launches, hash_encode.bwd_launches
-    outs = [m(o, d, lengths) for m in (kernels, plain)]
-    grads = [torch.autograd.grad(out["rays_features"].sum() + out["rays_densities"].sum(), list(m.parameters()))
-             for out, m in zip(outs, (kernels, plain))]
+    on_kernels = forward_and_grads(kernels)
     assert (hash_encode.launches, hash_encode.bwd_launches) == (before[0] + 1, before[1] + 1)
+    with monkeypatch.context() as patch:  # the plain side: the model's own plain encoding in the kernels' place
+        patch.setattr(hash_encode, "hash_encode", lambda points, tables, resolutions, bound: plain.encode(tables,
+                                                                                                           points))
+        on_plain = forward_and_grads(plain)
+    assert (hash_encode.launches, hash_encode.bwd_launches) == (before[0] + 1, before[1] + 1)
+    outs, grads = zip(on_kernels, on_plain)
     for key in ("rays_densities", "rays_features"):
         torch.testing.assert_close(outs[0][key], outs[1][key], rtol=1e-5, atol=1e-5)
     for (name, _), a, b in zip(kernels.named_parameters(), *grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()) + 1e-12, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,hashed_rows", REFUSED, ids=REFUSED_IDS)
+def test_widths_the_kernels_do_not_take_raise_on_the_card(cuda_device, cfg, hashed_rows, monkeypatch):
+    """CUDA points always go to K4 / K5: for widths they do not take the launch check raises, and the plain path
+    never runs in their place."""
+    model = _card_model(cfg, cuda_device)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain encoding ran on CUDA points")
+
+    monkeypatch.setattr(model, "encode", plain)
+    pts = _points(100, 14, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="the kernels take"):
+        hash_encode.hash_encode(pts, _tables(model, hashed_rows), model.resolutions, model.scene_bound)
+    if hashed_rows is None:
+        o, d = pts[None, :10], torch.randn(1, 10, 3, device=cuda_device)
+        with pytest.raises(NotImplementedError, match="the kernels take"):
+            model(o, d, torch.sort(torch.rand(1, 10, 5, device=cuda_device) * 3 + 1, dim=-1).values)
+
+
+@pytest.mark.cuda
+def test_an_exported_hash_grid_frame_loads_in_a_fresh_process(cuda_device, tmp_path):
+    from yanerf_tpu_torch import export
+    from yanerf_tpu_torch.utils import Config
+
+    render, (_, w) = export.build_render_fn(Config.fromfile(str(REPO / "configs" / "nerf" / "lego_ngp.yml")),
+                                            device=cuda_device)
+    inputs = export.example_inputs(1, w, cuda_device)
+    program = export.trace(render, inputs)
+    assert [n for n in export.graph_nodes(program) if str(n.target).startswith("yanerf_tpu_torch.hash_encode_fwd")]
+    torch.export.save(program, tmp_path / "ngp.pt2")
+    with torch.inference_mode():
+        direct = render(*inputs).cpu().numpy()
+    np.save(tmp_path / "poses.npy", inputs[0].cpu().numpy())
+    np.save(tmp_path / "focals.npy", inputs[1].cpu().numpy())
+    consumer = f"""
+import numpy as np
+import torch
+from yanerf_tpu_torch.export import load_artifact
+render = load_artifact({str(tmp_path / 'ngp.pt2')!r})
+poses, focals = (torch.from_numpy(np.load(f)).cuda() for f in ({str(tmp_path / 'poses.npy')!r}, {str(tmp_path / 'focals.npy')!r}))
+with torch.inference_mode():
+    np.save({str(tmp_path / 'restored.npy')!r}, render(poses, focals).cpu().numpy())
+"""
+    proc = subprocess.run([sys.executable, "-c", consumer], cwd=REPO, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    restored = np.load(tmp_path / "restored.npy")
+    assert restored.shape == direct.shape and float(restored.std()) > 0.0
+    np.testing.assert_allclose(restored, direct, rtol=0, atol=1e-6)

@@ -45,6 +45,7 @@ from yanerf_tpu_torch import run as port_run
 from yanerf_tpu_torch.convert import export_jax_params, flatten_tree, load_jax_params
 from yanerf_tpu_torch.models import MODELS, HashGridNeRF, ZeroOutputer
 from yanerf_tpu_torch.models import hash_grid
+from yanerf_tpu_torch.ops.kernels import hash_encode
 from yanerf_tpu_torch.ops.structures import EvaluationMode
 from yanerf_tpu_torch.pipelines import PIPELINES
 from yanerf_tpu_torch.runners import TrainState, create_optimizer, load_checkpoint, make_train_step
@@ -175,7 +176,7 @@ def test_hash_grid_nerf_matches_apply(compute_dtype, input_dir):
     o, d, l = _inputs()
     ref = jax_model.apply(params, *map(jnp.asarray, (o, d, l)))
     with torch.no_grad():
-        got = model(*map(torch.from_numpy, (o, d, l)), use_pallas=False)
+        got = model(*map(torch.from_numpy, (o, d, l)))
     for key in ("rays_densities", "rays_features"):
         assert got[key].shape == ref[key].shape and got[key].dtype == torch.float32
         np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]), **TOLS[compute_dtype], err_msg=key)
@@ -196,9 +197,8 @@ def test_hash_grid_parameters_init_and_refusals():
     with pytest.raises(ValueError, match="scene_bound >= 2.0"):
         MODELS.build(dict(SMALL, contract_coords=True))
     o, d, l = map(torch.from_numpy, _inputs())
-    with torch.no_grad():  # on the CPU the switch takes the plain path: the kernels run on CUDA points only
-        on, off = model(o, d, l, use_pallas=True), model(o, d, l, use_pallas=False)
-    assert all(torch.equal(on[k], off[k]) for k in ("rays_densities", "rays_features"))
+    # the shipped widths take K4 / K5, which CUDA points always run: the device picks them
+    assert hash_encode.takes_widths(model.resolutions, model.level_table_sizes, model.n_features_per_level)
     with pytest.raises(ValueError, match="latent"):
         model(o, d, l, global_codes=torch.zeros(2, 4))
     # encode_chunk changes nothing
@@ -420,18 +420,21 @@ REPO_CONFIGS = Path(__file__).resolve().parent.parent / "configs" / "nerf"
 
 @pytest.mark.parametrize(
     "config,model,serving,training",
-    [("synth800_mip.yml", "MipNeRFMLP", [], []), ("lego_ngp.yml", "HashGridNeRF", [], []),
+    [("synth800_mip.yml", "MipNeRFMLP", [], []),
+     ("lego_ngp.yml", "HashGridNeRF", ["hash_encode_fwd"], ["hash_encode_fwd", "hash_encode_bwd"]),
      ("lego.yml", "NeRFMLP", ["nerf_mlp_fwd"], ["nerf_mlp_fwd", "nerf_mlp_bwd"])],
 )
 def test_profilers_take_configs_with_no_nerf_mlp(config, model, serving, training):
+    """The profilers' kernel keys: the NeRF-MLP's switched on, the hash grid's picked by the device with no key."""
     from yanerf_tpu_torch.profile_serving import serving_config
     from yanerf_tpu_torch.profile_training import training_config
 
+    nerf_mlp = model == "NeRFMLP"
     cfg, kernels = serving_config(str(REPO_CONFIGS / config))
-    assert kernels == serving and cfg.pipeline.model.get("use_pallas", False) == bool(serving)
+    assert kernels == serving and cfg.pipeline.model.get("use_pallas", False) == nerf_mlp
     cfg, kernels = training_config(str(REPO_CONFIGS / config))
-    assert kernels == training and cfg.pipeline.model.get("use_pallas_train", False) == bool(training)
-    assert training_config(str(REPO_CONFIGS / config), eager=True)[1] == []
+    assert kernels == training and cfg.pipeline.model.get("use_pallas_train", False) == nerf_mlp
+    assert training_config(str(REPO_CONFIGS / config), eager=True)[1] == ([] if nerf_mlp else training)
     pipeline = PIPELINES.build(cfg.pipeline, generator=torch.Generator().manual_seed(0), device="cpu")
     assert [type(fn).__name__ for fn in pipeline.implicit_functions] == [model, model]
 
@@ -451,20 +454,23 @@ def test_chip_smoke_new_family_phases_run_on_the_cpu(tmp_path, monkeypatch):
 
         monkeypatch.setattr(module, name, counting)
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    # the ngp paths record their two hash grids, from which the final check expects K4 / K5 on the card
+    ngp_launches = dict(chip_smoke.NO_LAUNCHES, hash_grids=2)
     for family in ("mip", "ngp"):
         cfg = Config({"pipeline": FAMILIES[family](hw=8), "serve": {"default_focal": 10.0}})
         service = service_from_config(cfg, device="cpu")
-        assert chip_smoke.family_frame(torch, K1, K3, service, "cpu", family) == chip_smoke.NO_LAUNCHES
+        want = ngp_launches if family == "ngp" else chip_smoke.NO_LAUNCHES
+        assert chip_smoke.family_frame(torch, K1, K3, service, "cpu", family) == want
         if family == "ngp":
             k6_per_frame = chip_smoke.refinements(service._pipeline) * chip_smoke.frame_chunks(cfg)
-            assert chip_smoke.serve(torch, K1, K3, service, "cpu", family, 0, k6_per_frame) == chip_smoke.NO_LAUNCHES
+            assert chip_smoke.serve(torch, K1, K3, service, "cpu", family, 0, k6_per_frame) == ngp_launches
 
     ngp_path, mip_path = _write_drive(tmp_path / "ngp", "ngp"), _write_drive(tmp_path / "mip", "mip")
     data = tmp_path / "ngp" / "data"
     assert chip_smoke.nerf_mlp_keys(ngp_path) == chip_smoke.nerf_mlp_keys(mip_path) == []
     numbers, launches = chip_smoke.train(torch, K1, K3, data, tmp_path / "smoke_ngp", ngp_path, 4)
     assert all(numbers["checks"].values()), numbers["checks"]
-    assert launches == chip_smoke.NO_LAUNCHES and numbers["params_moved"] == "28/28"  # 4 tables and 5 layers, two models
+    assert launches == ngp_launches and numbers["params_moved"] == "28/28"  # 4 tables and 5 layers, two models
 
     numbers, launches = chip_smoke.fused_train(torch, K1, K3, data, tmp_path / "smoke_mip", mip_path, 8, 3)
     assert all(numbers["checks"].values()), numbers["checks"]
@@ -478,22 +484,3 @@ def test_chip_smoke_new_family_phases_run_on_the_cpu(tmp_path, monkeypatch):
         assert family["card_step_bit_equal_twice"] and family["eval_chunk_max_abs_err"] == 0.0
     assert len(family["tables_grad_cosine"]) == 8
 
-
-def test_chip_smoke_hash_kernel_path_runs_on_the_cpu(tmp_path, monkeypatch):
-    """chip_smoke.py's "hash" phase (the hash grid's switch on, trained, then a frame) at a tiny size: on the CPU
-    the switch takes the plain path, so neither K4 nor K5 launches, and the hash kernels' counts from before the
-    phase are put back."""
-    import chip_smoke
-    from yanerf_tpu_torch.ops.kernels import hash_encode as HE
-    from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
-    from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
-
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    monkeypatch.setattr(HE, "launches", 5)
-    monkeypatch.setattr(HE, "bwd_launches", 7)
-    ngp_path = _write_drive(tmp_path / "ngp", "ngp")
-    paths = chip_smoke.hash_kernel_path(torch, K1, K3, HE, "cpu", tmp_path / "ngp" / "data",
-                                        tmp_path / "smoke_ngp_kernels", ngp_path, 4)
-    none = dict(chip_smoke.NO_LAUNCHES, hash_encode_fwd=0, hash_encode_bwd=0)
-    assert paths == {"synth800_ngp_kernels_train": none, "synth800_ngp_kernels_frame": none}
-    assert (HE.launches, HE.bwd_launches) == (5, 7)

@@ -56,10 +56,11 @@ def test_the_walk_reaches_the_parallel_layer_and_the_diagnostics():
 
     names = {m.name for m in pkgutil.walk_packages(yanerf_tpu_torch.__path__, "yanerf_tpu_torch.")}
     assert {"yanerf_tpu_torch.parallel.distributed", "yanerf_tpu_torch.parallel.mesh",
-            "yanerf_tpu_torch.parallel.sharding", "yanerf_tpu_torch.trajectory"} <= names
+            "yanerf_tpu_torch.parallel.sharding", "yanerf_tpu_torch.proposal_quality"} <= names
     assert {f"yanerf_tpu_torch.utils.{name}" for name in UTILS} <= names
     scanned = {str(path.relative_to(REPO)) for path in _port_sources()}
-    assert {"yanerf_tpu_torch/parallel/sharding.py", "yanerf_tpu_torch/trajectory.py", "chip_smoke.py"} <= scanned
+    assert {"yanerf_tpu_torch/parallel/sharding.py", "yanerf_tpu_torch/proposal_quality.py",
+            "chip_smoke.py"} <= scanned
     assert {"yanerf_tpu_torch/utils/fileio/backends.py", "yanerf_tpu_torch/utils/logging.py"} <= scanned
 
 

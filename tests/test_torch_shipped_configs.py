@@ -106,10 +106,11 @@ def test_chip_smoke_shipped_configs_phase_runs_on_the_cpu(tmp_path, monkeypatch,
 
     # K1 and K3 once per step and NeRFMLP: the classic pair per step over one epoch, fused over two LLFF epochs
     # (14 steps) and one Blender epoch; K1 once per chunk and NeRFMLP on the frames (64 points per ray in chunks
-    # of 2048); the hash grid launches neither
+    # of 2048); the hash grid launches neither, and its paths record its two HashGridNeRFs (K4 / K5 on the card)
+    ngp = dict(chip_smoke.NO_LAUNCHES, hash_grids=2)
     assert paths == {
         "synth800_train": trained(2 * BLENDER_VIEWS), "synth800_frame": {"nerf_mlp_fwd": 2 * 8},
-        "synth800_ngp_train": chip_smoke.NO_LAUNCHES, "synth800_ngp_frame": chip_smoke.NO_LAUNCHES,
+        "synth800_ngp_train": ngp, "synth800_ngp_frame": ngp,
         "synth800_proposal_2p40_train_fused": trained(BLENDER_VIEWS),
         "synth_llff_360_train_fused": trained(28), "synth_llff_360_frame": {"nerf_mlp_fwd": 2 * 6},
         "synth_llff_360u_train_fused": trained(28), "synth_llff_360u_frame": {"nerf_mlp_fwd": 2 * 6},

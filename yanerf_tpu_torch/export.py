@@ -14,11 +14,12 @@ full grid, weights baked in, traced by ``torch.export.export`` and written
 by ``torch.export.save`` as one ``.pt2`` file. The consumer does not need
 the config system, the registries or the checkpoint layout. The JAX
 artifact embeds its Mosaic kernel; this one names the operators
-``yanerf_tpu_torch::nerf_mlp_fwd`` (``ops/kernels/nerf_mlp_fwd.py``) and
-``yanerf_tpu_torch::sample_pdf`` (``ops/kernels/sample_pdf.py``), and
-:func:`load_artifact` brings them: importing those modules registers the
-operators, whose CUDA kernels (K1, K6) are built from ``csrc/`` at their
-first launch.
+``yanerf_tpu_torch::nerf_mlp_fwd`` (``ops/kernels/nerf_mlp_fwd.py``),
+``yanerf_tpu_torch::sample_pdf`` (``ops/kernels/sample_pdf.py``) and, for a
+hash grid on the card, ``yanerf_tpu_torch::hash_encode_fwd``
+(``ops/kernels/hash_encode.py``), and :func:`load_artifact` brings them:
+importing those modules registers the operators, whose CUDA kernels (K1,
+K6, K4) are built from ``csrc/`` at their first launch.
 
 The chunk loop stays a loop, as ``lax.map`` does in the JAX artifact: the
 pipeline maps its chunk body over the stacked chunk axis
@@ -143,7 +144,7 @@ def load_artifact(path: Union[str, Path]) -> nn.Module:
     Needs torch and the port's ``ops.kernels`` modules, nothing of the
     config system.
     """
-    from .ops.kernels import nerf_mlp_fwd, sample_pdf  # noqa: F401  (register the program's two operators)
+    from .ops.kernels import hash_encode, nerf_mlp_fwd, sample_pdf  # noqa: F401  (register the program's operators)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.export.load(str(path)).module()

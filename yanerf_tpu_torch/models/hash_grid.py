@@ -19,12 +19,12 @@ and the direction embedding. The tables are float32; the MLPs follow
 (``tables.3``, ``density_mlp.0.w``, ``color_mlp.2.b``) are the JAX param
 tree's dotted paths, so ``convert.py`` loads it as it is.
 
-Two paths for the encoding, chosen by ``use_pallas`` (the pipeline passes
-``use_pallas_train`` in its place in training, as for ``NeRFMLP``): with the
-switch on and CUDA points the encoding runs on the hash-encoding kernels,
-K4 forward and K5 the tables' gradient (``ops/kernels/hash_encode.py``), or
-raises; with the switch off, or on the CPU, it runs the plain path below.
-Every shipped config leaves the switch off. The encoding is the span
+Two paths for the encoding, and the device picks between them: CUDA
+points go through the hash-encoding kernels, K4 forward and K5 the tables'
+gradient (``ops/kernels/hash_encode.py``), which raise for widths they do
+not take (``hash_encode.takes_widths``; every shipped config's they do);
+CPU points run the plain path below, the reference the tests hold the
+kernels to. No option chooses. The encoding is the span
 ``model.hash_encode`` of a trace.
 
 ``encode_chunk`` is taken for the configs' sake and changes nothing: in the
@@ -124,8 +124,7 @@ class HashGridNeRF(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        self.use_pallas = use_pallas
-        self.use_pallas_train = use_pallas_train
+        # use_pallas / use_pallas_train are accepted for the configs that still set them and select nothing
         # the contraction's codomain is |x| < 2: a smaller box would clip the whole background onto its faces
         if contract_coords and float(scene_bound) < 2.0:
             raise ValueError(f"contract_coords=True requires scene_bound >= 2.0 (the contraction's codomain is "
@@ -207,12 +206,9 @@ class HashGridNeRF(nn.Module):
         directions: torch.Tensor,
         lengths: torch.Tensor,
         global_codes: Optional[torch.Tensor] = None,
-        use_pallas: Optional[bool] = None,
         **kwargs,
     ) -> Dict[str, Any]:
-        """Raw densities ``(B, *spatial, P, 1)`` and colors ``(B, *spatial, P, C)``; ``use_pallas`` (default: the
-        model's own) puts the encoding of CUDA points on K4 / K5."""
-        use_pallas = self.use_pallas if use_pallas is None else use_pallas
+        """Raw densities ``(B, *spatial, P, 1)`` and colors ``(B, *spatial, P, C)``."""
         if global_codes is not None:
             raise ValueError("HashGridNeRF does not support latent conditioning")
         cd = self.compute_dtype
@@ -220,7 +216,7 @@ class HashGridNeRF(nn.Module):
         if self.contract_coords:
             points = contract_points(points)
         with annotate("model.hash_encode"):
-            if use_pallas and points.is_cuda:
+            if points.is_cuda:
                 enc = hash_encode.hash_encode(points.reshape(-1, 3).contiguous(), list(self.tables), self.resolutions,
                                               self.scene_bound).reshape(*points.shape[:-1], self.encoding_dim)
             else:

@@ -6,13 +6,15 @@ embedding of the points (10 frequencies) and normalized directions (4), an
 (intermediate linear -> linear-with-repeat over the direction embedding ->
 ReLU -> [extra layers] -> linear -> sigmoid).
 
-Two paths, chosen by ``use_pallas`` (the config keys are the JAX package's,
-so both packages read the same configs; in TRAINING the pipeline passes
-``use_pallas_train`` in its place):
+Two functions, chosen by ``use_pallas`` (the config keys are the JAX
+package's, so both packages read the same configs; in TRAINING the pipeline
+passes ``use_pallas_train`` in its place). They differ in their bf16
+policy, which no code can observe, so a config chooses:
   * the eager path, the model's own, with the JAX package's bf16 policy;
   * the fused kernels (``ops/kernels/fused_mlp.py``): forward K1
-    (``nerf_mlp_fwd``) and, under autograd, backward K3 (``nerf_mlp_bwd``),
-    the CUDA kernels on the card, their plain versions on the CPU.
+    (``nerf_mlp_fwd``) and, under autograd, backward K3 (``nerf_mlp_bwd``).
+    The device picks their implementation: the CUDA kernels on the card,
+    their plain versions on the CPU.
 The eager path is the point embedding (``_embed_points``) and the rest
 (``_from_embedding``), so that ``MipNeRFMLP`` replaces only the embedding.
 Without a gradient to carry (serving, eval) the kernel path calls the
@@ -60,8 +62,6 @@ def as_torch_dtype(name) -> torch.dtype:
 
 @MODELS.register_module()
 class NeRFMLP(nn.Module):
-    kernel_arm = "k1k3"  # the training path's halves under use_pallas_train (fused_mlp.ARMS)
-
     def __init__(
         self,
         n_layers: int = 8,
@@ -221,16 +221,6 @@ class NeRFMLP(nn.Module):
         rays_colors = self._get_colors(features, directions)
         return dict(rays_densities=raw_densities, rays_features=rays_colors, aux={})
 
-    def eager_flat(self, points: torch.Tensor, dirs: torch.Tensor, pts_per_ray: int) -> torch.Tensor:
-        """The eager model on the kernel's inputs: ``(N, 3)`` ray points (contracted where the model contracts)
-        and ``(N / pts_per_ray, 3)`` dirs -> ``(N, 1 + C)`` float32, density | rgb."""
-        embeds = harmonic_embedding(
-            points.reshape(-1, pts_per_ray, 3), self.n_harmonic_functions_xyz,
-            append_input=self.harmonic_functions_xyz_append_intput,
-        )
-        out = self._from_embedding(embeds, dirs)
-        return torch.cat([out["rays_densities"], out["rays_features"]], dim=-1).reshape(points.shape[0], -1)
-
     def forward(
         self,
         origins: torch.Tensor,
@@ -264,7 +254,7 @@ class NeRFMLP(nn.Module):
                 # no gradient to carry: the operator alone, as the Function's forward calls it
                 out = fused.nerf_mlp_fwd(self.packed_weights(), points, dirs, n_pts)
             else:
-                out = fused_nerf_mlp(self, points, dirs, n_pts, self.kernel_arm)
+                out = fused_nerf_mlp(self, points, dirs, n_pts)
             return dict(
                 rays_densities=out[:, :1].reshape(*lead, n_pts, 1),
                 rays_features=out[:, 1:].reshape(*lead, n_pts, self.color_dim),

@@ -21,8 +21,12 @@ are launched through the ``torch.library`` operator
 a traced program (``export.py``) records them by name; K3 is called by
 ``FusedNerfMlp.backward`` directly. K4 and K5 are the operators
 ``yanerf_tpu_torch::hash_encode_fwd`` / ``hash_encode_bwd``, joined by
-``hash_encode.HashEncode``, the path of ``HashGridNeRF`` under
-``use_pallas`` on the card. K6 is the operator
-``yanerf_tpu_torch::sample_pdf``, which ``ops/sample_pdf.py`` calls on
-every device: the plain version on the CPU, K6 on the card.
+``hash_encode.HashEncode``, which ``HashGridNeRF`` runs on every CUDA
+point; they raise for widths they do not take (``hash_encode.takes_widths``). K6 is
+the operator ``yanerf_tpu_torch::sample_pdf``, which ``ops/sample_pdf.py``
+calls on every device.
+
+The device picks every kernel, and no option does: on CUDA tensors the
+kernel, on CPU tensors its plain version (K1, K3, K6) or the model's plain
+path (K4, K5).
 """

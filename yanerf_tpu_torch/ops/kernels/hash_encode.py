@@ -17,8 +17,10 @@ about it.
   deterministic: two launches on the same inputs give the same bits.
 * ``HashEncode`` joins them; ``hash_encode`` is its entry. The points
   take no gradient on this path: asking for one raises.
-Neither operator has a CPU kernel: on the CPU the model runs its plain path.
-On a CUDA tensor they launch their kernel or raise (no fallback). Both are
+``HashGridNeRF`` encodes every CUDA point here. ``takes_widths`` says
+which hash grids the kernels take; a launch on other widths raises.
+Neither operator has a CPU kernel: on the CPU the model runs its plain
+path. On a CUDA tensor they launch their kernel or raise (no fallback). Both are
 capturable into a CUDA graph: no host synchronisation, and no allocation
 whose size depends on the data.
 
@@ -77,20 +79,24 @@ def inv_extent(scene_bound: float) -> float:
     return float(np.float32(1.0) / np.float32(2.0 * scene_bound))
 
 
-def _check(points: torch.Tensor, sizes: List[int], resolutions: List[int]) -> None:
+def takes_widths(resolutions: List[int], sizes: List[int], n_features: int = N_FEATURES) -> bool:
+    """Whether K4 / K5 take a hash grid of these widths: 1 to ``MAX_LEVELS`` levels of ``N_FEATURES`` features,
+    each level's resolution and table at least 1, each hashed level's table a power of two."""
+    return (n_features == N_FEATURES and 1 <= len(sizes) <= MAX_LEVELS and len(resolutions) == len(sizes)
+            and all(res >= 1 and size >= 1 and ((res + 1) ** 3 <= size or not size & (size - 1))
+                    for res, size in zip(resolutions, sizes)))
+
+
+def _check(points: torch.Tensor, sizes: List[int], resolutions: List[int], n_features: int = N_FEATURES) -> None:
     if points.device.type != "cuda":
         raise ValueError(f"the hash encoding's kernels take CUDA tensors, got {points.device}; "
                          "on the CPU the model runs its plain path")
     if points.dtype != torch.float32 or points.dim() != 2 or points.shape[1] != 3 or not points.is_contiguous():
         raise ValueError(f"points must be a contiguous float32 (n, 3) tensor, got {tuple(points.shape)} {points.dtype}")
-    if not 1 <= len(sizes) <= MAX_LEVELS or len(resolutions) != len(sizes):
-        raise NotImplementedError(f"the kernels take 1 to {MAX_LEVELS} levels, got {len(sizes)} tables and "
-                                  f"{len(resolutions)} resolutions")
-    for res, size in zip(resolutions, sizes):
-        if res < 1 or size < 1:
-            raise ValueError(f"a level needs a resolution and a table of at least 1, got {res} and {size}")
-        if (res + 1) ** 3 > size and size & (size - 1):
-            raise NotImplementedError(f"a hashed level's table must have a power-of-two size, got {size}")
+    if not takes_widths(resolutions, sizes, n_features):
+        raise NotImplementedError(f"the kernels take 1 to {MAX_LEVELS} levels of {N_FEATURES} features, resolution "
+                                  f"and table at least 1, a hashed level's table a power of two; got {n_features} "
+                                  f"features, resolutions {list(resolutions)} and tables of {list(sizes)} rows")
 
 
 def _stream(device: torch.device) -> int:
@@ -112,7 +118,7 @@ def _(points, tables, resolutions, scene_bound):
 
 def _fwd_cuda(points, tables, resolutions, scene_bound):
     lib = LIBRARY.library()  # raises where the kernel cannot be built
-    _check(points, [t.shape[0] for t in tables], resolutions)
+    _check(points, [t.shape[0] for t in tables], resolutions, tables[0].shape[-1] if tables else N_FEATURES)
     for t in tables:
         if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != N_FEATURES or not t.is_contiguous()
                 or t.device != points.device):

@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from .builder import FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS, nerf_mlp_keys, set_nerf_mlp_option
+from .builder import (FEATURE_EXTRACTORS, PIPELINES, RAY_SAMPLERS, RENDERERS, hash_grid_kernels, nerf_mlp_keys,
+                      set_nerf_mlp_option)
 from .feature_extractors import IdentityMapper, LearnedSceneEmbedding
 from .nerf_pipeline import NeRFPipeline
 from .ray_sampler import RaySampler
@@ -19,6 +20,7 @@ __all__ = [
     "NeRFPipeline",
     "ProposalEmissionAbsorpsionRenderer",
     "RaySampler",
+    "hash_grid_kernels",
     "nerf_mlp_keys",
     "refine_ray_points",
     "set_nerf_mlp_option",

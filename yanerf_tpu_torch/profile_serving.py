@@ -4,9 +4,9 @@
 
 Builds the service of ``--config`` (``configs/nerf/lego_proposal.yml`` by
 default) with the NeRF-MLP kernel on for every NeRFMLP of the config
-(seeded random weights; a config with no NeRFMLP, such as
-``synth800_mip.yml`` or ``lego_ngp.yml``, runs its models' own eager
-paths and prints ``"kernels": []``), renders one warm-up frame, times
+(seeded random weights; a config with no NeRFMLP runs its models' own
+paths: ``synth800_mip.yml`` prints ``"kernels": []``, ``lego_ngp.yml``
+K4, which the device picks), renders one warm-up frame, times
 ``--frames`` frames on the host clock, then profiles one more and prints
 one JSON line: frame seconds, device busy time, the device's idle share,
 kernel launches per frame and the device time of the top kernels. Needs a
@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from .pipelines import set_nerf_mlp_option
+from .pipelines import hash_grid_kernels, set_nerf_mlp_option
 from .serve import CAM_CALIBRATION, orbit_pose, service_from_config
 from .utils import Config
 
@@ -32,9 +32,11 @@ TOP_KERNELS = 12
 
 
 def serving_config(path: str):
-    """The config of ``path`` with the NeRF-MLP kernel on, and the kernels the frame launches (none without a NeRFMLP)."""
+    """The config of ``path`` with the NeRF-MLP kernel on, and the kernels the frame launches: K1 on a NeRFMLP, K4
+    on a HashGridNeRF."""
     cfg = Config.fromfile(path)
-    return cfg, ["nerf_mlp_fwd"] if set_nerf_mlp_option(cfg, "use_pallas", True) else []
+    kernels = ["nerf_mlp_fwd"] if set_nerf_mlp_option(cfg, "use_pallas", True) else []
+    return cfg, kernels + hash_grid_kernels(cfg)[:1]
 
 
 def main(argv=None) -> None:

@@ -6,8 +6,8 @@
 Builds the pipeline of ``--config`` (``configs/nerf/lego_proposal.yml`` by
 default) with the fused NeRF-MLP kernels on for training on every NeRFMLP
 of the config (``use_pallas_train``; ``--eager`` turns them off; a config
-with no NeRFMLP, such as ``synth800_mip.yml`` or ``lego_ngp.yml``, runs its
-models' own eager paths and prints ``"kernels": []``), seeded
+with no NeRFMLP runs its models' own paths: ``synth800_mip.yml`` prints
+``"kernels": []``, ``lego_ngp.yml`` K4 and K5, which the device picks), seeded
 random weights, Adam with the config's schedule, and one
 random 800x800 image as the batch (``--data_dir``: the first item of the
 config's train dataset there, an LLFF view with its per-image bounds, say,
@@ -41,7 +41,7 @@ import torch
 
 from .datasets import DATASETS, stack_batch
 from .datasets.blender import BlenderDatasetWrapper
-from .pipelines import PIPELINES, set_nerf_mlp_option
+from .pipelines import PIPELINES, hash_grid_kernels, set_nerf_mlp_option
 from .runners import TrainState, create_optimizer, make_train_step, make_train_step_fused
 from .serve import CAM_CALIBRATION, orbit_pose
 from .utils import Config
@@ -53,7 +53,7 @@ TOP_KERNELS = 12
 
 def training_config(path: str, eager: bool = False, options=None):
     """The config of ``path`` (merged with ``options``) with the fused NeRF-MLP kernels on (off with ``eager``),
-    and the kernels a step launches (none without a NeRFMLP)."""
+    and the kernels a step launches: K1 / K3 on a NeRFMLP, K4 / K5 on a HashGridNeRF."""
     cfg = Config.fromfile(path)
     if options:
         cfg.merge_from_dict(options)
@@ -61,7 +61,8 @@ def training_config(path: str, eager: bool = False, options=None):
     models = cfg.pipeline.model if isinstance(cfg.pipeline.model, (list, tuple)) else [cfg.pipeline.model]
     on_kernels = any(m["type"] == "NeRFMLP" and m.get("latent_dim", 0) == 0 and m.get("input_xyz", True)
                      for m in models)
-    return cfg, ["nerf_mlp_fwd", "nerf_mlp_bwd"] if keys and on_kernels and not eager else []
+    nerf_mlp = ["nerf_mlp_fwd", "nerf_mlp_bwd"] if keys and on_kernels and not eager else []
+    return cfg, nerf_mlp + hash_grid_kernels(cfg)
 
 
 def main(argv=None) -> None:

@@ -15,20 +15,12 @@ flagship's 20k-iteration schedule to its test PSNR.
    ``--seeds`` entry, with the config's own learning-rate schedule
    (``--lr_decay_iters`` overrides its horizon), and reads each run's final
    test PSNR. ``--arm`` picks the NeRF-MLP's training path: ``k1k3`` (the
-   default on the card: K1 forward, K3 backward), ``k1`` (K1 forward, the
-   eager model's backward), ``k3`` (the eager forward, K3 backward) or
-   ``eager`` (no kernel). The kernel arms render
-   their frames on K1, and their final checkpoint is tested once more on
-   the eager model (``test_eager_eval``), so a gap between arms can be told
-   from the frame path.
+   default on the card: K1 forward, K3 backward) or ``eager`` (no kernel).
+   The kernel arm renders its frames on K1, and its final checkpoint is
+   tested once more on the eager model (``test_eager_eval``), so a gap
+   between the arms can be told from the frame path.
 Writes ``<root>/proposal_quality.json`` with both stages, the card's name
 and the seconds of each.
-
-The split arms are not config keys: ``python -m
-yanerf_tpu_torch.proposal_quality run_arm <arm> <run.py arguments>`` runs
-``yanerf_tpu_torch.run`` with every NeRFMLP's ``kernel_arm`` set to
-``<arm>`` (``ops/kernels/fused_mlp.py``), which is how step 3 starts the
-``k1`` / ``k3`` runs.
 """
 
 from __future__ import annotations
@@ -50,33 +42,17 @@ from .repro_parity import (
 )
 
 SCHEDULE = ["runner.num_iters=20000", "runner.val_per_iter=5000"]
-ARMS = ("k1k3", "k1", "k3", "eager")
-
-
-def run_arm(argv) -> int:
-    """``run_arm <arm> <run.py arguments>``: ``yanerf_tpu_torch.run`` with ``NeRFMLP.kernel_arm = <arm>``."""
-    from . import run
-    from .models.nerf_mlp import NeRFMLP
-    from .ops.kernels.fused_mlp import ARMS as KERNEL_ARMS
-
-    if argv[0] not in KERNEL_ARMS:
-        raise SystemExit(f"run_arm takes one of {KERNEL_ARMS}, got {argv[0]!r}")
-    NeRFMLP.kernel_arm = argv[0]
-    run.main(argv[1:])
-    return 0
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] == "run_arm":
-        return run_arm(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True, help="where data/ and the runs' results go")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seeds", type=int, nargs="+", default=[42], help="one 20k run per seed (the config's is 42)")
     ap.add_argument("--lr_decay_iters", type=int, default=None, help="the decay horizon (default: the config's)")
     ap.add_argument("--skip_runbook", action="store_true")
-    ap.add_argument("--arm", default="k1k3", choices=ARMS, help="the NeRF-MLP's training path on the card")
+    ap.add_argument("--arm", default="k1k3", choices=("k1k3", "eager"),
+                    help="the NeRF-MLP's training path on the card")
     args = ap.parse_args(argv)
     arm = "eager" if args.device != "cuda" else args.arm
     import torch
@@ -101,14 +77,12 @@ def main(argv=None) -> int:
 
     schedule = SCHEDULE + ([f"runner.lr_decay_iters={args.lr_decay_iters}"] if args.lr_decay_iters else [])
     kernels = [] if arm == "eager" else _kernel_options(TIME_TO_QUALITY_CONFIG, args.device)
-    entry = (["yanerf_tpu_torch.run"] if arm in ("k1k3", "eager")
-             else ["yanerf_tpu_torch.proposal_quality", "run_arm", arm])
     record["arm"] = arm
     record["schedule_20k"] = []
     for seed in args.seeds:
         t = time.perf_counter()
         out_dir = root / "results" / f"schedule_20k_{arm}_seed{seed}"
-        subprocess.run([sys.executable, "-m", *entry, "--config", TIME_TO_QUALITY_CONFIG, "--device",
+        subprocess.run([sys.executable, "-m", "yanerf_tpu_torch.run", "--config", TIME_TO_QUALITY_CONFIG, "--device",
                         args.device, "--seed", str(seed), "--output_dir", str(out_dir), "--cfg_options",
                         *_dataset_options(scene), *kernels, *schedule],
                        cwd=REPO, check=True)
