@@ -344,6 +344,7 @@ HASH_FWD_ATOL = 4e-6
 # the plain backward (index_put_'s float32 sums) against the exact sum, times the row's absolute sum; K5 against
 # it at 2^-24 relative plus half its fixed-point step per term (csrc/hash_encode.cu, tests/test_torch_hash_encode.py)
 HASH_PLAIN_RTOL = 1e-5
+K7_RAYS, K7_PTS = 2045, 64  # the served lego chunk's proposal call: 130,880 points
 # K6 at the paths' shapes (rays, bins, samples, draws): the frames' two proposal refinements and the classic fine
 # pass of a 2,045-ray eval chunk (det: one linspace row), the train steps' (stratified proposal draws, the classic
 # fine pass's unstratified ones)
@@ -980,6 +981,48 @@ def check_sample_pdf_shapes(torch, SP, card_line) -> dict:
     return numbers[2045, 64]
 
 
+def check_k7(torch, K7, proposal, gen) -> dict:
+    """K7 against its plain version at the served proposal call (K7_RAYS x K7_PTS world points) of
+    ``proposal``'s weights; returns its numbers.
+
+    K7 must give the same bits twice and lie within KERNEL_ATOL / RTOL of
+    its plain version. Times (CUDA events): K7 on the device (``ms``, from
+    ``graph_ms``) and as an eager caller sees it (``eager_call_ms``), its
+    plain version (``plain_ms``), and the ProposalMLP's own bf16 layers under
+    ``torch.no_grad()`` (``eager_ms``: the served call before K7), against
+    the least time of its operations (``bound_ms``).
+    """
+    from yanerf_tpu_torch.models.proposal_mlp import ProposalMLP
+
+    origins, dirs, lengths, points = ray_inputs(torch, K7_RAYS, K7_PTS, gen)
+    packed = proposal.packed_weights()
+    first = K7.first_layer_bias(packed)
+    k7 = lambda: K7.proposal_mlp_fwd(packed, points)  # noqa: E731
+    plain = lambda: K7.proposal_mlp_fwd_plain(points, packed.flat, packed.biases_flat, first,  # noqa: E731
+                                              points.shape[0], *packed.layout)
+    got, want = k7(), plain()
+    deterministic = bool(torch.equal(got, k7()))
+    err = (got - want).abs()
+    max_abs_err = float(err.max())
+    if not bool(torch.isfinite(got).all()) or bool((err > KERNEL_ATOL + KERNEL_RTOL * want.abs()).any()) or \
+            not deterministic:
+        raise SystemExit(f"proposal_mlp_fwd at {points.shape[0]} points: max abs err {max_abs_err} against its "
+                         f"plain version, the same bits twice {deterministic}")
+
+    def layers():
+        with torch.no_grad(), mock.patch.object(ProposalMLP, "on_kernel", lambda *args, **kw: False):
+            proposal(origins, dirs, lengths)
+
+    flops = K7.flops_per_point(packed) * points.shape[0]
+    bound_ms, bound_by = bound(flops, points.shape[0] * 16 + packed.flat.numel() * 2 + packed.biases_flat.numel() * 4)
+    ms = graph_ms(torch, k7)
+    return dict(points=points.shape[0], **input_range(points), max_abs_err=max_abs_err, atol=KERNEL_ATOL,
+                rtol=KERNEL_RTOL, deterministic=deterministic, ms=ms, us=1e3 * ms, eager_call_ms=time_ms(torch, k7),
+                plain_ms=time_ms(torch, plain), eager_ms=time_ms(torch, layers), bound_ms=bound_ms,
+                bound_us=1e3 * bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms, tflops=flops / ms / 1e9,
+                build=K7.build_report())
+
+
 def refinements(pipeline) -> int:
     """K6's launches in one forward of ``pipeline``: one per refinement, between each pass and the next."""
     return len(pipeline.implicit_functions) - 1
@@ -995,11 +1038,12 @@ def train_tally(pipeline, n_mlps: int) -> dict:
 
 
 def reset_counts() -> None:
-    """Start a path's count of K4, K5 and K6's launches."""
+    """Start a path's count of K4, K5, K6 and K7's launches."""
     from yanerf_tpu_torch.ops.kernels import hash_encode as HE
+    from yanerf_tpu_torch.ops.kernels import proposal_mlp_fwd as K7
     from yanerf_tpu_torch.ops.kernels import sample_pdf as SP
 
-    HE.launches = HE.bwd_launches = SP.launches = 0
+    HE.launches = HE.bwd_launches = SP.launches = K7.launches = 0
 
 
 def k6_launches() -> int:
@@ -1010,12 +1054,13 @@ def k6_launches() -> int:
 
 
 def with_counts(launches: dict, hash_grids: int = 0) -> dict:
-    """A path's ``launches`` of the NeRF-MLP kernels, and K4, K5 and K6's since ``reset_counts`` where they
+    """A path's ``launches`` of the NeRF-MLP kernels, and K4, K5, K6 and K7's since ``reset_counts`` where they
     launched; ``hash_grids``, where the path's pipeline has any, is what the final check expects K4 / K5 from."""
     from yanerf_tpu_torch.ops.kernels import hash_encode as HE
+    from yanerf_tpu_torch.ops.kernels import proposal_mlp_fwd as K7
 
     counted = {"hash_encode_fwd": HE.launches, "hash_encode_bwd": HE.bwd_launches, "sample_pdf": k6_launches(),
-               "hash_grids": hash_grids}
+               "proposal_mlp_fwd": K7.launches, "hash_grids": hash_grids}
     return dict(launches, **{k: n for k, n in counted.items() if n})
 
 
@@ -1029,11 +1074,13 @@ def nerf_mlp_launches(launches: dict) -> dict:
     return {k: launches.get(k, 0) for k in NO_LAUNCHES}
 
 
-def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame: int, k6_per_frame: int):
+def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame: int, k6_per_frame: int,
+          k7_per_frame: int = 0):
     """The port's HTTP server answers at full width; returns the launches of its two frames.
 
     K1 must launch ``k1_per_frame`` times a frame, K6 ``k6_per_frame``
-    (once per chunk and refinement) where the service runs on the card.
+    (once per chunk and refinement) and K7 ``k7_per_frame`` (once per chunk
+    and ProposalMLP) where the service runs on the card.
     """
     import numpy as np
 
@@ -1085,23 +1132,30 @@ def serve(torch, K1, K3, service, card_line: str, config_name: str, k1_per_frame
                                                               "nerf_mlp_fwd_pipelined": 0, "nerf_mlp_bwd": 0},
         "k6_once_per_chunk_and_refinement": launches.get("sample_pdf", 0)
         == (k6_per_frame * FRAMES_PER_RUN if service.device.type == "cuda" else 0),
+        "k7_once_per_chunk_and_proposal": launches.get("proposal_mlp_fwd", 0)
+        == (k7_per_frame * FRAMES_PER_RUN if service.device.type == "cuda" else 0),
     }
     say(card_line, "serve", config=config_name, warmup_s=warmup_s, latency_s=latencies, launches=launches,
         k1_launches_per_frame=launches["nerf_mlp_fwd"] / FRAMES_PER_RUN,
-        k6_launches_per_frame=launches.get("sample_pdf", 0) / FRAMES_PER_RUN, frame_hw=[h, w], checks=checks,
+        k6_launches_per_frame=launches.get("sample_pdf", 0) / FRAMES_PER_RUN,
+        k7_launches_per_frame=launches.get("proposal_mlp_fwd", 0) / FRAMES_PER_RUN, frame_hw=[h, w], checks=checks,
         server_mean_render_s=health["mean_render_s"])
     if not all(checks.values()):
         raise SystemExit(f"{config_name} serve phase failed: {checks}")
     return launches
 
 
-def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool, view=None, k1_per_frame=None):
+def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool, view=None, k1_per_frame=None,
+          k7_per_frame=None):
     """One frame with K1, [with K2 at the kernel entry,] and with the plain version; returns the launches.
 
     ``view`` is ``(pose 3x4, focal, min_depth, max_depth)`` (an LLFF test
     view), else an orbit camera at the service's defaults; with
     ``k1_per_frame`` K1 must run exactly that often (once per chunk and
-    NeRFMLP).
+    NeRFMLP). With ``k7_per_frame`` K7 must run that often (once per chunk
+    and ProposalMLP), the frame must equal the eager chunk loop's (which
+    runs K7 too) within 1e-6, and the frame with the ProposalMLPs' own bf16
+    layers in place of K7 is rendered for its PSNR against the K7 frame.
     """
     import numpy as np
 
@@ -1121,6 +1175,22 @@ def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool, v
     checks = {"finite": bool(np.isfinite(rgb_kernel).all())}
     if k1_per_frame is not None:
         checks["k1_once_per_chunk_and_nerf_mlp"] = launches["nerf_mlp_fwd"] == k1_per_frame > 0
+    if k7_per_frame is not None:
+        from yanerf_tpu_torch.models.proposal_mlp import ProposalMLP
+
+        checks["k7_once_per_chunk_and_proposal"] = launches.get("proposal_mlp_fwd", 0) == k7_per_frame > 0
+        t = time.perf_counter()
+        loop_rgb, loop_depth = eager_frame(torch, service, view)
+        numbers["eager_loop_frame_s"] = time.perf_counter() - t
+        numbers["eager_loop_max_abs"] = max(float(np.abs(rgb_kernel - loop_rgb).max()),
+                                            float(np.abs(depth_kernel - loop_depth).max()))
+        checks["k7_frame_equals_eager_loop"] = numbers["eager_loop_max_abs"] <= 1e-6
+        with mock.patch.object(ProposalMLP, "on_kernel", lambda *args, **kw: False):  # a replay would run K7
+            t = time.perf_counter()
+            rgb_layers, _ = eager_frame(torch, service, view)
+            numbers["proposal_layers_frame_s"] = time.perf_counter() - t
+        mse = float(np.mean((rgb_kernel.astype(np.float64) - rgb_layers) ** 2))
+        numbers["proposal_layers_psnr_db"] = -10.0 * math.log10(max(mse, 1e-20))
     if with_k2:
         k1_entry = K1.nerf_mlp_fwd
         K1.launches = K1.pipelined_launches = 0
@@ -1149,16 +1219,18 @@ def frame(torch, K1, service, card_line: str, config_name: str, with_k2: bool, v
 class observe_run:
     """Inside the block, record what ``yanerf_tpu_torch.run`` trains: the parameters it starts from, the
     objective of every step, per step (``make_train_step``) and per fused dispatch (``FusedTrainStep``), and K6's
-    launches inside the steps (``k6_in_steps``; the eval frames around them not counted)."""
+    and K7's launches inside the steps (``k6_in_steps``, ``k7_in_steps``; the eval frames around them not
+    counted)."""
 
     def __init__(self, torch):
         import yanerf_tpu_torch.runners as runners
+        from yanerf_tpu_torch.ops.kernels import proposal_mlp_fwd as K7
         from yanerf_tpu_torch.ops.kernels import sample_pdf as SP
         from yanerf_tpu_torch.runners import apis
 
         self.torch = torch
         self.initial, self.objectives = {}, []
-        self.k6_in_steps = 0
+        self.k6_in_steps = self.k7_in_steps = 0
         make_step, dispatch = runners.make_train_step, apis.FusedTrainStep.__call__
 
         def observed_step(pipeline, runner_config, seed, **kwargs):
@@ -1166,9 +1238,10 @@ class observe_run:
             step = make_step(pipeline, runner_config, seed, **kwargs)
 
             def wrapped(state, batch, draws=None):
-                before = SP.launches
+                before, before_k7 = SP.launches, K7.launches
                 preds = step(state, batch, draws)
                 self.k6_in_steps += SP.launches - before
+                self.k7_in_steps += K7.launches - before_k7
                 self.objectives.append(preds["objective"].flatten())
                 return preds
 
@@ -1176,9 +1249,10 @@ class observe_run:
 
         def observed_dispatch(trainer, state, arrays, idx):
             self._start(trainer.pipeline)
-            before = SP.launches
+            before, before_k7 = SP.launches, K7.launches
             hist = dispatch(trainer, state, arrays, idx)
             self.k6_in_steps += SP.launches - before
+            self.k7_in_steps += K7.launches - before_k7
             self.objectives.append(hist["objective"].flatten())
             return hist
 
@@ -1270,6 +1344,7 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
         and launches["nerf_mlp_fwd_pipelined"] == 0 and (n_mlps > 0) == bool(keys),
         "k6_per_refinement_per_step": seen.k6_in_steps
         == (refinements(state.pipeline) * n_steps if DEVICE == "cuda" else 0),
+        "k7_never_in_a_step": seen.k7_in_steps == 0,  # a train step's ProposalMLPs run their own layers
         # K5 once per step and hash grid; K4 as often, and again in the eval frames
         "k5_per_hash_grid_per_step": launches.get("hash_encode_bwd", 0)
         == (n_hash * n_steps if DEVICE == "cuda" else 0) <= launches.get("hash_encode_fwd", 0),
@@ -1283,7 +1358,7 @@ def train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=None, ex
         run_s=run_s, ms_per_step=ms_per_step,
         step_s_per_epoch=step_s,
         train_rays_per_s=n_rays / ms_per_step * 1e3, rays_per_step=n_rays, peak_memory_gb=peak_gb, launches=launches,
-        k6_in_steps=seen.k6_in_steps,
+        k6_in_steps=seen.k6_in_steps, k7_in_steps=seen.k7_in_steps,
         objective_first=float(objective[0]), objective_last=float(objective[-1]),
         params_moved=f"{moved}/{len(initial)}", test_stats=result["test_stats"], checks=checks,
     )
@@ -1330,7 +1405,7 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None
         result["objective"], result["params_moved"] = seen.objective(), (seen.moved(result["state"].pipeline),
                                                                           len(seen.initial))
-        result["k6_in_steps"] = seen.k6_in_steps
+        result["k6_in_steps"], result["k7_in_steps"] = seen.k6_in_steps, seen.k7_in_steps
         launches = with_counts({"nerf_mlp_fwd": K1.launches, "nerf_mlp_fwd_pipelined": K1.pipelined_launches,
                                "nerf_mlp_bwd": K3.launches}, hash_kernel_models(result["state"].pipeline))
         return result, launches, result["run_s"]
@@ -1369,6 +1444,7 @@ def fused_train(torch, K1, K3, scene: Path, out_dir: Path, config=None, steps=No
         and fused_launches["nerf_mlp_fwd_pipelined"] == 0 and (n_mlps > 0) == bool(keys),
         "k6_per_refinement_per_step": fused["k6_in_steps"] == per_step["k6_in_steps"]
         == (refinements(fused["state"].pipeline) * steps if on_card else 0),
+        "k7_never_in_a_step": fused["k7_in_steps"] == per_step["k7_in_steps"] == 0,
         # bit for bit where the per-step loop itself is; otherwise no further than it is from itself
         "equal_to_per_step": fused_equal if per_step_equal else fused_gap <= per_step_gap,
         "objective_finite_every_step": fused["objective"].numel() == steps * batch_size  # one per image and step
@@ -3053,6 +3129,7 @@ def main() -> int:
     from yanerf_tpu_torch.ops.kernels import hash_encode as HE
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
     from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
+    from yanerf_tpu_torch.ops.kernels import proposal_mlp_fwd as K7
     from yanerf_tpu_torch.ops.kernels import sample_pdf as SP
     from yanerf_tpu_torch.serve import service_from_config
     from yanerf_tpu_torch.synth_scene import write_scene
@@ -3067,7 +3144,8 @@ def main() -> int:
     from yanerf_tpu_torch import native
 
     libraries = {"nerf_mlp_fwd": K1.LIBRARY, "nerf_mlp_fwd_pipelined": K1.PIPELINED_LIBRARY,
-                 "nerf_mlp_bwd": K3.LIBRARY, "hash_encode": HE.LIBRARY, "sample_pdf": SP.LIBRARY}
+                 "nerf_mlp_bwd": K3.LIBRARY, "hash_encode": HE.LIBRARY, "sample_pdf": SP.LIBRARY,
+                 "proposal_mlp_fwd": K7.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         host_build = pool.submit(native.LIBRARY.load)
@@ -3108,13 +3186,16 @@ def main() -> int:
         "[-1.5, 1.5]^3 along (0, 0, 1)", **check_k1(torch, K1, nerf_mlp, packed, LATTICE_CHUNK, 1, gen, "lattice_mesh"))
     hash_fwd, hash_bwd = check_hash_shapes(torch, HE, card_line)
     pdf = check_sample_pdf_shapes(torch, SP, card_line)
+    k7 = check_k7(torch, K7, service._pipeline.implicit_functions[0], gen)
+    say(card_line, "kernel", name="proposal_mlp_fwd", shape=f"served proposal call, {K7_RAYS} rays x {K7_PTS} points",
+        **k7)
     torch.cuda.empty_cache()
 
     # 3. serve and 4. frame, proposal then classic; K6 once per chunk and refinement (two proposal refinements,
     # one classic fine pass)
     serve_launches = {"proposal": serve(torch, K1, K3, service, card_line, CONFIG.name, CHUNKS_PER_FRAME,
-                                        2 * CHUNKS_PER_FRAME)}
-    frame(torch, K1, service, card_line, CONFIG.name, with_k2=False)
+                                        2 * CHUNKS_PER_FRAME, 2 * CHUNKS_PER_FRAME)}
+    frame(torch, K1, service, card_line, CONFIG.name, with_k2=False, k7_per_frame=2 * CHUNKS_PER_FRAME)
     del service, nerf_mlps, nerf_mlp
     service, nerf_mlps = build_service(CLASSIC_CONFIG)
     serve_launches["classic"] = serve(torch, K1, K3, service, card_line, CLASSIC_CONFIG.name,
@@ -3286,6 +3367,8 @@ def main() -> int:
                   hash_bwd, by_path("hash_encode_bwd")),
             entry("sample_pdf", "yanerf_tpu_torch/csrc/sample_pdf.cu", "yanerf_tpu/ops/sample_pdf.py:33", pdf,
                   by_path("sample_pdf")),
+            entry("proposal_mlp_fwd", "yanerf_tpu_torch/csrc/proposal_mlp_fwd.cu",
+                  "none: XLA's layers of yanerf_tpu/models/proposal_mlp.py:72", k7, by_path("proposal_mlp_fwd")),
         ]
     }
     missing = [k["name"] for k in record["kernels"] if k["launches"] == 0]

@@ -6,22 +6,25 @@ imports no JAX:
     python -m pytest tests/test_torch_cuda_graph.py -m cuda --noconftest
 
 A train step of a small proposal pipeline with the NeRF-MLP on K1 / K3
-(bfloat16, the widths the kernels are compiled for: 256 / 128) runs three
+(bfloat16, the widths the kernels are compiled for: 256 / 128; the two
+ProposalMLPs at K7's 128) runs three
 times from the same start: eagerly (``make_train_step``), and as one
 dispatch of the fused trainer (``make_train_step_fused``: the first step
 eager on the capture's stream, then the captured graph replayed). The
 replayed steps must equal the eager ones bit for bit, K1 and K3 must be
-counted once per replay (K6 twice: one per proposal), and the packed
-weights must keep their address.
+counted once per replay (K6 twice: one per proposal; K7 never: a train
+step's ProposalMLPs run their own layers), and the packed weights must keep
+their address.
 
 A served frame of a small proposal and a small multipass pipeline (the
 NeRF-MLPs on K1) runs its chunk body from one captured graph, replayed
 per chunk (``pipelines/chunk_graph.py``): the frame must equal the plain
-per-chunk loop's within 1e-6 (bit for bit expected), K1 must be counted
-once per replay and NeRF-MLP (K6 once per refinement), the service's
-counters must read one capture and ``n_chunks`` replays a frame after the
-warm-up, and after a train step has changed the weights in place the next
-frame must follow the new weights.
+per-chunk loop's within 1e-6 (bit for bit expected; both run K7 for the
+ProposalMLPs), K1 must be counted once per replay and NeRF-MLP (K6 once
+per refinement, K7 once per ProposalMLP), the service's counters must read
+one capture and ``n_chunks`` replays a frame after the warm-up, and after a
+train step has changed the weights in place the next frame must follow the
+new weights, K7's packed weights among them.
 """
 
 from collections import namedtuple
@@ -33,6 +36,7 @@ import torch
 from yanerf_tpu_torch.ops.kernels import launch_count
 from yanerf_tpu_torch.ops.kernels import nerf_mlp_bwd as K3
 from yanerf_tpu_torch.ops.kernels import nerf_mlp_fwd as K1
+from yanerf_tpu_torch.ops.kernels import proposal_mlp_fwd as K7
 from yanerf_tpu_torch.pipelines import PIPELINES
 from yanerf_tpu_torch.runners import TrainState, apis, create_optimizer, make_train_step, make_train_step_fused
 from yanerf_tpu_torch.ops.structures import EvaluationMode
@@ -46,8 +50,8 @@ PIPELINE = dict(
     type="NeRFPipeline", chunk_size_grid=4096, num_passes=3, output_rasterized_mc=False,
     loss_weights={"loss_rgb_mse": 1.0, "loss_proposal": 1.0},
     model=[
-        dict(type="ProposalMLP", n_layers=2, hidden_dim=32, compute_dtype="bfloat16"),
-        dict(type="ProposalMLP", n_layers=2, hidden_dim=32, compute_dtype="bfloat16"),
+        dict(type="ProposalMLP", n_layers=2, hidden_dim=128, compute_dtype="bfloat16"),
+        dict(type="ProposalMLP", n_layers=2, hidden_dim=128, compute_dtype="bfloat16"),
         dict(type="NeRFMLP", n_layers=4, input_skips=[2], compute_dtype="bfloat16", use_pallas_train=True),
     ],
     ray_sampler=dict(type="RaySampler", image_height=HW, image_width=HW, min_depth=2.0, max_depth=6.0,
@@ -123,6 +127,7 @@ def _frame_cfg(kind):
 
 FRAME_KINDS = {"proposal": 1, "multipass": 2}  # NeRF-MLPs a chunk
 REFINEMENTS = {"proposal": 2, "multipass": 1}  # K6's launches a chunk
+PROPOSALS = {"proposal": 2, "multipass": 0}  # K7's launches a chunk
 N_CHUNKS = HW * HW * PIPELINE["ray_sampler"]["n_pts_per_ray_evaluation"] // PIPELINE["chunk_size_grid"]
 POSE = (orbit_pose(70.0, -30.0, 4.0) @ CAM_CALIBRATION)[:3, :4].astype(np.float32)
 
@@ -164,12 +169,14 @@ def test_replayed_frame_equals_the_eager_loop(cuda_device, kind):
     stats = service.stats()["chunk_loop"]
     assert (stats["keys"], stats["captures"], stats["eager_chunks"], stats["replayed_chunks"]) == (1, 1, 1,
                                                                                                    N_CHUNKS - 1)
+    k7 = {"proposal_mlp_fwd.launches": PROPOSALS[kind]} if PROPOSALS[kind] else {}
     assert launch_count.per_replay(pipeline._chunk_graph.tally) == {"nerf_mlp_fwd.launches": FRAME_KINDS[kind],
-                                                                    "sample_pdf.launches": REFINEMENTS[kind]}
-    K1.launches = 0
+                                                                    "sample_pdf.launches": REFINEMENTS[kind], **k7}
+    K1.launches = K7.launches = 0
     rgb, depth = service.render(POSE, 40.0)
     torch.cuda.synchronize()
     assert K1.launches == N_CHUNKS * FRAME_KINDS[kind], "one launch per replay and NeRF-MLP"
+    assert K7.launches == N_CHUNKS * PROPOSALS[kind], "one launch per replay and ProposalMLP"
     stats = service.stats()["chunk_loop"]
     assert (stats["keys"], stats["captures"], stats["replayed_chunks"]) == (1, 1, 2 * N_CHUNKS - 1)
     eager_rgb, eager_depth = _eager_frame(pipeline, POSE)
@@ -194,5 +201,9 @@ def test_frame_after_a_train_step_follows_the_new_weights(cuda_device, kind):
     rgb, depth = service.render(POSE, 40.0)
     eager_rgb, eager_depth = _eager_frame(state.pipeline, POSE)
     assert _gap(rgb, before) > 1e-4, "the replayed frame still shows the old weights"
+    for fn in state.pipeline.implicit_functions[:PROPOSALS[kind]]:  # the buffers the replays read: a fresh pack's
+        fresh = K7.pack_weights(fn)
+        assert torch.equal(fn._packed[1].flat, fresh.flat) and torch.equal(fn._packed[1].biases_flat,
+                                                                           fresh.biases_flat)
     assert _gap(rgb, eager_rgb) <= 1e-6 and _gap(depth, eager_depth) <= 1e-6
     assert service.stats()["chunk_loop"]["captures"] == 1, "weights written in place keep the graph"

@@ -235,7 +235,7 @@ def test_fake_implementations_give_the_shapes():
 
 def test_launch_totals_list_the_hash_kernels_once_they_launched(monkeypatch):
     every = {"nerf_mlp_fwd", "nerf_mlp_fwd_pipelined", "nerf_mlp_bwd", "hash_encode_fwd", "hash_encode_bwd",
-             "sample_pdf"}
+             "sample_pdf", "proposal_mlp_fwd"}
     monkeypatch.setattr(hash_encode, "launches", 0)
     monkeypatch.setattr(hash_encode, "bwd_launches", 0)
     totals = launch_count.totals()

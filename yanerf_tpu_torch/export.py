@@ -15,11 +15,13 @@ by ``torch.export.save`` as one ``.pt2`` file. The consumer does not need
 the config system, the registries or the checkpoint layout. The JAX
 artifact embeds its Mosaic kernel; this one names the operators
 ``yanerf_tpu_torch::nerf_mlp_fwd`` (``ops/kernels/nerf_mlp_fwd.py``),
-``yanerf_tpu_torch::sample_pdf`` (``ops/kernels/sample_pdf.py``) and, for a
-hash grid on the card, ``yanerf_tpu_torch::hash_encode_fwd``
-(``ops/kernels/hash_encode.py``), and :func:`load_artifact` brings them:
-importing those modules registers the operators, whose CUDA kernels (K1,
-K6, K4) are built from ``csrc/`` at their first launch.
+``yanerf_tpu_torch::sample_pdf`` (``ops/kernels/sample_pdf.py``) and, on
+the card, for a hash grid ``yanerf_tpu_torch::hash_encode_fwd``
+(``ops/kernels/hash_encode.py``) and for a bfloat16 ProposalMLP
+``yanerf_tpu_torch::proposal_mlp_fwd`` (``ops/kernels/proposal_mlp_fwd.py``),
+and :func:`load_artifact` brings them: importing those modules registers
+the operators, whose CUDA kernels (K1, K6, K4, K7) are built from ``csrc/``
+at their first launch.
 
 The chunk loop stays a loop, as ``lax.map`` does in the JAX artifact: the
 pipeline maps its chunk body over the stacked chunk axis
@@ -31,8 +33,8 @@ and a NeRFMLP with ``use_pallas`` is one operator node in the body
 are recorded there.
 
 The pipeline's parameters are not inputs of the program: every NeRFMLP on
-the kernel holds its packed weights as two buffers
-(``NeRFMLP.bake_packed_weights``) and every other parameter becomes a
+the kernel and every ProposalMLP on K7 holds its packed weights as two
+buffers (``bake_packed_weights``) and every other parameter becomes a
 buffer.
 ``--checkpoint`` takes a reference-layout ``.pth``, a checkpoint of the
 port's runner or an ``.npz`` of the JAX param tree (``serve.load_pipeline``).
@@ -73,12 +75,16 @@ class RenderFn(nn.Module):
 
 
 def bake(pipeline: nn.Module) -> nn.Module:
-    """Turn ``pipeline``'s parameters into buffers, in place: the packed weights of each NeRFMLP on the kernel,
-    every other parameter as it is."""
+    """Turn ``pipeline``'s parameters into buffers, in place: the packed weights of each NeRFMLP on the kernel and
+    of each bfloat16 ProposalMLP on the card (K7), every other parameter as it is."""
     from .models.nerf_mlp import NeRFMLP
+    from .models.proposal_mlp import ProposalMLP
 
     for module in pipeline.modules():
         if isinstance(module, NeRFMLP) and module.use_pallas and module.input_xyz and module.latent_dim == 0:
+            module.bake_packed_weights()
+        elif isinstance(module, ProposalMLP) and module.compute_dtype == torch.bfloat16 and \
+                module.density_layer.w.is_cuda:
             module.bake_packed_weights()
     for module in pipeline.modules():
         for name, param in list(module._parameters.items()):
@@ -144,7 +150,8 @@ def load_artifact(path: Union[str, Path]) -> nn.Module:
     Needs torch and the port's ``ops.kernels`` modules, nothing of the
     config system.
     """
-    from .ops.kernels import hash_encode, nerf_mlp_fwd, sample_pdf  # noqa: F401  (register the program's operators)
+    # registers the program's operators
+    from .ops.kernels import hash_encode, nerf_mlp_fwd, proposal_mlp_fwd, sample_pdf  # noqa: F401
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.export.load(str(path)).module()

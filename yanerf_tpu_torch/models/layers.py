@@ -9,12 +9,15 @@ The bf16 policy is the JAX package's: under a low-precision compute dtype
 the inputs, weights and bias are cast to it and the bias is added in it.
 ``concat_global_codes`` is the latent conditioning every model family
 shares: per-batch codes broadcast onto the point embedding.
+``PackedWeights`` keeps the weights a hand-written kernel reads (NeRFMLP's
+K1 / K3, ProposalMLP's K7).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 import torch.nn as nn
@@ -95,3 +98,58 @@ def concat_global_codes(embeds: torch.Tensor, global_codes: Optional[torch.Tenso
     broadcast_shape = (embeds.shape[0],) + (1,) * (embeds.ndim - 2) + (latent_dim,)
     codes = global_codes.reshape(broadcast_shape).expand(*embeds.shape[:-1], latent_dim).to(embeds.dtype)
     return torch.cat([embeds, codes], dim=-1)
+
+
+class PackedWeights:
+    """Mixed into a model whose kernel reads its weights from a pack: packed once, then rewritten in place.
+
+    The model defines ``_pack()``, a fresh pack of its current weights (a
+    dataclass with the buffers ``flat`` and ``biases_flat``), and
+    ``_repack(packed)``, its current weights written into ``packed``'s
+    buffers. The buffers keep their addresses for the module's life on one
+    device: the kernels cache their tensor maps by address, and a captured
+    CUDA graph reads the buffers it was captured with. They are rewritten
+    when ``refresh`` is set (the training forward, which repacks
+    unconditionally, also inside a captured step where no Python runs) or
+    when a parameter was replaced or written to in place since
+    (``_version``), or after :meth:`params_changed`. A move to another device
+    packs anew. ``_bake`` holds the pack as the buffers ``packed_flat`` /
+    ``packed_biases`` in place of the parameters, for a traced program.
+    """
+
+    _packed = None  # (key, pack) of the kernel's weights
+    _baked = None  # the pack whose buffers replaced the parameters
+
+    def packed_weights(self, refresh: bool = False):
+        """The kernel's packed weights, brought up to date."""
+        if self._baked is not None:
+            return dataclasses.replace(self._baked, flat=self.packed_flat, biases_flat=self.packed_biases)
+        params = list(self.parameters())
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        if self._packed is None or self._packed[1].flat.device != params[0].device:
+            self._packed = (key, self._pack())
+        elif refresh or self._packed[0] != key:
+            self._packed = (key, self._repack(self._packed[1]))
+        return self._packed[1]
+
+    def _bake(self, layers: Iterable[nn.Module]):
+        """Register the pack's buffers and drop ``layers``' parameters; returns the pack."""
+        packed = self.packed_weights()
+        self.register_buffer("packed_flat", packed.flat)
+        self.register_buffer("packed_biases", packed.biases_flat)
+        for layer in layers:
+            layer._parameters.clear()
+        self._baked, self._packed = packed, None
+        return packed
+
+    def params_changed(self) -> None:
+        """The parameters changed where ``_version`` cannot see it (a graph replay): repack at the next use."""
+        if self._packed is not None:
+            self._packed = (None, self._packed[1])
+
+    def current_packed_weights(self):
+        """The packed weights brought up to date (:meth:`packed_weights`) if this module has packed them, else
+        None: a captured graph that reads them runs this host check before its replays."""
+        if self._packed is None and self._baked is None:
+            return None
+        return self.packed_weights()

@@ -39,7 +39,6 @@ the switch says.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -51,7 +50,8 @@ from ..ops.kernels import nerf_mlp_fwd as fused
 from ..ops.kernels.fused_mlp import fused_nerf_mlp
 from ..ops.rays import contract_points, ray_bundle_to_ray_points
 from .builder import MODELS
-from .layers import Linear, concat_global_codes, init_linear_default, init_linear_xavier, linear, linear_with_repeat
+from .layers import (Linear, PackedWeights, concat_global_codes, init_linear_default, init_linear_xavier, linear,
+                     linear_with_repeat)
 from .mlp import MLPWithInputSkips
 
 
@@ -61,7 +61,7 @@ def as_torch_dtype(name) -> torch.dtype:
 
 
 @MODELS.register_module()
-class NeRFMLP(nn.Module):
+class NeRFMLP(PackedWeights, nn.Module):
     def __init__(
         self,
         n_layers: int = 8,
@@ -128,30 +128,13 @@ class NeRFMLP(nn.Module):
             color_layers.append(init_linear_default(Linear(n_hidden_neurons_dir, n_hidden_neurons_dir), generator))
         color_layers.append(init_linear_default(Linear(n_hidden_neurons_dir, color_dim), generator))
         self.color_layer = nn.ModuleList(color_layers)
-        self._packed = None  # (key, PackedNerfMlp) of the kernel's weights
-        self._baked: Optional[fused.PackedNerfMlp] = None  # the pack whose buffers replaced the parameters
 
-    # -- the fused kernel's weights -------------------------------------------
-    def packed_weights(self, refresh: bool = False) -> fused.PackedNerfMlp:
-        """The kernel-order, padded weights: packed once, then rewritten in place.
+    # -- the fused kernel's weights (``PackedWeights``: kernel order, padded) ---------
+    def _pack(self) -> fused.PackedNerfMlp:
+        return fused.pack_weights(self)
 
-        The buffers keep their addresses for the module's life on one
-        device: the kernels cache their tensor maps by address, and a
-        captured CUDA graph reads the buffers it was captured with. They are
-        rewritten (``repack_weights_``) when ``refresh`` is set (the
-        training forward, which repacks unconditionally, also inside a
-        captured step where no Python runs) or when a parameter was
-        replaced or written to in place since (``_version``), or after
-        :meth:`params_changed`. A move to another device packs anew.
-        """
-        if self._baked is not None:
-            return dataclasses.replace(self._baked, flat=self.packed_flat, biases_flat=self.packed_biases)
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._packed is None or self._packed[1].flat.device != self.density_layer.w.device:
-            self._packed = (key, fused.pack_weights(self))
-        elif refresh or self._packed[0] != key:
-            self._packed = (key, fused.repack_weights_(self._packed[1], self))
-        return self._packed[1]
+    def _repack(self, packed: fused.PackedNerfMlp) -> fused.PackedNerfMlp:
+        return fused.repack_weights_(packed, self)
 
     def bake_packed_weights(self) -> None:
         """Hold the kernel's packed weights as the buffers ``packed_flat`` / ``packed_biases``, in place of the
@@ -163,25 +146,8 @@ class NeRFMLP(nn.Module):
         """
         if not (self.use_pallas and self.input_xyz and self.latent_dim == 0):
             raise ValueError("only a NeRFMLP on the fused kernel (use_pallas, no latent) can bake its weights")
-        packed = self.packed_weights()
-        self.register_buffer("packed_flat", packed.flat)
-        self.register_buffer("packed_biases", packed.biases_flat)
-        for layer in fused.kernel_layers(self):
-            layer._parameters.clear()
-        self._baked, self._packed = packed, None
+        packed = self._bake(fused.kernel_layers(self))
         self._baked_layout = packed.op_layout  # ints and int lists: all a traced launch reads besides the buffers
-
-    def params_changed(self) -> None:
-        """The parameters changed where ``_version`` cannot see it (a graph replay): repack at the next use."""
-        if self._packed is not None:
-            self._packed = (None, self._packed[1])
-
-    def current_packed_weights(self) -> Optional[fused.PackedNerfMlp]:
-        """The packed weights brought up to date (:meth:`packed_weights`) if this module has packed them, else
-        None: a captured graph that reads them runs this host check before its replays."""
-        if self._packed is None and self._baked is None:
-            return None
-        return self.packed_weights()
 
     # -- forward ----------------------------------------------------------------
     def _get_colors(self, features: torch.Tensor, rays_directions: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,7 @@
 | ``hash_encode_fwd`` (K4) | none: XLA gathers of ``yanerf_tpu/models/hash_grid.py`` | ``csrc/hash_encode.cu`` |
 | ``hash_encode_bwd`` (K5) | none: its scatter-adds (the tables' gradient) | ``csrc/hash_encode.cu`` |
 | ``sample_pdf`` (K6) | none: XLA's mask of ``yanerf_tpu/ops/sample_pdf.py`` | ``csrc/sample_pdf.cu`` |
+| ``proposal_mlp_fwd`` (K7) | none: XLA's layers of ``yanerf_tpu/models/proposal_mlp.py`` | ``csrc/proposal_mlp_fwd.cu`` |
 
 K1, K2 and K3's recomputed forward run one tile engine,
 ``csrc/nerf_mlp_tile.cuh`` (on ``hopper.cuh``); K1 and K2 give the same
@@ -24,9 +25,12 @@ a traced program (``export.py``) records them by name; K3 is called by
 ``hash_encode.HashEncode``, which ``HashGridNeRF`` runs on every CUDA
 point; they raise for widths they do not take (``hash_encode.takes_widths``). K6 is
 the operator ``yanerf_tpu_torch::sample_pdf``, which ``ops/sample_pdf.py``
-calls on every device.
+calls on every device. K7 is the operator
+``yanerf_tpu_torch::proposal_mlp_fwd``, which a bfloat16 ``ProposalMLP``
+runs on CUDA points with no gradient to carry; it raises for widths it does
+not take (``proposal_mlp_fwd.takes_widths``).
 
 The device picks every kernel, and no option does: on CUDA tensors the
 kernel, on CPU tensors its plain version (K1, K3, K6) or the model's plain
-path (K4, K5).
+path (K4, K5, K7; K7 also under autograd and for a float32 model).
 """

@@ -3,7 +3,8 @@
 Each wrapper keeps the launches of its kernel in a module global
 (``nerf_mlp_fwd.launches``, ``nerf_mlp_fwd.pipelined_launches``,
 ``nerf_mlp_bwd.launches``, ``hash_encode.launches``,
-``hash_encode.bwd_launches``, ``sample_pdf.launches``) and adds to it through :func:`count` where it
+``hash_encode.bwd_launches``, ``sample_pdf.launches``,
+``proposal_mlp_fwd.launches``) and adds to it through :func:`count` where it
 launches. A wrapper called while its stream is being captured into a CUDA
 graph launches nothing: the kernel runs at every replay of the graph. So
 under :func:`capturing` a call is noted in the capture's tally instead, and
@@ -61,8 +62,9 @@ def per_replay(tally: Counter) -> Dict[str, int]:
 
 def totals() -> Dict[str, int]:
     """Every kernel's launches in this process so far, by kernel."""
-    from . import hash_encode, nerf_mlp_bwd, nerf_mlp_fwd, sample_pdf
+    from . import hash_encode, nerf_mlp_bwd, nerf_mlp_fwd, proposal_mlp_fwd, sample_pdf
 
     return {"nerf_mlp_fwd": nerf_mlp_fwd.launches, "nerf_mlp_fwd_pipelined": nerf_mlp_fwd.pipelined_launches,
             "nerf_mlp_bwd": nerf_mlp_bwd.launches, "hash_encode_fwd": hash_encode.launches,
-            "hash_encode_bwd": hash_encode.bwd_launches, "sample_pdf": sample_pdf.launches}
+            "hash_encode_bwd": hash_encode.bwd_launches, "sample_pdf": sample_pdf.launches,
+            "proposal_mlp_fwd": proposal_mlp_fwd.launches}
